@@ -1,0 +1,139 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C launcher.  ``nvcc``
+compiles it for ``sm_90a`` into ``acvm_tpu_torch/_build/<name>-<hash>.so`` at
+first use (the hash covers the sources and the flags, so an edited source
+rebuilds); ``ctypes`` loads it.  Nothing is built or loaded at import time, and
+a failed build raises: there is no other route for a CUDA tensor.
+
+``LAUNCHES`` counts kernel launches per kernel name.  A wrapper adds one where
+it launches its kernel and nowhere else, so a run can show which kernels its
+path really went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS = ("level", "mul", "pow", "dot")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+# C launcher of each kernel: (symbol, argtypes).  Without argtypes ctypes would
+# pass every pointer as a 32-bit int.
+_SIGNATURES = {
+    "mul": ("acvm_mont_mul", [_P, _P, _P, _LL, _I, _I, _P, _P]),
+    "pow": ("acvm_mont_pow", [_P, _P, _LL, _P, _P, _P]),
+    "dot": ("acvm_mont_dot", [_P] * 8 + [_LL, _LL, _I, _I, _P, _P]),
+    "level": ("acvm_fused_level", [_P, _P, _LL, _LL, _I, _I, _P, _P]),
+    # A probe of the card's multiply-add rate; no path of the solver runs it.
+    "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_path(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA kernels "
+        "of acvm_tpu_torch cannot be built on this machine"
+    )
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for path in (source_path(name), CSRC / "field.cuh"):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS, extra_flags: List[str] = ()) -> Dict[str, object]:
+    """Compile the named kernels that are not built yet, all ``nvcc`` runs
+    started together.  Returns ``{"seconds": wall time, "built": [names],
+    "log": {name: compiler output}}``; raises if any compile fails."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists() and not extra_flags:
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC),
+               "-o", str(tmp), str(source_path(name))]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out, cmd,
+        )
+    log = {}
+    failed = []
+    for name, (proc, tmp, out, cmd) in procs.items():
+        text, _ = proc.communicate()
+        log[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "built": sorted(procs), "log": log}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if need be."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C launcher of kernel ``name`` and count the launch.  The
+    launcher returns ``cudaGetLastError()``: a refused launch raises here."""
+    fn = getattr(load(name), _SIGNATURES[name][0])
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch: cudaError {err}")
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1

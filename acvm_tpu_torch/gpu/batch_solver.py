@@ -1,0 +1,540 @@
+"""Batched witness solver: executes a `Plan` over N circuit instances.
+
+State per batch:
+
+* ``W``    — (num_witnesses, B, 8) int32: the witness-major panel of
+  standard-form values, 8 x 32-bit limbs each (uint32 bit patterns);
+* ``ok``   — (B,) bool, per-instance satisfiability flag (the data-parallel
+  analogue of the reference's UnsatisfiedConstrain errors — a failing instance
+  flips its flag instead of aborting the batch);
+* ``fail`` — (B,) int32, the smallest failing opcode index (``FAIL_NONE`` when
+  satisfied).
+
+Every level kind works on the one panel layout.  Arith-static levels run the
+fused level kernel in place; dynamic-denominator solves and assert-zero checks
+gather their operands and run the expression-dot, multiply and power kernels.
+PyTorch runs eagerly, so a solve is a Python loop over the plan's levels.
+
+This slice solves arithmetic circuits.  Anything else a plan can hold — range
+and logic gates, directives, hashes, EC gadgets, memory blocks, Brillig, host
+stages — and every ingest form or scaling option not listed in
+:meth:`BatchSolver.solve` raises ``NotImplementedError`` naming what is
+missing, at construction where it can be known then.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..acir.witness import Witness, WitnessMap
+from ..convert import limbs32_to_limbs16
+from ..fields.field import FieldElement
+from ..fields.kernels import LIMBS, ints_to_limbs32, limbs32_to_ints, mont_dot
+from ..fields.torch_ops import LimbContext
+from .fused_level import fused_level_call, pack_level_desc
+from .planner import ExprPlan, Level, Plan
+
+# Per-instance first-failure sentinel: "no failure yet".  The batch path's
+# analogue of the reference's located errors (acvm/src/pwg/mod.rs:282-299):
+# every kernel that can flip an instance's ok flag also records the smallest
+# failing opcode index, which BatchResult resolves to an OpcodeLocation +
+# assert message.
+FAIL_NONE = np.int32(2**31 - 1)
+
+# Level fields this slice does not run yet, with what each one waits for.
+_UNPORTED_LEVEL_FIELDS = {
+    "range_checks": "range checks",
+    "logic": "AND/XOR gates",
+    "quotient": "quotient directives",
+    "to_le_radix": "to-le-radix directives",
+    "hashes": "hash gadgets",
+    "ec_fixed_base": "fixed-base scalar multiplication",
+    "ec_pedersen": "Pedersen commitments",
+    "schnorr": "Schnorr verification",
+    "ecdsa": "ECDSA verification",
+    "zero_out": "recursive-aggregation outputs",
+    "memory": "memory blocks",
+    "brillig": "Brillig blocks",
+    "host": "host stages",
+}
+
+
+# Gates per chunk of a level's batch inversion.  A chunk of g gates costs 2g
+# sequential small multiply launches (about 37 us each from Python) and one
+# Fermat chain per chunk and instance (about 11 ns each on an H100), so a
+# level of E gates over B instances takes ~ 74 us * g + E * B * 11 ns / g:
+# least near g = 25 at E = B = 2,048.  Any chunking gives the same bits.
+_DYN_INV_CHUNK = 32
+
+
+def note_failures(fail: torch.Tensor, bad: torch.Tensor, op_idx: torch.Tensor) -> torch.Tensor:
+    """Fold per-gate failure flags into the per-instance first-failure index.
+
+    fail: (B,) int32; bad: (G, B) bool; op_idx: (G,) int32 opcode indices."""
+    none = torch.full((), int(FAIL_NONE), dtype=torch.int32, device=fail.device)
+    cand = torch.where(bad, op_idx[:, None], none)
+    return torch.minimum(fail, cand.min(dim=0).values)
+
+
+# ---------------------------------------------------------------------------
+# Packing (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def pack_exprs(exprs: List[ExprPlan]) -> Dict[str, np.ndarray]:
+    """Dense index / coefficient arrays of E expressions, padded to the widest:
+    lin_idx (E, n), lin_coeff (E, n, 8), mul_idx (E, m, 2), mul_coeff
+    (E, m, 8), qc (E, 8); coefficients as int32 limbs.  Padding terms carry a
+    zero coefficient and index 0."""
+    E = len(exprs)
+    n = max((len(e.lin_idx) for e in exprs), default=0)
+    m = max((len(e.mul_idx) for e in exprs), default=0)
+    lin_idx = np.zeros((E, n), dtype=np.int32)
+    lin_c = np.zeros((E, n), dtype=object)
+    mul_idx = np.zeros((E, m, 2), dtype=np.int32)
+    mul_c = np.zeros((E, m), dtype=object)
+    for i, e in enumerate(exprs):
+        k = len(e.lin_idx)
+        lin_idx[i, :k] = e.lin_idx
+        lin_c[i, :k] = e.lin_coeff_r
+        k = len(e.mul_idx)
+        if k:
+            mul_idx[i, :k] = e.mul_idx
+            mul_c[i, :k] = e.mul_coeff_r2
+    return dict(
+        lin_idx=lin_idx,
+        lin_coeff=ints_to_limbs32(lin_c.reshape(-1)).reshape(E, n, LIMBS),
+        mul_idx=mul_idx,
+        mul_coeff=ints_to_limbs32(mul_c.reshape(-1)).reshape(E, m, LIMBS),
+        qc=ints_to_limbs32(e.qc for e in exprs).reshape(E, LIMBS),
+    )
+
+
+def _pack_to_device(pack: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Expression pack -> tensors: int64 gather indices, int32 coefficients."""
+    out = {}
+    for key, arr in pack.items():
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if key.endswith("_idx"):
+            t = t.to(torch.int64)
+        out[key] = t.to(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Level kinds (operate on tensors of the solver's device)
+# ---------------------------------------------------------------------------
+
+
+def eval_exprs(ctx: LimbContext, W: torch.Tensor, pack, scale=None) -> torch.Tensor:
+    """Evaluate E packed expressions for every instance: (E, B, 8).
+
+    The witness gathers are plain tensor ops; the whole per-gate chain —
+    operand multiplies, the witness*witness pre-multiply of quadratic terms,
+    the modular-add fold, q_c and the optional final ``scale`` multiply — is
+    ONE call of :func:`acvm_tpu_torch.fields.kernels.mont_dot` (the fused dot
+    kernel for a CUDA panel, the op-by-op plain version for a CPU panel).
+
+    ``scale`` (E, 8 limbs, Montgomery form) multiplies the accumulated value.
+    """
+    B = W.shape[1]
+    E = pack["qc"].shape[0]
+    n = pack["lin_idx"].shape[1]
+    m = pack["mul_idx"].shape[1]
+    if not (n or m):
+        # Constant-only panel: nothing to gather or multiply.
+        acc = pack["qc"][:, None, :].expand(E, B, LIMBS).contiguous()
+        if scale is not None:
+            acc = ctx.mont_mul(scale[:, None, :], acc)
+        return acc
+    vals = v1 = v2 = None
+    if n:
+        vals = W.index_select(0, pack["lin_idx"].reshape(-1)).reshape(E, n, B, LIMBS)
+    if m:
+        v1 = W.index_select(0, pack["mul_idx"][:, :, 0].reshape(-1)).reshape(E, m, B, LIMBS)
+        v2 = W.index_select(0, pack["mul_idx"][:, :, 1].reshape(-1)).reshape(E, m, B, LIMBS)
+    return mont_dot(
+        vals, pack["lin_coeff"] if n else None,
+        v1, v2, pack["mul_coeff"] if m else None,
+        pack["qc"], scale, ctx.params,
+    )
+
+
+def run_arith_solve_static(ctx, W, ok, buf):
+    # -num / den_const, with the division folded into the packed coefficients
+    # at pack time (see _pack_level): one fused in-place level call.
+    W = fused_level_call(W, buf["desc"], ctx.params, buf["t1"], buf["t2"])
+    return W, ok
+
+
+def run_arith_solve_dyn(ctx, W, ok, fail, buf):
+    # -num comes out of the dot itself: its final scale multiply by -1 (in
+    # Montgomery form) negates in the kernel, where a separate neg would be a
+    # chain of elementwise passes over the (E, B) panel.
+    neg_num = eval_exprs(ctx, W, buf["num"], scale=buf["minus_one"])  # (E, B, 8)
+    den = eval_exprs(ctx, W, buf["den"])
+    den_zero = ctx.is_zero(den)
+    num_zero = ctx.is_zero(neg_num)
+    # One Fermat chain amortized over the level's gate axis (Montgomery's
+    # trick) instead of a 254-squaring chain per gate.
+    inv_m = ctx.mont_batch_inv(  # den^-1 * R
+        ctx.to_mont(den), axis=0, max_scan=_DYN_INV_CHUNK
+    )
+    val = ctx.mont_mul(neg_num, inv_m)  # -num/den
+    val = torch.where(den_zero[..., None], torch.zeros_like(val), val)
+    # den == 0 & num != 0 -> unsatisfied (arithmetic.rs:46-54).
+    bad = den_zero & ~num_zero
+    ok = ok & ~bad.any(dim=0)
+    fail = note_failures(fail, bad, buf["op_idx"])
+    W.index_copy_(0, buf["u_idx"], val)
+    return W, ok, fail
+
+
+def run_arith_check(ctx, W, ok, fail, buf):
+    val = eval_exprs(ctx, W, buf["expr"])
+    bad = ~ctx.is_zero(val)
+    fail = note_failures(fail, bad, buf["op_idx"])
+    return W, ok & ~bad.any(dim=0), fail
+
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Segment:
+    levels: List[dict]  # packed device buffers per level
+
+
+class BatchSolver:
+    def __init__(
+        self,
+        plan: Plan,
+        mesh=None,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchSolver: sharding the batch over a mesh is not ported"
+            )
+        self.plan = plan
+        self.device = torch.device(device)
+        self.ctx = LimbContext(plan.params, self.device)  # raises without a card
+        self.segments = self._build_segments()
+
+    # -- packing ------------------------------------------------------------
+    def _pack_level(self, level: Level) -> dict:
+        for field, what in _UNPORTED_LEVEL_FIELDS.items():
+            if getattr(level, field):
+                raise NotImplementedError(
+                    f"BatchSolver: {what} (Level.{field}) are not ported; this "
+                    "slice solves arithmetic gates only"
+                )
+        dev = self.device
+        packed: dict = {"kinds": []}
+
+        def idx_tensor(values, dtype):
+            return torch.tensor(list(values), dtype=dtype, device=dev)
+
+        static_gates = [g for g in level.arith_solve if g.neg_inv_den_r is not None]
+        dyn_gates = [g for g in level.arith_solve if g.neg_inv_den_r is None]
+        if static_gates:
+            packed["kinds"].append("arith_static")
+            # Fold the static -1/den scale into the packed coefficients (host
+            # ints), so the device evaluates plain `qc' + sum c'_i v_i` with no
+            # per-gate scale multiply chain in the hot kernel.
+            p = self.plan.params.modulus
+            r_inv = pow(self.plan.params.r % p, p - 2, p)
+            folded = []
+            for g in static_gates:
+                s = g.neg_inv_den_r * r_inv % p  # -1/den (standard form)
+                e = g.num
+                folded.append(
+                    ExprPlan(
+                        lin_idx=e.lin_idx,
+                        lin_coeff_r=[c * s % p for c in e.lin_coeff_r],
+                        mul_idx=e.mul_idx,
+                        mul_coeff_r2=[c * s % p for c in e.mul_coeff_r2],
+                        qc=e.qc * s % p,
+                    )
+                )
+            num = pack_exprs(folded)
+            desc = pack_level_desc(
+                dict(num=num, u_idx=np.asarray([g.unknown for g in static_gates], np.int32))
+            )
+            packed["arith_static"] = dict(
+                desc=torch.from_numpy(desc).to(dev),
+                t1=num["lin_idx"].shape[1],
+                t2=num["mul_idx"].shape[1],
+            )
+        if dyn_gates:
+            packed["kinds"].append("arith_dyn")
+            # The denominator is itself an expression panel: qc = den_const,
+            # linear terms = the mul-term partners.
+            den = pack_exprs(
+                [
+                    ExprPlan(g.den_dyn_idx, g.den_dyn_coeff_r, [], [], g.den_const)
+                    for g in dyn_gates
+                ]
+            )
+            packed["arith_dyn"] = dict(
+                num=_pack_to_device(pack_exprs([g.num for g in dyn_gates]), dev),
+                den=_pack_to_device(den, dev),
+                u_idx=idx_tensor((g.unknown for g in dyn_gates), torch.int64),
+                op_idx=idx_tensor((g.opcode_index for g in dyn_gates), torch.int32),
+                # -1 in Montgomery form, one row a gate: the dot's scale
+                minus_one=self.ctx.neg(self.ctx.r_limbs).expand(len(dyn_gates), LIMBS).contiguous(),
+            )
+        if level.arith_check:
+            packed["kinds"].append("arith_check")
+            packed["arith_check"] = dict(
+                expr=_pack_to_device(
+                    pack_exprs([g.expr for g in level.arith_check]), dev
+                ),
+                op_idx=idx_tensor(
+                    (g.opcode_index for g in level.arith_check), torch.int32
+                ),
+            )
+        return packed
+
+    def _build_segments(self) -> List[_Segment]:
+        """Levels between host stages form a segment.  Host stages are not
+        ported (``_pack_level`` raises on one), so today there is one segment;
+        the split is kept because it is where they will run."""
+        levels = [self._pack_level(level) for level in self.plan.levels]
+        return [_Segment(levels=levels)] if levels else []
+
+    # -- device execution ---------------------------------------------------
+    def _run_level(self, W, ok, fail, packed):
+        ctx = self.ctx
+        for kind in packed["kinds"]:
+            if kind == "arith_static":
+                W, ok = run_arith_solve_static(ctx, W, ok, packed[kind])
+            elif kind == "arith_dyn":
+                W, ok, fail = run_arith_solve_dyn(ctx, W, ok, fail, packed[kind])
+            elif kind == "arith_check":
+                W, ok, fail = run_arith_check(ctx, W, ok, fail, packed[kind])
+            else:
+                raise AssertionError(kind)
+        return W, ok, fail
+
+    def run_segments(self, state):
+        """Run every level over a device state ``(W, ok, fail)``; the panel is
+        updated in place.  Nothing here waits for the device."""
+        W, ok, fail = state
+        for segment in self.segments:
+            for packed in segment.levels:
+                W, ok, fail = self._run_level(W, ok, fail, packed)
+        return W, ok, fail
+
+    # -- public API ----------------------------------------------------------
+    def initial_state(self, input_values):
+        """Build (W, ok, fail) from per-instance {witness_index: int} dicts or
+        the host columnar form {witness_index: (B,) array}.  ``fail`` starts at
+        the FAIL_NONE sentinel and tracks the first failing opcode index per
+        instance."""
+        B, kwargs = self._pack_host(input_values)
+        return self._finish_initial_state(B, **kwargs)
+
+    def _pack_host(self, input_values):
+        """The pure-host half of :meth:`initial_state`: normalize the inputs
+        into dense numpy buffers WITHOUT touching the device.  Returns
+        (B, kwargs-for-_finish_initial_state)."""
+        p = self.plan.params.modulus
+        if isinstance(input_values, tuple):
+            raise NotImplementedError(
+                "BatchSolver: the packed-matrix input form (witness_indices, "
+                "matrix) is not ported"
+            )
+        if isinstance(input_values, dict):
+            # Columnar form: {witness_index: (B,) array-like}.  Numeric arrays
+            # must hold values < 2^64 (reduced); object arrays take the
+            # arbitrary-precision path.
+            if any(isinstance(a, torch.Tensor) for a in input_values.values()):
+                raise NotImplementedError(
+                    "BatchSolver: device-resident (tensor) input columns are "
+                    "not ported; pass host arrays"
+                )
+            items = sorted((int(w), np.asarray(a)) for w, a in input_values.items())
+            B = len(items[0][1]) if items else 0
+            cols = np.asarray([w for w, _ in items], np.int64)
+            vals = np.zeros((B, len(items), LIMBS), dtype=np.uint32)
+            for k, (w, arr) in enumerate(items):
+                if arr.shape != (B,):
+                    raise ValueError(
+                        f"columnar input {w}: shape {arr.shape} != ({B},)"
+                    )
+                if arr.dtype == object or (
+                    arr.dtype.kind == "i" and (arr < 0).any()
+                ):
+                    # Arbitrary precision, and negatives reduce mod p.
+                    vals[:, k, :] = ints_to_limbs32(int(v) % p for v in arr).view(
+                        np.uint32
+                    )
+                else:
+                    v64 = arr.astype(np.uint64)
+                    vals[:, k, 0] = v64 & np.uint64(0xFFFFFFFF)
+                    vals[:, k, 1] = v64 >> np.uint64(32)
+            return B, dict(cols=cols, vals=vals)
+        B = len(input_values)
+        keys0 = tuple(sorted(input_values[0])) if B else ()
+        uniform = all(tuple(sorted(d)) == keys0 for d in input_values)
+        if B and keys0 and uniform:
+            cols = np.fromiter((int(k) for k in keys0), np.int64, len(keys0))
+            vals = ints_to_limbs32(
+                int(d[k]) % p for d in input_values for k in keys0
+            ).view(np.uint32).reshape(B, len(keys0), LIMBS)
+            return B, dict(cols=cols, vals=vals)
+        # Non-uniform fallback: dense host panel.
+        W = np.zeros((self.plan.num_witnesses, B, LIMBS), dtype=np.uint32)
+        for b, assignment in enumerate(input_values):
+            for w, v in assignment.items():
+                W[int(w), b] = ints_to_limbs32([int(v) % p])[0].view(np.uint32)
+        return B, dict(W=W)
+
+    def panel_bytes(self, B: int) -> int:
+        return self.plan.num_witnesses * B * LIMBS * 4
+
+    def _finish_initial_state(self, B: int, W=None, cols=None, vals=None):
+        """Assemble the device state.  Sparse (cols, vals) input columns are
+        uploaded as they are and scattered into a zero panel ON DEVICE, so the
+        upload is the inputs' size, not the panel's."""
+        dev = self.device
+        nw = self.plan.num_witnesses
+        if dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev)
+            if self.panel_bytes(B) > free:
+                raise NotImplementedError(
+                    f"BatchSolver: a batch of {B} needs a {self.panel_bytes(B)} "
+                    f"byte witness panel and {free} bytes of device memory are "
+                    "free; streaming a batch through several passes is not ported"
+                )
+        if W is not None:
+            Wd = torch.from_numpy(W.view(np.int32)).to(dev)
+        else:
+            Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
+            if cols is not None and cols.size:
+                v = torch.from_numpy(np.ascontiguousarray(vals).view(np.int32)).to(dev)
+                Wd.index_copy_(
+                    0, torch.from_numpy(cols).to(dev), v.permute(1, 0, 2).contiguous()
+                )
+        ok = torch.ones((B,), dtype=torch.bool, device=dev)
+        fail = torch.full((B,), int(FAIL_NONE), dtype=torch.int32, device=dev)
+        return Wd, ok, fail
+
+    @staticmethod
+    def _batch_len(input_values) -> int:
+        if isinstance(input_values, dict):
+            if not input_values:
+                return 0
+            return len(next(iter(input_values.values())))
+        return len(input_values)
+
+    def solve(self, input_values):
+        """Solve a batch.  ``input_values`` is either a sequence of
+        per-instance ``{witness_index: int}`` dicts, or the host columnar form
+        ``{witness_index: (B,) array}``.  The whole batch is one pass: its
+        witness panel must fit device memory."""
+        state = self.initial_state(input_values)
+        W, ok, fail = self.run_segments(state)
+        # ok/fail are tiny (B,) tensors: materialize them now so the solve is
+        # synced (and errors surface here); the big W panel stays on device
+        # until a caller actually reads witnesses (lazy BatchResult.W).
+        return BatchResult(self, W, ok.cpu().numpy(), fail.cpu().numpy())
+
+
+class BatchResult:
+    """Solve result.  The witness panel stays on device until first use:
+    ``.W`` materializes a host copy lazily, so callers that only check flags
+    (or read a few witnesses) never pay a full-panel device->host transfer."""
+
+    def __init__(self, solver: BatchSolver, W, ok, fail=None):
+        self.solver = solver
+        self._W = W  # (NW, B, 8) int32 tensor
+        self._W_host: Optional[np.ndarray] = None
+        self._ok = ok
+        # First failing opcode index per instance (FAIL_NONE when satisfied).
+        self._fail = fail
+
+    def release(self) -> None:
+        """Free the witness panel (device and host copies)."""
+        self._W = None
+        self._W_host = None
+
+    @property
+    def panel(self) -> torch.Tensor:
+        """The (num_witnesses, B, 8) int32 panel on the solver's device."""
+        if self._W is None:
+            raise RuntimeError("witness panel released")
+        return self._W
+
+    @property
+    def W(self) -> np.ndarray:
+        """Host copy in the batch-major (B, num_witnesses, 16) uint32 layout
+        of 16-bit limbs — the layout the JAX package's result exposes."""
+        if self._W_host is None:
+            if self._W is None:
+                raise RuntimeError("witness panel released")
+            rows = limbs32_to_limbs16(self._W.cpu().numpy())  # (NW, B, 16)
+            self._W_host = np.ascontiguousarray(rows.transpose(1, 0, 2))
+        return self._W_host
+
+    @property
+    def ok(self) -> np.ndarray:
+        return self._ok
+
+    @property
+    def fail(self) -> np.ndarray:
+        if self._fail is None:
+            self._fail = np.where(self.ok, FAIL_NONE, 0).astype(np.int32)
+        return self._fail
+
+    def error_location(self, instance: int):
+        """OpcodeLocation of the first failing opcode for one instance, or
+        None if it solved — mirrors the reference's located errors
+        (acvm/src/pwg/mod.rs:282-299)."""
+        from ..acir.circuit import OpcodeLocation
+
+        index = int(self.fail[instance])
+        if index == int(FAIL_NONE):
+            return None
+        return OpcodeLocation.acir(index)
+
+    def error_message(self, instance: int) -> Optional[str]:
+        """Circuit-embedded assert message for the failing opcode, if any."""
+        location = self.error_location(instance)
+        if location is None:
+            return None
+        return self.solver.plan.circuit.get_assert_message(location)
+
+    def witness_ints(self, witness_index: int) -> List[int]:
+        # Read ONE witness row off the device instead of the whole panel.
+        if self._W is None:
+            raise RuntimeError("witness panel released")
+        return limbs32_to_ints(self._W[witness_index].cpu().numpy())  # (B, 8) row
+
+    def instance_ints(self, instance: int) -> List[int]:
+        """Every witness of ONE instance as Python ints (one strided column
+        read off the device, not the whole panel)."""
+        if self._W is None:
+            raise RuntimeError("witness panel released")
+        return limbs32_to_ints(self._W[:, instance].cpu().numpy())  # (NW, 8) column
+
+    def witness_maps(self) -> List[WitnessMap]:
+        """Full per-instance witness maps (for conformance checks)."""
+        if self._W is None:
+            raise RuntimeError("witness panel released")
+        NW, B, _ = self._W.shape
+        ints = limbs32_to_ints(self._W.cpu().numpy())  # flat, witness-major
+        out = []
+        for b in range(B):
+            wm = WitnessMap()
+            for w in range(NW):
+                wm.insert(Witness(w), FieldElement(ints[w * B + b]))
+            out.append(wm)
+        return out

@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and prove it.
+
+    python3 chip_smoke.py            # everything, as below
+    python3 chip_smoke.py --ptxas    # also print ptxas' register/spill report
+    python3 chip_smoke.py --profile  # also one profiled solve per path: device
+                                     # time by kernel, device busy share
+
+Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
+build, a failed launch or a failed comparison raises and the exit code is not
+0.  It prints one JSON object per line:
+
+1. ``device``  card name and power limit (nvidia-smi), torch and CUDA versions;
+2. ``build``   seconds to compile the kernels from ``acvm_tpu_torch/csrc``;
+3. ``int32``   the multiply-add rate the bounds use, and the rate a probe
+               kernel reaches on this card;
+4. ``path_static``  the 2^16-gate BN254 circuit (8 levels x 8,192 gates) over
+               2,048 instances through ``plan_circuit`` -> ``BatchSolver`` ->
+               ``solve``: flags, two full witness maps against a Python-int
+               evaluator, launch counts, timed solves;
+5. ``path_dyn``  the dynamic-denominator circuit (4 x 4,096 gates, half of
+               them with a runtime denominator), same checks; then a small
+               hand-built circuit whose chosen instances must fail;
+6. ``kernels`` every kernel against its plain PyTorch version at the main
+               path's shapes (tolerance 0: integers), its time, its bound and
+               its launches on the two paths;
+7. the raw ``nvidia-smi`` name and power limit;
+8. ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# Data sheet of the H100 SXM: 3.35 TB/s of device memory; 132 SMs x 64 int32
+# lanes x 1.98 GHz boost = one multiply-add per lane per clock at best.
+MEM_BYTES_PER_S = 3.35e12
+INT32_MADDS_PER_S = 132 * 64 * 1.98e9
+MADDS_PER_MONT_MUL = 136  # 8x8 a*b + 8x8 m*p + 8 m = t0*n0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def evaluate(circuit, inputs, p):
+    """Sequential Python-int solve of an arithmetic-only circuit: walk the
+    opcodes in order and solve the one unknown of each.  Returns the witness
+    dict and the index of the first opcode that cannot be satisfied (None)."""
+    w = dict(inputs)
+    failed = None
+    for index, op in enumerate(circuit.opcodes):
+        e = op.expr
+        num, den, unknown = e.q_c.value, 0, None
+        for c, x in e.linear_combinations:
+            if int(x) in w:
+                num += c.value * w[int(x)]
+            else:
+                unknown, den = int(x), den + c.value
+        for c, a, b in e.mul_terms:
+            a, b = int(a), int(b)
+            if a in w and b in w:
+                num += c.value * w[a] * w[b]
+            elif a in w:
+                unknown, den = b, den + c.value * w[a]
+            else:
+                unknown, den = a, den + c.value * w[b]
+        num, den = num % p, den % p
+        if unknown is None:
+            if num and failed is None:
+                failed = index
+        elif den:
+            w[unknown] = (-num * pow(den, -1, p)) % p
+        else:
+            w[unknown] = 0
+            if num and failed is None:
+                failed = index
+    return w, failed
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script has no CPU route", file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from acvm_tpu_torch import build
+    from acvm_tpu_torch.acir import Circuit, Expression, Witness
+    from acvm_tpu_torch.acir import opcodes as ops
+    from acvm_tpu_torch.fields import kernels as fk
+    from acvm_tpu_torch.fields.field import FieldElement
+    from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
+    from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
+    from acvm_tpu_torch.gpu.fused_level import fused_level_call, fused_level_plain
+    from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+
+    dev = torch.device("cuda")
+    P = BN254_FR.modulus
+
+    # -- 1. device ------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "count": torch.cuda.device_count()})
+
+    # -- 2. build -------------------------------------------------------------
+    extra = ["-Xptxas", "-v"] if "--ptxas" in sys.argv else []
+    built = build.build(build.KERNELS + ("imad_rate",), extra_flags=extra)
+    if extra:
+        for name, text in built["log"].items():
+            print(f"--- ptxas {name}\n{text}", flush=True)
+    for name in built["built"]:
+        build.load(name)
+    emit({"build": {"seconds": built["seconds"], "built": built["built"]}})
+
+    def time_ms(fn, reps=7):
+        """Median CUDA-event time of fn() in ms, after two warm-up calls."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    # -- 3. the integer rate ----------------------------------------------------
+    blocks, threads, iters = 132 * 16, 256, 4096
+    probe_out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    probe_ms = time_ms(lambda: build.launch(
+        "imad_rate", probe_out.data_ptr(), blocks, threads, iters,
+        torch.cuda.current_stream().cuda_stream))
+    emit({"int32": {"bound_madds_per_s": INT32_MADDS_PER_S,
+                    "bound_from": "data sheet: 132 SMs x 64 int32 lanes x 1.98 GHz",
+                    "probe_madds_per_s": blocks * threads * iters * 8 / (probe_ms * 1e-3),
+                    "probe": "acvm_tpu_torch/csrc/imad_rate.cu"}})
+
+    def bound(bytes_moved, madds):
+        t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
+        t_ops = madds / INT32_MADDS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    def max_abs_err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+    def random_elements(shape, params, seed, zeros=0):
+        """Uniform canonical field elements as (..., 8) int32 on the card."""
+        rng = np.random.default_rng(seed)
+        n = int(np.prod(shape))
+        raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+        top = (params.modulus >> 224) - 1  # top limb below p's: value < p
+        raw[:, 7] %= np.uint32(top)
+        raw[:zeros] = 0
+        return torch.from_numpy(raw.view(np.int32)).reshape(*shape, 8).to(dev)
+
+    kernels = {}
+
+    # -- 6a. mul ----------------------------------------------------------------
+    n_mul = 1 << 20
+    errs = []
+    for params in (BN254_FR, BLS12_381_FR):
+        a = random_elements((n_mul,), params, 1)
+        b = random_elements((n_mul,), params, 2)
+        for reduce in (True, False):
+            got = fk.mont_mul(a, b, params, reduce=reduce)
+            want = torch.cat([
+                fk.mont_mul_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)], params, reduce)
+                for i in range(0, n_mul, 1 << 18)])
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
+        one = torch.from_numpy(fk.int_to_limbs32(params.r2).copy()).to(dev)
+        errs.append(max_abs_err(fk.mont_mul(a, one, params),
+                                fk.mont_mul(a, one.expand_as(a).contiguous(), params)))
+    a = random_elements((n_mul,), BN254_FR, 1)
+    b = random_elements((n_mul,), BN254_FR, 2)
+    out = torch.empty_like(a)
+    b_ms, b_by = bound(96 * n_mul, MADDS_PER_MONT_MUL * n_mul)
+    kernels["mul"] = dict(
+        name="mul", route="cuda", source="acvm_tpu_torch/csrc/mul.cu",
+        replaces="acvm_tpu/fields/pallas_mul_v2.py:241", shape=f"N={n_mul}",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_mul(a, b, BN254_FR, out=out)),
+        plain_ms=time_ms(lambda: fk.mont_mul_plain(a[: 1 << 18], b[: 1 << 18], BN254_FR), 5) * 4,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, b, out, got, want
+
+    # -- 6b. pow ----------------------------------------------------------------
+    n_pow = 1 << 16
+    a = random_elements((n_pow,), BN254_FR, 3, zeros=5)
+    got = fk.mont_pow(a, P - 2, BN254_FR)
+    want = fk.mont_pow_plain(a, P - 2, BN254_FR)
+    torch.cuda.synchronize()
+    errs = [max_abs_err(got, want), max_abs_err(got[:5], torch.zeros_like(got[:5]))]
+    # a * a^-1 = 1: the product of the Montgomery forms is R.
+    r_one = torch.from_numpy(fk.int_to_limbs32(BN254_FR.r).copy()).to(dev)
+    errs.append(max_abs_err(fk.mont_mul(a[5:], got[5:], BN254_FR), r_one.expand_as(a[5:])))
+    e_small = 0xDEADBEEF12345
+    errs.append(max_abs_err(fk.mont_pow(a, e_small, BN254_FR),
+                            fk.mont_pow_plain(a, e_small, BN254_FR)))
+    b_ms, b_by = bound(64 * n_pow, 335 * MADDS_PER_MONT_MUL * n_pow)
+    kernels["pow"] = dict(
+        name="pow", route="cuda", source="acvm_tpu_torch/csrc/pow.cu",
+        replaces="acvm_tpu/fields/pallas_mul.py:175", shape=f"N={n_pow}, e=p-2",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_pow(a, P - 2, BN254_FR)),
+        plain_ms=time_ms(lambda: fk.mont_pow_plain(a, P - 2, BN254_FR), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, got, want
+
+    # -- 6c. dot ----------------------------------------------------------------
+    E = B = 2048
+    T1, T2 = 2, 1
+    lv = random_elements((E, T1, B), BN254_FR, 4)
+    m1 = random_elements((E, T2, B), BN254_FR, 5)
+    m2 = random_elements((E, T2, B), BN254_FR, 6)
+    lc = random_elements((E, T1), BN254_FR, 7)
+    mc = random_elements((E, T2), BN254_FR, 8)
+    qc = random_elements((E,), BN254_FR, 9)
+    sc = random_elements((E,), BN254_FR, 10)
+    errs = []
+    step = 256  # the plain version widens every operand eightfold
+    for scale in (None, sc):
+        got = fk.mont_dot(lv, lc, m1, m2, mc, qc, scale, BN254_FR)
+        for lo in range(0, E, step):
+            s = slice(lo, lo + step)
+            want = fk.mont_dot_plain(lv[s], lc[s], m1[s], m2[s], mc[s], qc[s],
+                                     None if scale is None else scale[s], BN254_FR)
+            errs.append(max_abs_err(got[s], want))
+    errs.append(max_abs_err(fk.mont_dot(lv, lc, None, None, None, qc, None, BN254_FR)[:step],
+                            fk.mont_dot_plain(lv[:step], lc[:step], None, None, None,
+                                              qc[:step], None, BN254_FR)))
+    errs.append(max_abs_err(fk.mont_dot(None, None, m1, m2, mc, qc, sc, BN254_FR)[:step],
+                            fk.mont_dot_plain(None, None, m1[:step], m2[:step], mc[:step],
+                                              qc[:step], sc[:step], BN254_FR)))
+    s = slice(0, step)
+    dot_bytes = 32 * E * B * (T1 + 2 * T2 + 1) + 32 * E * (T1 + T2 + 1)
+    b_ms, b_by = bound(dot_bytes, (T1 + 2 * T2) * MADDS_PER_MONT_MUL * E * B)
+    sb_ms, _ = bound(dot_bytes + 32 * E, (T1 + 2 * T2 + 1) * MADDS_PER_MONT_MUL * E * B)
+    kernels["dot"] = dict(
+        name="dot", route="cuda", source="acvm_tpu_torch/csrc/dot.cu",
+        replaces="acvm_tpu/fields/pallas_mul_v2.py:353",
+        shape=f"E={E}, B={B}, T1={T1}, T2={T2}", max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, None, BN254_FR)),
+        ms_with_scale=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, sc, BN254_FR)),
+        plain_ms=time_ms(lambda: fk.mont_dot_plain(
+            lv[s], lc[s], m1[s], m2[s], mc[s], qc[s], None, BN254_FR), 5) * (E // step),
+        bound_ms=b_ms, bound_ms_with_scale=sb_ms, bound_by=b_by, library_ms=None)
+    del lv, m1, m2, lc, mc, qc, sc, got, want
+    torch.cuda.empty_cache()
+
+    def check_instances(circuit, inputs, res, instances):
+        """Full witness maps of the given instances against the evaluator."""
+        for b in instances:
+            want, failed = evaluate(circuit, inputs[b], P)
+            assert failed is None, (b, failed)
+            got = res.instance_ints(b)
+            bad = [k for k, v in want.items() if got[k] != v]
+            assert not bad, f"instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
+            assert len(want) == circuit.num_vars() - 1  # every witness but index 0
+
+    def timed_rate(fn, work, reps=5):
+        """work / median wall seconds of fn(), which must end synchronized."""
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return work / statistics.median(times), statistics.median(times)
+
+    def profile(run, wall_seconds):
+        """One run() under torch.profiler: device time by kernel (top 8) and the
+        share of the timed wall clock the device was busy."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        from torch.autograd import DeviceType
+
+        # Kernel rows only: an operator's row repeats its kernels' device time.
+        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        return {"device_busy_ms": busy_ms, "wall_ms": wall_seconds * 1e3,
+                "device_busy_share": busy_ms / (wall_seconds * 1e3),
+                "top": [{"kernel": k[:60], "ms": ms, "calls": n} for k, ms, n in rows[:8]]}
+
+    want_profile = "--profile" in sys.argv
+
+    # -- 4. path_static -----------------------------------------------------------
+    batch = 2048
+    circuit = build_wide_arith_circuit(num_inputs=128, num_levels=8, gates_per_level=8192,
+                                       seed=1234)
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    inputs = random_inputs(circuit, batch)
+    build.reset_launches()
+    res = solver.solve(inputs)
+    torch.cuda.synchronize()
+    static_launches = dict(build.LAUNCHES)
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    assert static_launches["level"] == 8, static_launches
+    check_instances(circuit, inputs, res, (0, batch - 1))
+    gates = len(circuit.opcodes)
+
+    # The level kernel against its plain version on a real level of this
+    # circuit: the one with the most gates (the planner levelizes by
+    # dependency, so its levels are not the generator's 8 x 8,192).
+    static_levels = [lv["arith_static"] for seg in solver.segments for lv in seg.levels]
+    level_gates = [int(lv["desc"].shape[0]) for lv in static_levels]
+    widest = static_levels[level_gates.index(max(level_gates))]
+    desc, t1, t2 = widest["desc"], widest["t1"], widest["t2"]
+    assert desc.shape[0] >= 1024, level_gates
+    W = res.panel
+    n_cmp = 1024
+    out_rows = desc[:n_cmp, t1 + 2 * t2].to(torch.int64)
+    solved = W.index_select(0, out_rows)
+    W.index_fill_(0, desc[:, t1 + 2 * t2].to(torch.int64), 0)  # unsolve the level
+    fused_level_plain(W, desc[:n_cmp], BN254_FR, t1, t2, gate_chunk=128)
+    want = W.index_select(0, out_rows)
+    W.index_fill_(0, out_rows, 0)
+    level_ms = time_ms(lambda: fused_level_call(W, desc, BN254_FR, t1, t2))
+    got = W.index_select(0, out_rows)
+    plain_level_ms = time_ms(
+        lambda: fused_level_plain(W, desc[:128], BN254_FR, t1, t2), 3) * (desc.shape[0] / 128)
+    # What this level's data needs: a term with a zero coefficient is padding
+    # (gates are packed to the widest) and costs neither operand rows nor
+    # products; an operand row shared by several gates is read once.
+    level_E = desc.shape[0]
+    o = t1 + 2 * t2 + 1
+    lin_live = (desc[:, o : o + 8 * t1].reshape(level_E, t1, 8) != 0).any(-1)
+    mul_live = (desc[:, o + 8 * t1 : o + 8 * (t1 + t2)].reshape(level_E, t2, 8) != 0).any(-1)
+    read_rows = torch.unique(torch.cat([
+        desc[:, :t1][lin_live], desc[:, t1 : t1 + 2 * t2].reshape(level_E, t2, 2)[mul_live].reshape(-1),
+    ])).numel()
+    products = int(lin_live.sum() + 2 * mul_live.sum())
+    b_ms, b_by = bound(32 * batch * (read_rows + level_E) + desc.numel() * 4,
+                       products * MADDS_PER_MONT_MUL * batch)
+    kernels["level"] = dict(
+        name="level", route="cuda", source="acvm_tpu_torch/csrc/level.cu",
+        replaces="acvm_tpu/tpu/fused_level.py:177",
+        shape=f"NW={W.shape[0]}, B={batch}, E={level_E}, t1={t1}, t2={t2}",
+        products_per_gate=products / level_E, operand_rows=read_rows,
+        max_abs_err=max(max_abs_err(got, want), max_abs_err(got, solved)),
+        ms=level_ms, plain_ms=plain_level_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del W, got, want, solved
+
+    state = solver.initial_state(inputs)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), batch * gates)
+    rate_full, secs_full = timed_rate(lambda: solver.solve(inputs), batch * gates, reps=3)
+    if want_profile:
+        emit({"profile_static": profile(device_solve_of(solver, state, torch), secs)})
+    emit({"path_static": {
+        "gates": gates, "batch": batch, "levels": len(solver.plan.levels),
+        "level_gates": level_gates, "ok": True, "checked_instances": [0, batch - 1], "launches": static_launches,
+        "plan_and_pack_seconds": plan_seconds,
+        "witness_solves_per_sec": rate, "solve_seconds": secs,
+        "witness_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+        "panel_bytes": solver.panel_bytes(batch),
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}})
+    del state, res, solver
+    torch.cuda.empty_cache()
+
+    # -- 5. path_dyn --------------------------------------------------------------
+    circuit = build_wide_arith_circuit(num_inputs=128, num_levels=4, gates_per_level=4096,
+                                       dyn_fraction=0.5, seed=1234)
+    solver = BatchSolver(plan_circuit(circuit))
+    inputs = random_inputs(circuit, batch)
+    build.reset_launches()
+    res = solver.solve(inputs)
+    torch.cuda.synchronize()
+    dyn_launches = dict(build.LAUNCHES)
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    for name in ("level", "mul", "pow", "dot"):
+        assert dyn_launches[name] > 0, dyn_launches
+    check_instances(circuit, inputs, res, (0, batch - 1))
+    gates = len(circuit.opcodes)
+    state = solver.initial_state(inputs)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), batch * gates)
+    if want_profile:
+        emit({"profile_dyn": profile(device_solve_of(solver, state, torch), secs)})
+    del state, res, solver
+
+    # Chosen failures: opcode 0 solves w4 from w1*w4 + w2 = 0 (runtime
+    # denominator w1), opcode 1 asserts w3 - w2 = 0.
+    fe = FieldElement
+    small = Circuit(
+        current_witness_index=4,
+        opcodes=[
+            ops.OpcodeArithmetic(Expression(
+                mul_terms=[(fe(1), Witness(1), Witness(4))],
+                linear_combinations=[(fe(1), Witness(2))], q_c=fe(0))),
+            ops.OpcodeArithmetic(Expression(
+                linear_combinations=[(fe(1), Witness(3)), (-fe(1), Witness(2))], q_c=fe(0))),
+        ],
+        private_parameters={Witness(1), Witness(2), Witness(3)},
+    )
+    cases = [  # (w1, w2, w3)
+        (0, 5, 5), (2, 4, 7), (0, 0, 0), (0, 3, 9), (3, 6, 6), (P - 1, 1, 1),
+    ]
+    small_inputs = [{1: a, 2: b, 3: c} for a, b, c in cases]
+    res = BatchSolver(plan_circuit(small)).solve(small_inputs)
+    want_fail = []
+    for b, inp in enumerate(small_inputs):
+        w, failed = evaluate(small, inp, P)
+        want_fail.append(int(FAIL_NONE) if failed is None else failed)
+        assert res.witness_ints(4)[b] == w[4], (b, res.witness_ints(4)[b], w[4])
+    assert want_fail == [0, 1, int(FAIL_NONE), 0, int(FAIL_NONE), int(FAIL_NONE)]
+    assert res.fail.tolist() == want_fail, (res.fail.tolist(), want_fail)
+    assert res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+    assert res.error_location(1).acir_index == 1 and res.error_location(2) is None
+    emit({"path_dyn": {
+        "gates": gates, "batch": batch, "dyn_fraction": 0.5, "ok": True,
+        "checked_instances": [0, batch - 1], "launches": dyn_launches,
+        "dyn_solves_per_sec": rate, "solve_seconds": secs,
+        "failing_instances": {"fail": want_fail, "ok": res.ok.tolist()}}})
+
+    # -- 6. kernels, 7. card, 8. verdict -------------------------------------------
+    rows = []
+    for name in ("level", "mul", "pow", "dot"):
+        row = kernels[name]
+        assert row["max_abs_err"] == 0, (name, row["max_abs_err"])
+        row["launches_static"] = static_launches[name]
+        row["launches_dyn"] = dyn_launches[name]
+        row["launches"] = static_launches[name] + dyn_launches[name]
+        assert row["launches"] > 0, name
+        rows.append(row)
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def device_solve_of(solver, state, torch):
+    def run():
+        solver.run_segments(state)
+        torch.cuda.synchronize()
+    return run
+
+
+if __name__ == "__main__":
+    sys.exit(main())
