@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("level", "mul", "pow", "dot")
+KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +44,11 @@ _SIGNATURES = {
     "pow": ("acvm_mont_pow", [_P, _P, _LL, _P, _P, _P]),
     "dot": ("acvm_mont_dot", [_P] * 8 + [_LL, _LL, _I, _I, _P, _P]),
     "level": ("acvm_fused_level", [_P, _P, _LL, _LL, _I, _I, _P, _P]),
+    # Two operand views and the output view, each (pointer, point stride,
+    # coordinate stride, instance stride), then pairs, instances, field, stream.
+    "pt_add": ("acvm_pt_add", [_P, _LL, _LL, _LL] * 3 + [_LL, _LL, _P, _P]),
+    "dot_v1": ("acvm_mont_dot_v1", [_P] * 5 + [_LL, _LL, _I, _P, _P]),
+    "mul_v1": ("acvm_mont_mul_v1", [_P, _P, _P, _LL, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
 }

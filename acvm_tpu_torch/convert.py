@@ -3,7 +3,9 @@
 The JAX package holds a field element as 16 x 16-bit limbs in uint32 and its
 witness panel either batch-major ``(B, NW, 16)`` or witness-major
 ``(NW, 16, S, 128)`` with ``B = S * 128``; its panels may carry one scratch
-column past the real witnesses.  This package holds 8 x 32-bit limbs as int32
+column past the real witnesses.  Its elliptic-curve points are three
+``(B, N, 16)`` coordinate arrays and its window tables ``(W, 16, 3, 16)``; here a
+point panel is ``(N, 3, B, 8)`` and a table ``(W, 16, 3, 8)``.  This package holds 8 x 32-bit limbs as int32
 (uint32 bit patterns) and one witness-major panel ``(NW, B, 8)``.  The values
 are the same numbers either way (Montgomery radix 2^256 on both sides), so
 every function here is a pure relayout; nothing is rescaled.
@@ -92,6 +94,38 @@ def panel_to_jax(
             rows.transpose(0, 2, 1).reshape(NW, L16, B // 128, 128)
         )
     raise ValueError(f"unknown layout {layout!r}")
+
+
+# ---------------------------------------------------------------------------
+# point panels and window tables
+# ---------------------------------------------------------------------------
+
+
+def points_from_jax(X, Y, Z) -> np.ndarray:
+    """A JAX-package Jacobian point panel, three ``(B, N, 16)`` coordinate
+    arrays (or ``(B, 16)`` for one point a lane) -> this package's point
+    panel ``(N, 3, B, 8)`` int32."""
+    coords = np.stack([np.asarray(c) for c in (X, Y, Z)], axis=0)  # (3, B, [N,] 16)
+    if coords.ndim == 3:
+        coords = coords[:, :, None, :]
+    return np.ascontiguousarray(limbs16_to_limbs32(coords.transpose(2, 0, 1, 3)))
+
+
+def points_to_jax(P):
+    """This package's point panel ``(N, 3, B, 8)`` -> the JAX package's three
+    ``(B, N, 16)`` uint32 coordinate arrays."""
+    rows = limbs32_to_limbs16(P).transpose(1, 2, 0, 3)  # (3, B, N, 16)
+    return tuple(np.ascontiguousarray(rows[i]) for i in range(3))
+
+
+def window_table_from_jax(table) -> np.ndarray:
+    """A JAX-package window table ``(W, 16, 3, 16)`` (16-bit limbs) -> this
+    package's ``(W, 16, 3, 8)`` int32."""
+    return np.ascontiguousarray(limbs16_to_limbs32(table))
+
+
+def window_table_to_jax(table) -> np.ndarray:
+    return limbs32_to_limbs16(table)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ Each public function here is a wrapper with two routes and nothing between:
 * a CUDA tensor launches the hand-written kernel under ``csrc/`` (built at
   first use, see :mod:`acvm_tpu_torch.build`) or raises;
 * a CPU tensor runs the plain PyTorch version beside it (``*_plain``): int64
-  arithmetic over 16-bit half-limbs, the CIOS recurrence written out op by op.
+  arithmetic over 16-bit half-limbs (:class:`HalfField`).
 
 What each kernel replaces in the JAX package, and what bounds it on an H100:
 
@@ -22,6 +22,14 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
   per operand against 136 multiply-adds per product: integer pipes at the usual
   2-3 terms; one launch per expression panel keeps every intermediate out of
   device memory.
+* ``mont_mul_v1`` — ``fields/pallas_mul.py::_make_kernel`` (``mont_mul_pallas``
+  and ``_flex``): the first-generation multiply, BN254 Fr only.  Same bound as
+  ``mont_mul``.
+* ``mont_dot_v1`` — ``fields/pallas_mul.py::_make_dot_kernel``
+  (``mont_dot_pallas``): the first-generation dot over ONE operand panel, the
+  products of quadratic terms multiplied before the call by ``mont_mul_v1``.
+  Same bound as ``mont_dot``; its extra cost is the product panel's trip
+  through device memory.
 """
 
 from __future__ import annotations
@@ -93,15 +101,6 @@ def field_words(params: FieldParams) -> np.ndarray:
     return words
 
 
-@lru_cache(maxsize=None)
-def _p_half(params: FieldParams, device: torch.device) -> torch.Tensor:
-    field_words(params)  # refuses wide moduli
-    return torch.tensor(
-        [(params.modulus >> (16 * i)) & M16 for i in range(HALF)],
-        dtype=torch.int64, device=device,
-    )
-
-
 def _host_ptr(words: np.ndarray) -> int:
     return words.ctypes.data_as(ctypes.c_void_p).value
 
@@ -132,61 +131,130 @@ def split_half(x: torch.Tensor) -> torch.Tensor:
 def join_half(h: torch.Tensor) -> torch.Tensor:
     """(..., 16) int64 normalized half-limbs -> (..., 8) int32."""
     h = h.reshape(*h.shape[:-1], LIMBS, 2)
-    u = h[..., 0] | (h[..., 1] << 16)
-    # uint32 value -> the int32 with the same bit pattern, without relying on
-    # how a narrowing cast treats values >= 2^31.
+    return wrap_i32(h[..., 0] | (h[..., 1] << 16))
+
+
+def wrap_i32(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same bit pattern,
+    without relying on how a narrowing cast treats values >= 2^31."""
     return (((u + (1 << 31)) & M32) - (1 << 31)).to(torch.int32)
 
 
-def carry_half(t: torch.Tensor) -> torch.Tensor:
-    """Propagate (signed) carries through (..., 16) int64 accumulations; the
-    carry out of the top half-limb is dropped (callers know it is zero, or a
-    multiple of 2^256 they mean to discard)."""
-    out = []
-    carry = torch.zeros_like(t[..., 0])
-    for i in range(HALF):
-        v = t[..., i] + carry
-        out.append(v & M16)
-        carry = v >> 16  # arithmetic shift: a borrow travels as -1
-    return torch.stack(out, dim=-1)
+@lru_cache(maxsize=None)
+def _lanes(width: int, device: torch.device):
+    """(2^i, i) for ``width`` half-limb positions, as int64 tensors."""
+    i = torch.arange(width, dtype=torch.int64, device=device)
+    return 1 << i, i
 
 
-def cond_sub_half(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """a - p where a >= p, else a.  a normalized, a < 2p."""
-    out = []
-    carry = torch.zeros_like(a[..., 0])
-    for i in range(HALF):
-        v = a[..., i] - p[i] + carry
-        out.append(v & M16)
-        carry = v >> 16
-    diff = torch.stack(out, dim=-1)
-    return torch.where((carry == 0)[..., None], diff, a)
+def _ripple_half(s: torch.Tensor):
+    """Resolve the last carries of (..., n) int64 half-limbs (n <= 32) in one
+    carry-lookahead step, without a loop over the positions.  Needs
+    0 <= s_i <= 2^17 - 2 (2^17 - 1 at position 0), so a position carries out
+    at most once.  Position i *generates* a carry when s_i >= 2^16 and
+    *propagates* one when its low half is all ones; packed as the bits of two
+    integers x = g | p and y = g, the carries of the binary sum x + y are
+    exactly the carries of the half-limb chain.  Returns the normalized
+    half-limbs and the carry out of the top position."""
+    n = s.shape[-1]
+    weight, lane = _lanes(n, s.device)
+    lo = s & M16
+    g = ((s >> 16) * weight).sum(dim=-1)
+    x = g | ((lo == M16) * weight).sum(dim=-1)
+    carries = (x + g) ^ x ^ g  # bit i: the carry into position i
+    out = (lo + ((carries[..., None] >> lane) & 1)) & M16
+    return out, (carries >> n) & 1
 
 
-def add_half(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    return cond_sub_half(carry_half(a + b), p)
+def carry_half(t: torch.Tensor, bits: int = 62) -> torch.Tensor:
+    """Propagate carries through (..., n) int64 accumulations with entries in
+    [0, 2^bits); the carry out of the top half-limb is dropped (callers know
+    it is zero, or a multiple of 2^(16n) they mean to discard).  A sum of two
+    normalized arrays (entries <= 2^17 - 2) passes ``bits=17`` and skips the
+    folding passes."""
+    while bits > 17:
+        c = t >> 16
+        t = t & M16
+        t[..., 1:] += c[..., :-1]
+        bits = max(bits - 16, 16) + 1
+    return _ripple_half(t)[0]
 
 
-def mul_half(
-    a: torch.Tensor, b: torch.Tensor, p: torch.Tensor, n0: int, reduce: bool = True
-) -> torch.Tensor:
-    """CIOS Montgomery product over 16-bit half-limbs, 16 rounds.  int64 has
-    the headroom to keep whole products in one accumulator word (each round
-    adds < 2^33 a word, 2^37 over the chain), so carries are propagated once,
-    at the end.  Result < 2p; canonical with ``reduce``."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    a = a.expand(shape)
-    b = b.expand(shape)
-    t = torch.zeros(shape, dtype=torch.int64, device=a.device)
-    zero = torch.zeros(shape[:-1] + (1,), dtype=torch.int64, device=a.device)
-    for i in range(HALF):
-        t = t + a[..., i : i + 1] * b
-        m = ((t[..., 0:1] & M16) * n0) & M16
-        t = t + m * p
-        # t[0] is now divisible by 2^16: shift down one half-limb.
-        t = torch.cat([t[..., 1:2] + (t[..., 0:1] >> 16), t[..., 2:], zero], dim=-1)
-    t = carry_half(t)
-    return cond_sub_half(t, p) if reduce else t
+def sub_half(a: torch.Tensor, b: torch.Tensor):
+    """(a - b) mod 2^256 for normalized (..., 16) half-limbs, as a + ~b + 1,
+    and the flag a >= b (the carry out of the complement sum)."""
+    t = a + (M16 - b)
+    t[..., 0] += 1
+    return _ripple_half(t)
+
+
+def _column_sums(a: torch.Tensor, b: torch.Tensor, cols: int) -> torch.Tensor:
+    """The first ``cols`` (<= 31) columns of the schoolbook product of two
+    normalized (..., 16) half-limb arrays: column k = sum of a_i * b_j over
+    i + j = k, each < 2^36.  The 16 x 16 outer product is padded to rows of 32
+    and re-read as rows of 31, which shifts row i right by i; one sum over
+    the rows then adds the anti-diagonals."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)[:-1]
+    outer = a[..., :, None] * b[..., None, :]
+    skew = torch.nn.functional.pad(outer, (0, HALF)).reshape(shape + (2 * HALF * HALF,))
+    skew = skew[..., : HALF * (2 * HALF - 1)].reshape(shape + (HALF, 2 * HALF - 1))
+    return skew.sum(dim=-2)[..., :cols]
+
+
+class HalfField:
+    """One field's arithmetic over (..., 16) int64 half-limbs: the working
+    form of every plain version.  No CUDA kernel on any device, and no loop
+    over limb positions: each operation is a fixed, short sequence of tensor
+    ops (what counts where every op is a dispatch or a launch)."""
+
+    def __init__(self, params: FieldParams, device: torch.device):
+        field_words(params)  # refuses wide moduli
+
+        def half(v: int) -> torch.Tensor:
+            return torch.tensor(
+                [(v >> (16 * i)) & M16 for i in range(HALF)], dtype=torch.int64, device=device
+            )
+
+        self.params = params
+        self.p = half(params.modulus)
+        self.one = half(params.r)
+        # -p^-1 mod 2^256: the Montgomery constant of the whole-word reduction
+        self.n_prime = half((-pow(params.modulus, -1, 1 << 256)) % (1 << 256))
+
+    def cond_sub(self, a: torch.Tensor) -> torch.Tensor:
+        """a - p where a >= p, else a.  a normalized, a < 2p."""
+        diff, geq = sub_half(a, self.p)
+        return torch.where((geq != 0)[..., None], diff, a)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.cond_sub(carry_half(a + b, bits=17))
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a - b mod p for canonical a, b: the difference mod 2^256, plus p
+        where it borrowed (the carry out of that sum is the borrow's 2^256)."""
+        diff, geq = sub_half(a, b)
+        return torch.where((geq != 0)[..., None], diff, carry_half(diff + self.p, bits=17))
+
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+        """Montgomery product a * b * R^-1, R = 2^256, by whole-word reduction:
+        T = a * b, m = (T mod R) * (-p^-1) mod R, result = (T + m * p) / R,
+        which is < 2p; canonical with ``reduce``.  int64 has the headroom to
+        hold a product's whole column sums, so each of the three products is
+        one outer product and each normalization one carry pass."""
+        T = _column_sums(a, b, 2 * HALF - 1)
+        m = carry_half(_column_sums(carry_half(T[..., :HALF], bits=36), self.n_prime, HALF), bits=36)
+        U = torch.nn.functional.pad(T + _column_sums(m, self.p, 2 * HALF - 1), (0, 1))
+        t = carry_half(U, bits=37)[..., HALF:]  # the low half is zero by construction
+        return self.cond_sub(t) if reduce else t
+
+    @staticmethod
+    def is_zero(a: torch.Tensor) -> torch.Tensor:
+        return (a == 0).all(dim=-1)
+
+
+@lru_cache(maxsize=None)
+def half_field(params: FieldParams, device: torch.device) -> HalfField:
+    return HalfField(params, torch.device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +267,8 @@ def mont_mul_plain(
     reduce: bool = True,
 ) -> torch.Tensor:
     """Plain version of :func:`mont_mul` (any device)."""
-    p = _p_half(params, a.device)
-    return join_half(mul_half(split_half(a), split_half(b), p, params.n0_inv, reduce))
+    hf = half_field(params, a.device)
+    return join_half(hf.mont_mul(split_half(a), split_half(b), reduce))
 
 
 def mont_mul(
@@ -250,22 +318,18 @@ def mont_pow_plain(
     a: torch.Tensor, exponent: int, params: FieldParams = BN254_FR
 ) -> torch.Tensor:
     """Plain version of :func:`mont_pow`: the same 4-bit-window chain."""
-    p = _p_half(params, a.device)
-    n0 = params.n0_inv
+    hf = half_field(params, a.device)
     base = split_half(a)
-    one = torch.tensor(
-        [(params.r >> (16 * i)) & M16 for i in range(HALF)],
-        dtype=torch.int64, device=a.device,
-    ).expand(base.shape)
+    one = hf.one.expand(base.shape)
     table = [one]
     for _ in range(15):
-        table.append(mul_half(table[-1], base, p, n0))
+        table.append(hf.mont_mul(table[-1], base))
     acc = one
     # Leading zero windows are identity steps (R squared stays R, a^0 = R).
     for w in range((max(exponent.bit_length(), 1) - 1) // 4, -1, -1):
         for _ in range(4):
-            acc = mul_half(acc, acc, p, n0)
-        acc = mul_half(acc, table[(exponent >> (4 * w)) & 0xF], p, n0)
+            acc = hf.mont_mul(acc, acc)
+        acc = hf.mont_mul(acc, table[(exponent >> (4 * w)) & 0xF])
     zero = (base == 0).all(dim=-1, keepdim=True)
     return join_half(torch.where(zero, torch.zeros_like(acc), acc))
 
@@ -304,23 +368,22 @@ def mont_dot_plain(
     """Plain version of :func:`mont_dot`: the chain evaluated op by op."""
     some = lin_vals if lin_vals is not None else mul_vals1
     E, _, B, _ = some.shape
-    p = _p_half(params, some.device)
-    n0 = params.n0_inv
+    hf = half_field(params, some.device)
     acc = split_half(qc)[:, None, :].expand(E, B, HALF)
     if lin_vals is not None:
         c = split_half(lin_coeff)
         v = split_half(lin_vals)
         for t in range(lin_vals.shape[1]):
-            acc = add_half(acc, mul_half(c[:, t, None, :], v[:, t], p, n0), p)
+            acc = hf.add(acc, hf.mont_mul(c[:, t, None, :], v[:, t]))
     if mul_vals1 is not None:
         c = split_half(mul_coeff)
         v1 = split_half(mul_vals1)
         v2 = split_half(mul_vals2)
         for t in range(mul_vals1.shape[1]):
-            prod = mul_half(v1[:, t], v2[:, t], p, n0)
-            acc = add_half(acc, mul_half(c[:, t, None, :], prod, p, n0), p)
+            prod = hf.mont_mul(v1[:, t], v2[:, t])
+            acc = hf.add(acc, hf.mont_mul(c[:, t, None, :], prod))
     if scale is not None:
-        acc = mul_half(split_half(scale)[:, None, :], acc, p, n0)
+        acc = hf.mont_mul(split_half(scale)[:, None, :], acc)
     return join_half(acc)
 
 
@@ -381,5 +444,82 @@ def mont_dot(
         build.launch(
             "dot", *[ptr(t) for t in tensors], out.data_ptr(), E, B, t1, t2,
             _host_ptr(field_words(params)), _stream(some),
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# first generation: mul_v1, dot_v1 (the dot_kernel="v1" route of eval_exprs)
+# ---------------------------------------------------------------------------
+
+
+def mont_mul_v1_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`mont_mul_v1` (any device)."""
+    return mont_mul_plain(a, b, BN254_FR)
+
+
+def mont_mul_v1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * R^-1 mod p over BN254 Fr, the first-generation kernel: the
+    operands are broadcast against each other and flattened, as the
+    reference's ``mont_mul_pallas_flex`` does (its padding to 512-row tiles
+    was the TPU's and is not copied).  Canonical result of the broadcast
+    shape."""
+    _check(a, "mont_mul_v1 a")
+    _check(b, "mont_mul_v1 b")
+    if not a.is_cuda:
+        return mont_mul_v1_plain(a, b)
+    if b.device != a.device:
+        raise ValueError("mont_mul_v1: operands on different devices")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a = a.expand(shape).contiguous()
+    b = b.expand(shape).contiguous()
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // LIMBS
+    if n:
+        build.launch("mul_v1", a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream(a))
+    return out
+
+
+def mont_dot_v1_plain(
+    vals: torch.Tensor, coeff: torch.Tensor, qc: torch.Tensor,
+    scale: Optional[torch.Tensor] = None, params: FieldParams = BN254_FR,
+) -> torch.Tensor:
+    """Plain version of :func:`mont_dot_v1`: the linear chain of the plain
+    dot over the one operand panel."""
+    return mont_dot_plain(vals, coeff, None, None, None, qc, scale, params)
+
+
+def mont_dot_v1(
+    vals: torch.Tensor, coeff: torch.Tensor, qc: torch.Tensor,
+    scale: Optional[torch.Tensor] = None, params: FieldParams = BN254_FR,
+) -> torch.Tensor:
+    """The first-generation expression dot, products already multiplied:
+
+        out[e, b] = [scale[e] *R] ( qc[e] + sum_t coeff[e, t] *R vals[e, t, b] )
+
+    ``vals`` (E, T, B, 8) with T >= 1, ``coeff`` (E, T, 8), ``qc`` / ``scale``
+    (E, 8); returns (E, B, 8) canonical.  ``qc`` is added as given."""
+    for name, t in (("vals", vals), ("coeff", coeff), ("qc", qc), ("scale", scale)):
+        if t is not None:
+            _check(t, f"mont_dot_v1 {name}")
+            if t.device != vals.device:
+                raise ValueError(f"mont_dot_v1: {name} on another device")
+    if vals.dim() != 4 or vals.shape[1] == 0:
+        raise ValueError("mont_dot_v1: vals must be (E, T, B, 8) with T >= 1")
+    E, T, B, _ = vals.shape
+    if tuple(coeff.shape) != (E, T, LIMBS) or tuple(qc.shape) != (E, LIMBS) or (
+        scale is not None and tuple(scale.shape) != (E, LIMBS)
+    ):
+        raise ValueError("mont_dot_v1: coefficient shapes")
+    if not vals.is_cuda:
+        return mont_dot_v1_plain(vals, coeff, qc, scale, params)
+    vals, coeff, qc = vals.contiguous(), coeff.contiguous(), qc.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    out = torch.empty((E, B, LIMBS), dtype=torch.int32, device=vals.device)
+    if E and B:
+        build.launch(
+            "dot_v1", vals.data_ptr(), coeff.data_ptr(), qc.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(), E, B, T,
+            _host_ptr(field_words(params)), _stream(vals),
         )
     return out

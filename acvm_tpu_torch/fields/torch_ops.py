@@ -22,9 +22,7 @@ import torch
 from . import kernels
 from .kernels import (
     LIMBS,
-    add_half,
-    carry_half,
-    cond_sub_half,
+    half_field,
     int_to_limbs32,
     join_half,
     split_half,
@@ -61,23 +59,19 @@ class LimbContext:
         self.one_limbs = limbs(1)
         self.r_limbs = limbs(params.r)
         self.zero_limbs = torch.zeros(LIMBS, dtype=torch.int32, device=self.device)
-        self._p_half = split_half(self.p_limbs)
+        self._half = half_field(params, self.device)
         self.inv_exponent = params.modulus - 2
 
     # ---- modular add / sub --------------------------------------------------
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return join_half(add_half(split_half(a), split_half(b), self._p_half))
+        return join_half(self._half.add(split_half(a), split_half(b)))
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        # a - b + p lies in (0, 2p): signed carries, then one conditional
-        # subtract.
-        s = carry_half(split_half(a) - split_half(b) + self._p_half)
-        return join_half(cond_sub_half(s, self._p_half))
+        return join_half(self._half.sub(split_half(a), split_half(b)))
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
-        # p - a, with p - 0 = p mapped back to 0 by the conditional subtract.
-        s = carry_half(self._p_half - split_half(a))
-        return join_half(cond_sub_half(s, self._p_half))
+        # 0 - a: zero stays zero, anything else becomes p - a.
+        return self.sub(torch.zeros_like(a), a)
 
     # ---- Montgomery multiply ------------------------------------------------
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
@@ -150,6 +144,36 @@ class LimbContext:
         inv = self.mont_mul(self.mont_mul(pre, suf), total_inv[None])
         return torch.where(is_zero, torch.zeros_like(inv), inv)
 
+    # What one sequential kernel launch costs, in Fermat chains: an H100 runs a
+    # chain in about 11 ns and Python launches a small kernel in tens of
+    # microseconds.
+    CHAINS_PER_LAUNCH = 8192
+
+    def mont_inv_grouped(self, a: torch.Tensor, group: int = 32) -> torch.Tensor:
+        """Invert a flat (..., n, 8) array by folding its axis -2 into groups
+        of g values and amortizing one Fermat chain per group (see
+        ``mont_batch_inv``).  g is a power of two that divides n (no padding),
+        at most ``group``; any g gives the same bits.
+
+        A group of g spends about 2g sequential multiply launches to save
+        n (1 - 1/g) Fermat chains, so the total 2g + n / (g * CHAINS_PER_LAUNCH)
+        is least near g = sqrt(n / (2 * CHAINS_PER_LAUNCH)): g doubles only
+        while (2g)^2 * CHAINS_PER_LAUNCH <= n, and arrays below 32,768 values
+        are inverted directly."""
+        if a.dim() < 2:
+            return self.mont_inv(a)
+        n = a.shape[-2]
+        g = 1
+        while g < group and n % (g * 2) == 0 and (2 * g) ** 2 * self.CHAINS_PER_LAUNCH <= n:
+            g *= 2
+        if g == 1:
+            return self.mont_inv(a)
+        folded = a.reshape(a.shape[:-2] + (n // g, g, LIMBS))
+        return self.mont_batch_inv(folded, axis=-2).reshape(a.shape)
+
+    def mont_div(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, self.mont_inv(b))
+
     # ---- predicates ----------------------------------------------------------
     @staticmethod
     def is_zero(a: torch.Tensor) -> torch.Tensor:
@@ -158,3 +182,15 @@ class LimbContext:
     @staticmethod
     def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return (a == b).all(dim=-1)
+
+
+def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a >= b on (..., 8) limb arrays read as 256-bit unsigned integers
+    (broadcasts).  The most significant limb in which they differ decides."""
+    a, b = torch.broadcast_tensors(a, b)
+    ua = a.to(torch.int64) & 0xFFFFFFFF
+    ub = b.to(torch.int64) & 0xFFFFFFFF
+    weight = torch.arange(1, LIMBS + 1, dtype=torch.int64, device=a.device)
+    top = ((ua != ub) * weight).amax(dim=-1, keepdim=True)  # 0 where equal
+    pick = (top - 1).clamp(min=0)
+    return ((top == 0) | (ua.gather(-1, pick) > ub.gather(-1, pick)))[..., 0]

@@ -12,14 +12,17 @@ State per batch:
 
 Every level kind works on the one panel layout.  Arith-static levels run the
 fused level kernel in place; dynamic-denominator solves and assert-zero checks
-gather their operands and run the expression-dot, multiply and power kernels.
-PyTorch runs eagerly, so a solve is a Python loop over the plan's levels.
+gather their operands and run the expression-dot, multiply and power kernels;
+the Grumpkin gadgets (fixed-base scalar multiplication, Pedersen commitments,
+Schnorr verification) gather their scalars and bytes and run the MSM tree and
+the variable-base ladder over the fused point-addition kernel
+(:mod:`acvm_tpu_torch.gpu.ec`).  PyTorch runs eagerly, so a solve is a Python
+loop over the plan's levels.
 
-This slice solves arithmetic circuits.  Anything else a plan can hold — range
-and logic gates, directives, hashes, EC gadgets, memory blocks, Brillig, host
-stages — and every ingest form or scaling option not listed in
-:meth:`BatchSolver.solve` raises ``NotImplementedError`` naming what is
-missing, at construction where it can be known then.
+Anything else a plan can hold — range and logic gates, directives, hashes,
+ECDSA, memory blocks, Brillig, host stages — and every ingest form or scaling
+option not listed in :meth:`BatchSolver.solve` raises ``NotImplementedError``
+naming what is missing, at construction where it can be known then.
 """
 
 from __future__ import annotations
@@ -33,8 +36,20 @@ import torch
 from ..acir.witness import Witness, WitnessMap
 from ..convert import limbs32_to_limbs16
 from ..fields.field import FieldElement
-from ..fields.kernels import LIMBS, ints_to_limbs32, limbs32_to_ints, mont_dot
-from ..fields.torch_ops import LimbContext
+from ..blackbox.ec import grumpkin
+from ..blackbox.grumpkin import derive_generator, schnorr_challenge_hook
+from ..fields.kernels import (
+    LIMBS,
+    int_to_limbs32,
+    ints_to_limbs32,
+    limbs32_to_ints,
+    mont_dot,
+    mont_dot_v1,
+    mont_mul_v1,
+)
+from ..fields.params import BN254_FR
+from ..fields.torch_ops import LimbContext, geq
+from . import ec
 from .fused_level import fused_level_call, pack_level_desc
 from .planner import ExprPlan, Level, Plan
 
@@ -52,9 +67,6 @@ _UNPORTED_LEVEL_FIELDS = {
     "quotient": "quotient directives",
     "to_le_radix": "to-le-radix directives",
     "hashes": "hash gadgets",
-    "ec_fixed_base": "fixed-base scalar multiplication",
-    "ec_pedersen": "Pedersen commitments",
-    "schnorr": "Schnorr verification",
     "ecdsa": "ECDSA verification",
     "zero_out": "recursive-aggregation outputs",
     "memory": "memory blocks",
@@ -130,14 +142,23 @@ def _pack_to_device(pack: Dict[str, np.ndarray], device) -> Dict[str, torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def eval_exprs(ctx: LimbContext, W: torch.Tensor, pack, scale=None) -> torch.Tensor:
+DOT_KERNELS = ("v2", "v1")
+
+
+def eval_exprs(
+    ctx: LimbContext, W: torch.Tensor, pack, scale=None, dot_kernel: str = "v2"
+) -> torch.Tensor:
     """Evaluate E packed expressions for every instance: (E, B, 8).
 
-    The witness gathers are plain tensor ops; the whole per-gate chain —
-    operand multiplies, the witness*witness pre-multiply of quadratic terms,
-    the modular-add fold, q_c and the optional final ``scale`` multiply — is
-    ONE call of :func:`acvm_tpu_torch.fields.kernels.mont_dot` (the fused dot
-    kernel for a CUDA panel, the op-by-op plain version for a CPU panel).
+    The witness gathers are plain tensor ops.  Under ``dot_kernel="v2"`` the
+    whole per-gate chain — operand multiplies, the witness*witness
+    pre-multiply of quadratic terms, the modular-add fold, q_c and the
+    optional final ``scale`` multiply — is ONE call of
+    :func:`acvm_tpu_torch.fields.kernels.mont_dot` (the fused dot kernel for a
+    CUDA panel, the op-by-op plain version for a CPU panel).  Under ``"v1"``
+    the quadratic operands are multiplied first (``mont_mul_v1``), the
+    products join the linear operands as one panel, and the first-generation
+    dot (``mont_dot_v1``) folds it.  Both give the same bits.
 
     ``scale`` (E, 8 limbs, Montgomery form) multiplies the accumulated value.
     """
@@ -157,6 +178,17 @@ def eval_exprs(ctx: LimbContext, W: torch.Tensor, pack, scale=None) -> torch.Ten
     if m:
         v1 = W.index_select(0, pack["mul_idx"][:, :, 0].reshape(-1)).reshape(E, m, B, LIMBS)
         v2 = W.index_select(0, pack["mul_idx"][:, :, 1].reshape(-1)).reshape(E, m, B, LIMBS)
+    if dot_kernel == "v1":
+        panels, coeffs = [], []
+        if n:
+            panels.append(vals)
+            coeffs.append(pack["lin_coeff"])
+        if m:
+            panels.append(mont_mul_v1(v1, v2))  # w1*w2*R^-1
+            coeffs.append(pack["mul_coeff"])
+        panel = panels[0] if len(panels) == 1 else torch.cat(panels, dim=1)
+        coeff = coeffs[0] if len(coeffs) == 1 else torch.cat(coeffs, dim=1)
+        return mont_dot_v1(panel, coeff, pack["qc"], scale, ctx.params)
     return mont_dot(
         vals, pack["lin_coeff"] if n else None,
         v1, v2, pack["mul_coeff"] if m else None,
@@ -171,12 +203,12 @@ def run_arith_solve_static(ctx, W, ok, buf):
     return W, ok
 
 
-def run_arith_solve_dyn(ctx, W, ok, fail, buf):
+def run_arith_solve_dyn(ctx, W, ok, fail, buf, dot_kernel="v2"):
     # -num comes out of the dot itself: its final scale multiply by -1 (in
     # Montgomery form) negates in the kernel, where a separate neg would be a
     # chain of elementwise passes over the (E, B) panel.
-    neg_num = eval_exprs(ctx, W, buf["num"], scale=buf["minus_one"])  # (E, B, 8)
-    den = eval_exprs(ctx, W, buf["den"])
+    neg_num = eval_exprs(ctx, W, buf["num"], buf["minus_one"], dot_kernel)  # (E, B, 8)
+    den = eval_exprs(ctx, W, buf["den"], dot_kernel=dot_kernel)
     den_zero = ctx.is_zero(den)
     num_zero = ctx.is_zero(neg_num)
     # One Fermat chain amortized over the level's gate axis (Montgomery's
@@ -194,11 +226,70 @@ def run_arith_solve_dyn(ctx, W, ok, fail, buf):
     return W, ok, fail
 
 
-def run_arith_check(ctx, W, ok, fail, buf):
-    val = eval_exprs(ctx, W, buf["expr"])
+def run_arith_check(ctx, W, ok, fail, buf, dot_kernel="v2"):
+    val = eval_exprs(ctx, W, buf["expr"], dot_kernel=dot_kernel)
     bad = ~ctx.is_zero(val)
     fail = note_failures(fail, bad, buf["op_idx"])
     return W, ok & ~bad.any(dim=0), fail
+
+
+def run_ec_fixed_base(ctx, W, ok, fail, buf):
+    """Batched windowed fixed-base Grumpkin scalar multiplication."""
+    low = W.index_select(0, buf["low_idx"])  # (G, B, 8)
+    high = W.index_select(0, buf["high_idx"])
+    G, B, _ = low.shape
+    # u128-limb validation (scalar_mul.rs:25-52): top limbs must be zero and
+    # the combined scalar must be below the grumpkin group order.
+    fits = (low[..., 4:] == 0).all(dim=-1) & (high[..., 4:] == 0).all(dim=-1)
+    scalar = torch.cat([low[..., :4], high[..., :4]], dim=-1)
+    valid = fits & ~geq(scalar, buf["order_limbs"])  # (G, B)
+    ok = ok & valid.all(dim=0)
+    fail = note_failures(fail, ~valid, buf["op_idx"])
+
+    point = ec.fixed_base_mul(ctx, buf["table"], scalar.reshape(G * B, LIMBS))
+    ax, ay = ec.pt_to_affine(ctx, point)
+    keep = valid.reshape(G * B, 1)
+    zero = torch.zeros_like(ax)
+    W.index_copy_(0, buf["out_x"], torch.where(keep, ax, zero).reshape(G, B, LIMBS))
+    W.index_copy_(0, buf["out_y"], torch.where(keep, ay, zero).reshape(G, B, LIMBS))
+    return W, ok, fail
+
+
+def run_ec_pedersen(ctx, W, ok, gate_buf):
+    """One Pedersen commitment gate: windowed MSM over fixed generators, all
+    generators' window entries summed in one tree reduction."""
+    scalars = W.index_select(0, gate_buf["input_idx"])  # (n, B, 8)
+    acc = ec.msm_fixed_tables(ctx, gate_buf["tables"], scalars)
+    ax, ay = ec.pt_to_affine(ctx, acc)
+    W[gate_buf["out_x"]] = ax
+    W[gate_buf["out_y"]] = ay
+    return W, ok
+
+
+def run_schnorr(ctx, W, ok, buf):
+    """Grouped Schnorr verifications with identical message length."""
+    B = W.shape[1]
+    G = buf["pub_x"].shape[0]
+
+    def bytes_of(idx):  # (G, n) witness indices -> (G * B, n) bytes
+        # to_u8_vec semantics: last BE byte of each witness == low byte of limb 0.
+        low = W.index_select(0, idx.reshape(-1))[..., 0] & 0xFF  # (G * n, B)
+        return low.reshape(G, -1, B).permute(0, 2, 1).reshape(G * B, -1)
+
+    pub_x = W.index_select(0, buf["pub_x"]).reshape(G * B, LIMBS)
+    pub_y = W.index_select(0, buf["pub_y"]).reshape(G * B, LIMBS)
+    sig = bytes_of(buf["sig_idx"])
+    if buf["msg_idx"].numel():
+        msg = bytes_of(buf["msg_idx"])
+    else:
+        msg = torch.zeros((G * B, 0), dtype=torch.int32, device=W.device)
+    valid = ec.schnorr_verify_batched(
+        ctx, pub_x, pub_y, sig, msg, buf["pedersen_tables"], buf["gen_table"]
+    ).reshape(G, B)
+    out = torch.zeros((G, B, LIMBS), dtype=torch.int32, device=W.device)
+    out[..., 0] = valid
+    W.index_copy_(0, buf["out_idx"], out)
+    return W, ok
 
 
 # ---------------------------------------------------------------------------
@@ -212,19 +303,38 @@ class _Segment:
 
 
 class BatchSolver:
+    """``dot_kernel`` picks the expression-evaluation route of the
+    dynamic-denominator and assert-zero levels: ``"v2"`` (the fused dot, the
+    default) or ``"v1"`` (the first-generation multiply and dot, BN254 only).
+    Both give the same bits."""
+
     def __init__(
         self,
         plan: Plan,
         mesh=None,
         device="cuda",
+        dot_kernel: str = "v2",
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "BatchSolver: sharding the batch over a mesh is not ported"
             )
+        if dot_kernel not in DOT_KERNELS:
+            raise ValueError(f"BatchSolver: dot_kernel must be one of {DOT_KERNELS}")
+        if dot_kernel == "v1" and plan.params != BN254_FR:
+            raise ValueError(
+                "BatchSolver: dot_kernel='v1' multiplies with the first-generation "
+                f"kernel, which knows BN254 only, not {plan.params.name}"
+            )
         self.plan = plan
         self.device = torch.device(device)
+        self.dot_kernel = dot_kernel
         self.ctx = LimbContext(plan.params, self.device)  # raises without a card
+        # (domain, index) -> the Pedersen generator each device table was
+        # built from, and whether a Schnorr gate was packed: solve() checks
+        # both against what the host code would use now.
+        self._generators: Dict[tuple, tuple] = {}
+        self._has_schnorr = False
         self.segments = self._build_segments()
 
     # -- packing ------------------------------------------------------------
@@ -232,8 +342,8 @@ class BatchSolver:
         for field, what in _UNPORTED_LEVEL_FIELDS.items():
             if getattr(level, field):
                 raise NotImplementedError(
-                    f"BatchSolver: {what} (Level.{field}) are not ported; this "
-                    "slice solves arithmetic gates only"
+                    f"BatchSolver: {what} (Level.{field}) are not ported; it "
+                    "solves arithmetic gates and the Grumpkin gadgets"
                 )
         dev = self.device
         packed: dict = {"kinds": []}
@@ -300,7 +410,83 @@ class BatchSolver:
                     (g.opcode_index for g in level.arith_check), torch.int32
                 ),
             )
+        if level.ec_fixed_base or level.ec_pedersen or level.schnorr:
+            if self.plan.params != BN254_FR:
+                raise NotImplementedError(
+                    "BatchSolver: the Grumpkin gadgets live over BN254 Fr, not "
+                    f"{self.plan.params.name}"
+                )
+        if level.ec_fixed_base:
+            gates = level.ec_fixed_base
+            packed["kinds"].append("ec_fixed_base")
+            packed["ec_fixed_base"] = dict(
+                low_idx=idx_tensor((g.low for g in gates), torch.int64),
+                high_idx=idx_tensor((g.high for g in gates), torch.int64),
+                out_x=idx_tensor((g.out_x for g in gates), torch.int64),
+                out_y=idx_tensor((g.out_y for g in gates), torch.int64),
+                op_idx=idx_tensor((g.opcode_index for g in gates), torch.int32),
+                order_limbs=torch.from_numpy(int_to_limbs32(grumpkin.params.n).copy()).to(dev),
+                table=ec.window_table(grumpkin.generator(), device=dev),
+            )
+        if level.ec_pedersen:
+            packed["kinds"].append("ec_pedersen")
+            packed["ec_pedersen"] = [
+                dict(
+                    input_idx=idx_tensor(gate.inputs, torch.int64),
+                    tables=self._pedersen_tables(gate.domain_separator, len(gate.inputs)),
+                    out_x=gate.out_x,
+                    out_y=gate.out_y,
+                )
+                for gate in level.ec_pedersen
+            ]
+        if level.schnorr:
+            self._has_schnorr = True
+            groups: Dict[int, list] = {}
+            for gate in level.schnorr:
+                groups.setdefault(len(gate.message), []).append(gate)
+            packed["kinds"].append("schnorr")
+            packed["schnorr"] = [
+                dict(
+                    pub_x=idx_tensor((g.pub_x for g in gates), torch.int64),
+                    pub_y=idx_tensor((g.pub_y for g in gates), torch.int64),
+                    sig_idx=torch.tensor([g.signature for g in gates], dtype=torch.int64, device=dev),
+                    msg_idx=torch.tensor([g.message for g in gates], dtype=torch.int64, device=dev),
+                    out_idx=idx_tensor((g.output for g in gates), torch.int64),
+                    pedersen_tables=self._pedersen_tables(0, 3),
+                    gen_table=ec.window_table(grumpkin.generator(), device=dev),
+                )
+                for gates in groups.values()
+            ]
         return packed
+
+    def _pedersen_tables(self, domain: int, count: int) -> torch.Tensor:
+        """(count, W, 16, 3, 8) window tables of generators 0..count-1 of a
+        domain, on the device; the points they were built from are kept for
+        :meth:`_check_generators`."""
+        points = [derive_generator(domain, i) for i in range(count)]
+        for i, point in enumerate(points):
+            self._generators[(domain, i)] = tuple(point)
+        return torch.stack([ec.window_table(pt, device=self.device) for pt in points])
+
+    def _check_generators(self) -> None:
+        """The device tables are baked at construction.  If the host code
+        would now use other generators (``set_external_generators``) or a
+        challenge hook, this solver's results would silently differ from it:
+        refuse instead."""
+        stale = [key for key, point in self._generators.items()
+                 if tuple(derive_generator(*key)) != point]
+        if stale:
+            raise RuntimeError(
+                f"BatchSolver: the Pedersen generators {sorted(stale)} (domain, "
+                "index) changed after this solver built its device tables; "
+                "rebuild the plan and the solver"
+            )
+        if self._has_schnorr and schnorr_challenge_hook() is not None:
+            raise RuntimeError(
+                "BatchSolver: a Schnorr challenge hook was set after this solver "
+                "planned its SchnorrVerify gates for the device; rebuild the plan "
+                "and the solver"
+            )
 
     def _build_segments(self) -> List[_Segment]:
         """Levels between host stages form a segment.  Host stages are not
@@ -316,9 +502,17 @@ class BatchSolver:
             if kind == "arith_static":
                 W, ok = run_arith_solve_static(ctx, W, ok, packed[kind])
             elif kind == "arith_dyn":
-                W, ok, fail = run_arith_solve_dyn(ctx, W, ok, fail, packed[kind])
+                W, ok, fail = run_arith_solve_dyn(ctx, W, ok, fail, packed[kind], self.dot_kernel)
             elif kind == "arith_check":
-                W, ok, fail = run_arith_check(ctx, W, ok, fail, packed[kind])
+                W, ok, fail = run_arith_check(ctx, W, ok, fail, packed[kind], self.dot_kernel)
+            elif kind == "ec_fixed_base":
+                W, ok, fail = run_ec_fixed_base(ctx, W, ok, fail, packed[kind])
+            elif kind == "ec_pedersen":
+                for gate_buf in packed[kind]:
+                    W, ok = run_ec_pedersen(ctx, W, ok, gate_buf)
+            elif kind == "schnorr":
+                for group_buf in packed[kind]:
+                    W, ok = run_schnorr(ctx, W, ok, group_buf)
             else:
                 raise AssertionError(kind)
         return W, ok, fail
@@ -439,7 +633,9 @@ class BatchSolver:
         """Solve a batch.  ``input_values`` is either a sequence of
         per-instance ``{witness_index: int}`` dicts, or the host columnar form
         ``{witness_index: (B,) array}``.  The whole batch is one pass: its
-        witness panel must fit device memory."""
+        witness panel must fit device memory.  Raises ``RuntimeError`` if the
+        Pedersen generators or the Schnorr hook changed since construction."""
+        self._check_generators()
         state = self.initial_state(input_values)
         W, ok, fail = self.run_segments(state)
         # ok/fail are tiny (B,) tensors: materialize them now so the solve is

@@ -98,8 +98,7 @@ def fused_level_plain(
         raise ValueError(f"descriptor width {dw} != {desc_width(t1, t2)} for t1={t1}, t2={t2}")
     B = W.shape[1]
     off_mul, off_out, off_lc, off_mc, off_qc = _offsets(t1, t2)
-    p = fk._p_half(params, W.device)
-    n0 = params.n0_inv
+    hf = fk.half_field(params, W.device)
     step = gate_chunk or max(E, 1)
     for lo in range(0, E, step):
         d = desc[lo : lo + step]
@@ -113,14 +112,10 @@ def fused_level_plain(
 
         acc = coeff_of(off_qc, 0).expand(d.shape[0], B, HALF)
         for t in range(t1):
-            acc = fk.add_half(
-                acc, fk.mul_half(coeff_of(off_lc, t), rows_of(t), p, n0), p
-            )
+            acc = hf.add(acc, hf.mont_mul(coeff_of(off_lc, t), rows_of(t)))
         for t in range(t2):
-            prod = fk.mul_half(
-                rows_of(off_mul + 2 * t), rows_of(off_mul + 2 * t + 1), p, n0
-            )
-            acc = fk.add_half(acc, fk.mul_half(coeff_of(off_mc, t), prod, p, n0), p)
+            prod = hf.mont_mul(rows_of(off_mul + 2 * t), rows_of(off_mul + 2 * t + 1))
+            acc = hf.add(acc, hf.mont_mul(coeff_of(off_mc, t), prod))
         W.index_copy_(0, idx[:, off_out], fk.join_half(acc))
     return W
 

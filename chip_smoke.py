@@ -21,11 +21,20 @@ build, a failed launch or a failed comparison raises and the exit code is not
 5. ``path_dyn``  the dynamic-denominator circuit (4 x 4,096 gates, half of
                them with a runtime denominator), same checks; then a small
                hand-built circuit whose chosen instances must fail;
-6. ``kernels`` every kernel against its plain PyTorch version at the main
+6. ``path_dyn_v1``  the dynamic-denominator circuit at 2 x 4,096 gates with 256
+               quadratic constraints repeated as assert-zero checks, solved with
+               ``dot_kernel="v1"`` (first-generation multiply and dot): equal to
+               the default route's panel, two witness maps against the evaluator;
+7. ``path_ec``  the Grumpkin gadget circuits through the same entry points with
+               columnar inputs: ``pedersen`` 2 gadgets x 2,048 instances,
+               ``fixed_base`` 4 x 4,096, ``schnorr`` 2 x 1,024 (32-byte
+               messages); outputs of two instances against the host curve code,
+               forged signatures and off-curve keys, out-of-range scalars;
+8. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, its bound and
-               its launches on the two paths;
-7. the raw ``nvidia-smi`` name and power limit;
-8. ``{"ok": true, "device": {...}}``.
+               its launches on each path;
+9. the raw ``nvidia-smi`` name and power limit;
+10. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -99,7 +108,14 @@ def main() -> int:
     from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
     from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
     from acvm_tpu_torch.gpu.fused_level import fused_level_call, fused_level_plain
-    from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+    from acvm_tpu_torch.blackbox import grumpkin as host_gk
+    from acvm_tpu_torch.gpu import ec, ec_fused
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.utils import (
+        build_gadget_circuit, build_wide_arith_circuit, columnar_instance,
+        gadget_inputs_columnar, random_inputs, with_repeated_constraints,
+    )
+    from acvm_tpu_torch.utils.ec_points import exceptional_panel
 
     dev = torch.device("cuda")
     P = BN254_FR.modulus
@@ -261,6 +277,111 @@ def main() -> int:
             lv[s], lc[s], m1[s], m2[s], mc[s], qc[s], None, BN254_FR), 5) * (E // step),
         bound_ms=b_ms, bound_ms_with_scale=sb_ms, bound_by=b_by, library_ms=None)
     del lv, m1, m2, lc, mc, qc, sc, got, want
+    torch.cuda.empty_cache()
+
+    # -- 6d. mul_v1 (at the shape of mul) -----------------------------------------
+    a = random_elements((n_mul,), BN254_FR, 1)
+    b = random_elements((n_mul,), BN254_FR, 2)
+    got = fk.mont_mul_v1(a, b)
+    want = torch.cat([
+        fk.mont_mul_v1_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)])
+        for i in range(0, n_mul, 1 << 18)])
+    torch.cuda.synchronize()
+    errs = [max_abs_err(got, want),
+            max_abs_err(fk.mont_mul_v1(a[:4096].reshape(64, 64, 8), b[7]),   # a broadcast operand
+                        fk.mont_mul_v1_plain(a[:4096].reshape(64, 64, 8), b[7]))]
+    b_ms, b_by = bound(96 * n_mul, MADDS_PER_MONT_MUL * n_mul)
+    kernels["mul_v1"] = dict(
+        name="mul_v1", route="cuda", source="acvm_tpu_torch/csrc/mul_v1.cu",
+        replaces="acvm_tpu/fields/pallas_mul.py:359", shape=f"N={n_mul}",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_mul_v1(a, b)),
+        plain_ms=time_ms(lambda: fk.mont_mul_v1_plain(a[: 1 << 18], b[: 1 << 18]), 5) * 4,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, b, got, want
+
+    # -- 6e. dot_v1 (at the shape of dot: its 2 linear terms and 1 product) -------
+    T = T1 + T2
+    vals = random_elements((E, T, B), BN254_FR, 4)
+    coeff = random_elements((E, T), BN254_FR, 7)
+    qc = random_elements((E,), BN254_FR, 9)
+    sc = random_elements((E,), BN254_FR, 10)
+    errs = []
+    for scale in (None, sc):
+        got = fk.mont_dot_v1(vals, coeff, qc, scale, BN254_FR)
+        for lo in range(0, E, step):
+            s = slice(lo, lo + step)
+            want = fk.mont_dot_v1_plain(vals[s], coeff[s], qc[s],
+                                        None if scale is None else scale[s], BN254_FR)
+            errs.append(max_abs_err(got[s], want))
+    s = slice(0, step)
+    b_ms, b_by = bound(32 * E * B * (T + 1) + 32 * E * (T + 1), T * MADDS_PER_MONT_MUL * E * B)
+    kernels["dot_v1"] = dict(
+        name="dot_v1", route="cuda", source="acvm_tpu_torch/csrc/dot_v1.cu",
+        replaces="acvm_tpu/fields/pallas_mul.py:331",
+        shape=f"E={E}, B={B}, T={T}", max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, None, BN254_FR)),
+        ms_with_scale=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, sc, BN254_FR)),
+        plain_ms=time_ms(lambda: fk.mont_dot_v1_plain(
+            vals[s], coeff[s], qc[s], None, BN254_FR), 5) * (E // step),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del vals, coeff, qc, sc, got, want
+    torch.cuda.empty_cache()
+
+    # -- 6f. pt_add: the first round of one Pedersen tree ---------------------------
+    # 2 generators x 64 windows = 128 points x 2,048 instances, gathered from
+    # the generators' window tables as the solver gathers them (a permuted view,
+    # one entry in 16 at infinity); points 0 and 1 carry the exceptional pairs
+    # (P = Q, P = -Q at equal and at different Z, either or both at infinity,
+    # generic pairs at random Z) in every lane.  The second round's operands
+    # (general Z everywhere) are held against the plain version too.
+    ec_ctx = LimbContext(BN254_FR, dev)
+    ec_B = 2048
+    tables = torch.stack([ec.window_table(host_gk.derive_generator(0, i), device=dev)
+                          for i in range(2)])
+    digits = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 16, size=(2 * ec.NUM_WINDOWS, ec_B))).to(dev)
+    pts = ec._gather_window_entries(tables.reshape(2 * ec.NUM_WINDOWS, 16, 3, 8), digits)
+    assert not pts.is_contiguous() and tuple(pts.shape) == (128, 3, ec_B, 8)
+    pts[:2] = torch.from_numpy(exceptional_panel(ec_B)).to(dev)
+    round1 = ec_fused.pt_add_pairs(pts)
+    round2 = ec_fused.pt_add_pairs(round1)
+    errs = [max_abs_err(round1, ec_fused.pt_add_pairs_plain(pts)),
+            max_abs_err(round2, ec_fused.pt_add_pairs_plain(round1))]
+    # In place over an operand (the ladder's acc + acc), against a fresh output.
+    acc = round1.clone()
+    ec_fused.pt_add_panels(acc, acc, out=acc)
+    errs.append(max_abs_err(acc, ec_fused.pt_add_panels_plain(round1, round1)))
+    torch.cuda.synchronize()
+
+    def pt_add_products(Pp, Qp):
+        """Montgomery products the complete addition needs on these pairs: none
+        where either point is at infinity, else 8 to find H and r, then 7 for
+        the doubling (H = r = 0) or 8 for the addition."""
+        c = ec_ctx
+        x1, y1, z1 = Pp[:, 0].contiguous(), Pp[:, 1].contiguous(), Pp[:, 2].contiguous()
+        x2, y2, z2 = Qp[:, 0].contiguous(), Qp[:, 1].contiguous(), Qp[:, 2].contiguous()
+        zz1, zz2 = c.mont_mul(z1, z1), c.mont_mul(z2, z2)
+        h_zero = c.eq(c.mont_mul(x2, zz1), c.mont_mul(x1, zz2))
+        r_zero = c.eq(c.mont_mul(c.mont_mul(y2, z1), zz1), c.mont_mul(c.mont_mul(y1, z2), zz2))
+        inf = c.is_zero(z1) | c.is_zero(z2)
+        per_pair = torch.where(inf, 0, torch.where(h_zero & r_zero, 15, 16))
+        return int(per_pair.sum().item()), int(inf.sum().item()), int((~inf & h_zero & r_zero).sum().item())
+
+    products, n_inf, n_dbl = pt_add_products(pts[0::2], pts[1::2])
+    pts_c = pts.contiguous()
+    pairs = 64 * ec_B
+    b_ms, b_by = bound(288 * pairs, products * MADDS_PER_MONT_MUL)
+    kernels["pt_add"] = dict(
+        name="pt_add", route="cuda", source="acvm_tpu_torch/csrc/pt_add.cu",
+        replaces="acvm_tpu/tpu/ec_pallas.py:167",
+        shape=f"N=128 points (64 pairs), B={ec_B}", max_abs_err=max(errs),
+        products_per_pair=products / pairs, pairs_with_infinity=n_inf, pairs_doubling=n_dbl,
+        ms=time_ms(lambda: ec_fused.pt_add_pairs(pts)),
+        ms_contiguous_panel=time_ms(lambda: ec_fused.pt_add_pairs(pts_c)),
+        plain_ms=time_ms(lambda: ec_fused.pt_add_pairs_plain(pts), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del pts, pts_c, round1, round2, acc, tables, digits
     torch.cuda.empty_cache()
 
     def check_instances(circuit, inputs, res, instances):
@@ -432,14 +553,158 @@ def main() -> int:
         "dyn_solves_per_sec": rate, "solve_seconds": secs,
         "failing_instances": {"fail": want_fail, "ok": res.ok.tolist()}}})
 
-    # -- 6. kernels, 7. card, 8. verdict -------------------------------------------
+    # -- 6. path_dyn_v1 -------------------------------------------------------------
+    # The solve gates of the generated circuit evaluate linear expressions only
+    # (a quadratic term there holds the unknown), so 256 of its quadratic
+    # constraints are stated once more: as assert-zero checks over known
+    # witnesses they need the operand pre-multiply of the v1 route.
+    circuit = with_repeated_constraints(
+        build_wide_arith_circuit(num_inputs=128, num_levels=2, gates_per_level=4096,
+                                 dyn_fraction=0.5, seed=1234), 256)
+    plan = plan_circuit(circuit)
+    inputs = random_inputs(circuit, batch)
+    res_v2 = BatchSolver(plan).solve(inputs)
+    solver = BatchSolver(plan, dot_kernel="v1")
+    build.reset_launches()
+    res = solver.solve(inputs)
+    torch.cuda.synchronize()
+    v1_launches = dict(build.LAUNCHES)
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    assert v1_launches["dot_v1"] > 0 and v1_launches["mul_v1"] > 0, v1_launches
+    assert v1_launches["dot"] == 0, v1_launches
+    assert torch.equal(res.panel, res_v2.panel) and np.array_equal(res.fail, res_v2.fail)
+    check_instances(circuit, inputs, res, (0, batch - 1))
+    gates = len(circuit.opcodes)
+    state = solver.initial_state(inputs)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), batch * gates, reps=3)
+    emit({"path_dyn_v1": {
+        "gates": gates, "batch": batch, "dyn_fraction": 0.5, "repeated_constraints": 256,
+        "dot_kernel": "v1", "ok": True, "equals_v2_panel": True,
+        "checked_instances": [0, batch - 1], "launches": v1_launches,
+        "dyn_solves_per_sec": rate, "solve_seconds": secs}})
+    del state, res, res_v2, solver
+    torch.cuda.empty_cache()
+
+    # -- 7. path_ec -------------------------------------------------------------------
+    N_ORDER = host_gk.grumpkin.params.n
+    ec_launches = {}
+    ec_report = {}
+
+    def solve_gadgets(kind, num_gadgets, B, edit=None):
+        circuit = build_gadget_circuit(kind, num_gadgets, msg_len=32)
+        cols = gadget_inputs_columnar(circuit, B, kind)
+        if edit is not None:
+            cols = {w: a.astype(object) for w, a in cols.items()}
+            edit(circuit, cols)
+        t0 = time.perf_counter()
+        solver = BatchSolver(plan_circuit(circuit))
+        plan_seconds = time.perf_counter() - t0
+        build.reset_launches()
+        res = solver.solve(cols)
+        torch.cuda.synchronize()
+        return circuit, cols, solver, res, dict(build.LAUNCHES), plan_seconds
+
+    def host_outputs(kind, call, inst):
+        """The gadget's outputs for one instance from the host curve code."""
+        if kind == "fixed_base":
+            x, y = host_gk.fixed_base_scalar_mul(
+                fe(inst[int(call.low.witness)]), fe(inst[int(call.high.witness)]))
+            return {int(call.outputs[0]): int(x), int(call.outputs[1]): int(y)}
+        if kind == "pedersen":
+            x, y = host_gk.pedersen_commit(
+                [fe(inst[int(fi.witness)]) for fi in call.inputs], call.domain_separator)
+            return {int(call.outputs[0]): int(x), int(call.outputs[1]): int(y)}
+        good = host_gk.schnorr_verify(
+            fe(inst[int(call.public_key_x.witness)]), fe(inst[int(call.public_key_y.witness)]),
+            bytes(inst[int(fi.witness)] for fi in call.signature),
+            bytes(inst[int(fi.witness)] for fi in call.message))
+        return {int(call.output): int(good)}
+
+    def check_gadget_instances(kind, circuit, cols, res, instances):
+        for b in instances:
+            inst, got = columnar_instance(cols, b), res.instance_ints(b)
+            for opcode in circuit.opcodes:
+                for w, v in host_outputs(kind, opcode.call, inst).items():
+                    assert got[w] == v, (kind, b, w)
+
+    for kind, num_gadgets, B in (("pedersen", 2, 2048), ("fixed_base", 4, 4096),
+                                 ("schnorr", 2, 1024)):
+        circuit, cols, solver, res, launches, plan_seconds = solve_gadgets(kind, num_gadgets, B)
+        assert res.ok.all() and (res.fail == FAIL_NONE).all(), kind
+        assert launches["pt_add"] > 0 and launches["pow"] > 0, (kind, launches)
+        check_gadget_instances(kind, circuit, cols, res, (0, B - 1))
+        state = solver.initial_state(cols)
+        rate, secs = timed_rate(device_solve_of(solver, state, torch), num_gadgets * B, reps=3)
+        rate_full, secs_full = timed_rate(lambda: solver.solve(cols), num_gadgets * B, reps=3)
+        if want_profile:
+            emit({f"profile_ec_{kind}": profile(device_solve_of(solver, state, torch), secs)})
+        ec_launches[kind] = launches
+        ec_report[kind] = {
+            "gadgets": num_gadgets, "batch": B, "ok": True, "checked_instances": [0, B - 1],
+            "launches": launches, "plan_and_tables_seconds": plan_seconds,
+            "gadget_solves_per_sec": rate, "solve_seconds": secs,
+            "gadget_solves_per_sec_with_packing": rate_full,
+            "solve_seconds_with_packing": secs_full}
+        del state, res, solver
+        torch.cuda.empty_cache()
+
+    # Schnorr: a flipped signature byte (gadget 0, instances 3 and 100) and an
+    # off-curve key (gadget 1, instance 7) verify false there and true
+    # everywhere else; the instance is still solved (ok).
+    def forge(circuit, cols):
+        c0, c1 = circuit.opcodes[0].call, circuit.opcodes[1].call
+        for b, j in ((3, 5), (100, 40)):  # byte 5 lies in s, byte 40 in e
+            cols[int(c0.signature[j].witness)][b] ^= 1
+        cols[int(c1.public_key_y.witness)][7] += 1
+
+    circuit, cols, _, res, _, _ = solve_gadgets("schnorr", 2, 128, edit=forge)
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    want = [[1] * 128, [1] * 128]
+    want[0][3] = want[0][100] = want[1][7] = 0
+    got = [res.witness_ints(int(op.call.output)) for op in circuit.opcodes]
+    assert got == want, "forged signatures"
+    check_gadget_instances("schnorr", circuit, cols, res, (3, 7, 100))
+
+    # Fixed base: a limb past 2^128 (gadget 1, instance 5) and a scalar equal to
+    # the group order (gadget 2, instance 9) fail their instance at that opcode
+    # and write zeros; the order minus one (gadget 3, instance 11) is valid.
+    def out_of_range(circuit, cols):
+        calls = [op.call for op in circuit.opcodes]
+        cols[int(calls[1].high.witness)][5] = 1 << 128
+        for call, b, scalar in ((calls[2], 9, N_ORDER), (calls[3], 11, N_ORDER - 1)):
+            cols[int(call.low.witness)][b] = scalar & ((1 << 128) - 1)
+            cols[int(call.high.witness)][b] = scalar >> 128
+
+    circuit, cols, _, res, _, _ = solve_gadgets("fixed_base", 4, 64, edit=out_of_range)
+    want_fail = [int(FAIL_NONE)] * 64
+    want_fail[5], want_fail[9] = 1, 2
+    assert res.fail.tolist() == want_fail, res.fail.tolist()
+    assert res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+    assert res.error_location(9).acir_index == 2 and res.error_location(11) is None
+    calls = [op.call for op in circuit.opcodes]
+    for call, b in ((calls[1], 5), (calls[2], 9)):
+        assert [res.witness_ints(int(w))[b] for w in call.outputs] == [0, 0]
+    check_gadget_instances("fixed_base", circuit, cols, res, (0, 11, 63))
+    for b, skip in ((5, 1), (9, 2)):  # the failing instance's other gadgets still solve
+        inst, got = columnar_instance(cols, b), res.instance_ints(b)
+        for g, call in enumerate(calls):
+            if g != skip:
+                for w, v in host_outputs("fixed_base", call, inst).items():
+                    assert got[w] == v, (b, g)
+    emit({"path_ec": {**ec_report,
+                      "forged_signatures": {"batch": 128, "false_at": {"gadget 0": [3, 100], "gadget 1": [7]}, "ok": True},
+                      "invalid_scalars": {"batch": 64, "fail": {"5": 1, "9": 2}, "outputs_zeroed": True}}})
+
+    # -- 8. kernels, 9. card, 10. verdict -------------------------------------------
+    paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
+             **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}}
     rows = []
-    for name in ("level", "mul", "pow", "dot"):
+    for name in build.KERNELS:
         row = kernels[name]
         assert row["max_abs_err"] == 0, (name, row["max_abs_err"])
-        row["launches_static"] = static_launches[name]
-        row["launches_dyn"] = dyn_launches[name]
-        row["launches"] = static_launches[name] + dyn_launches[name]
+        for path, counts in paths.items():
+            row[f"launches_{path}"] = counts[name]
+        row["launches"] = sum(counts[name] for counts in paths.values())
         assert row["launches"] > 0, name
         rows.append(row)
     emit({"kernels": rows})

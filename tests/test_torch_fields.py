@@ -244,16 +244,12 @@ def dot_case():
     return W, pack, want
 
 
-@pytest.mark.parametrize("with_scale", [False, True], ids=["noscale", "scale"])
-@pytest.mark.parametrize("t1,t2", DOT_SHAPES)
-def test_dot_matches_jax_eval_exprs_and_ints(dot_case, t1, t2, with_scale):
-    W, pack, jax_want = dot_case
-    p = BN254_FR.modulus
-    r_inv = pow(R, -1, p)
+def port_eval_exprs(dot_case, t1, t2, with_scale, dot_kernel="v2"):
+    """The port's `eval_exprs` on the group of DOT_SHAPES with t1 linear and t2
+    product terms, packed at its own width."""
+    W, pack, _ = dot_case
     k = DOT_SHAPES.index((t1, t2))
     g = slice(k * E, (k + 1) * E)
-    want = jax_want[with_scale][:, g]  # (B, E, 16)
-
     ctx = LimbContext(tparams.BN254_FR, device="cpu")
     tpack = convert.pack_from_jax(dict(
         lin_idx=pack["lin_idx"][g, :t1], lin_coeff=limbs16(pack["lin_c"][g, :t1]),
@@ -264,7 +260,20 @@ def test_dot_matches_jax_eval_exprs_and_ints(dot_case, t1, t2, with_scale):
         torch.int64 if key.endswith("_idx") else torch.int32) for key, v in tpack.items()}
     Wt = torch.from_numpy(convert.panel_from_jax(limbs16(W)))
     scale = to_torch(pack["scale"][g]) if with_scale else None
-    got = eval_exprs(ctx, Wt, tpack, scale)  # (E, B, 8)
+    return eval_exprs(ctx, Wt, tpack, scale, dot_kernel)
+
+
+@pytest.mark.parametrize("with_scale", [False, True], ids=["noscale", "scale"])
+@pytest.mark.parametrize("t1,t2", DOT_SHAPES)
+def test_dot_matches_jax_eval_exprs_and_ints(dot_case, t1, t2, with_scale):
+    W, pack, jax_want = dot_case
+    p = BN254_FR.modulus
+    r_inv = pow(R, -1, p)
+    k = DOT_SHAPES.index((t1, t2))
+    g = slice(k * E, (k + 1) * E)
+    want = jax_want[with_scale][:, g]  # (B, E, 16)
+
+    got = port_eval_exprs(dot_case, t1, t2, with_scale)  # (E, B, 8)
     assert got.shape == (E, B, 8)
     assert np.array_equal(
         convert.limbs32_to_limbs16(got.numpy()).transpose(1, 0, 2), want)
@@ -283,6 +292,84 @@ def test_dot_matches_jax_eval_exprs_and_ints(dot_case, t1, t2, with_scale):
             if with_scale:
                 acc = acc * int(pack["scale"][ge]) * r_inv
             assert fk.limbs32_to_ints(got[e, b].numpy())[0] == acc % p
+
+
+# ---------------------------------------------------------------------------
+# First generation: the v1 multiply and the v1 dot (products multiplied first)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_scale", [False, True], ids=["noscale", "scale"])
+@pytest.mark.parametrize("t1,t2", DOT_SHAPES)
+def test_dot_v1_route_matches_jax_eval_exprs(dot_case, t1, t2, with_scale):
+    """`eval_exprs(dot_kernel="v1")` (`mont_mul_v1` of the quadratic operands,
+    then `mont_dot_v1` over the joined panel) against the JAX `eval_exprs` (its
+    jnp fold on a CPU) and against the default route."""
+    k = DOT_SHAPES.index((t1, t2))
+    want = dot_case[2][with_scale][:, k * E : (k + 1) * E]  # (B, E, 16)
+    got = port_eval_exprs(dot_case, t1, t2, with_scale, dot_kernel="v1")
+    assert np.array_equal(convert.limbs32_to_limbs16(got.numpy()).transpose(1, 0, 2), want)
+    assert torch.equal(got, port_eval_exprs(dot_case, t1, t2, with_scale))
+
+
+def dot_v1_ints(vals, coeff, qc, scale, p):
+    """out[e][b] = [scale[e] *R] (qc[e] + sum_t coeff[e][t] *R vals[e][t][b])
+    in Python ints; `*R` is the Montgomery product."""
+    r_inv = pow(R, -1, p)
+    out = []
+    for e in range(len(qc)):
+        for b in range(len(vals[e][0])):
+            acc = qc[e]
+            for t in range(len(coeff[e])):
+                acc = (acc + coeff[e][t] * vals[e][t][b] * r_inv) % p
+            out.append(acc * scale[e] * r_inv % p if scale is not None else acc)
+    return out
+
+
+@pytest.mark.parametrize("terms,with_scale", [(1, True), (3, False), (19, True), (32, False)])
+def test_dot_v1_matches_ints(terms, with_scale):
+    """Random operands; then every operand and coefficient p - 1, where a sum
+    kept in one lazy chain would overflow from 18 terms on: each term joins
+    with one modular add, so 19 and 32 are exact."""
+    p = tparams.BN254_FR.modulus
+    n_e, n_b = 3, 4
+    for fill in (None, p - 1):
+        def ints(seed, n):
+            return [fill] * n if fill is not None else rand_ints(seed, n, p)
+        vals = np.array(ints(21, n_e * terms * n_b), dtype=object).reshape(n_e, terms, n_b)
+        coeff = np.array(ints(22, n_e * terms), dtype=object).reshape(n_e, terms)
+        if fill is None and terms > 1:
+            coeff[1, 0] = 0  # a padding term
+        qc, scale = ints(23, n_e), (ints(24, n_e) if with_scale else None)
+        got = fk.mont_dot_v1(
+            to_torch(vals.reshape(-1)).reshape(n_e, terms, n_b, 8),
+            to_torch(coeff.reshape(-1)).reshape(n_e, terms, 8), to_torch(qc),
+            None if scale is None else to_torch(scale), tparams.BN254_FR)
+        assert got.shape == (n_e, n_b, 8)
+        assert from_torch(got) == dot_v1_ints(vals.tolist(), coeff.tolist(), qc, scale, p)
+
+
+def test_dot_v1_refuses_bad_shapes():
+    one = torch.zeros((2, 1, 3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="T >= 1"):
+        fk.mont_dot_v1(one[:, :0], one[:, :0, 0], one[:, 0, 0])
+    with pytest.raises(ValueError, match="coefficient shapes"):
+        fk.mont_dot_v1(one, one[:, :, 0], one[:1, 0, 0])
+    with pytest.raises(TypeError, match="int32 limbs"):
+        fk.mont_dot_v1(one.to(torch.int64), one[:, :, 0], one[:, 0, 0])
+
+
+@pytest.mark.parametrize("field", ["bn254"], indirect=True)
+def test_mul_v1_matches_jax_mont_mul(field):
+    """`mont_mul_v1` knows BN254 only (as its reference does); it broadcasts
+    and flattens any two shapes, as `mont_mul_pallas_flex`."""
+    ta, tb = field["ta"], field["tb"]
+    assert from_torch(fk.mont_mul_v1(ta, tb)) == field["jax"]["mont_mul"]
+    assert from_torch(fk.mont_mul_v1_plain(ta, tb)) == field["ints"]["mont_mul"]
+    got = fk.mont_mul_v1(ta.reshape(4, 4, 8), field["ctx"].r2_limbs)
+    assert got.shape == (4, 4, 8) and from_torch(got) == field["ints"]["to_mont"]
+    with pytest.raises(TypeError, match="int32 limbs"):
+        fk.mont_mul_v1(ta[:, :7], tb[:, :7])
 
 
 def test_convert_roundtrips():

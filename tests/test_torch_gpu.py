@@ -15,7 +15,14 @@ from acvm_tpu_torch import build
 from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
 from acvm_tpu_torch.gpu import BatchSolver, plan_circuit
-from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+from acvm_tpu_torch.utils import (
+    build_gadget_circuit,
+    build_wide_arith_circuit,
+    gadget_inputs_columnar,
+    random_inputs,
+    with_repeated_constraints,
+)
+from acvm_tpu_torch.utils.ec_points import exceptional_panel, window_entry_panel
 
 pytestmark = pytest.mark.gpu
 
@@ -114,3 +121,90 @@ def test_level_kernel_equals_plain_version_at_wide_gates(card):
     want = fl.fused_level_plain(panel.clone(), desc, BN254_FR, t1, t2)
     got = fl.fused_level_call(panel.to(card), desc.to(card), BN254_FR, t1, t2)
     assert torch.equal(got.cpu(), want)
+
+
+def test_pt_add_kernel_equals_plain_version(card):
+    """Exceptional pairs and window entries, a ragged batch; the even/odd
+    views of one panel, two separate panels, a panel gathered as (N, B, 3, 8),
+    and the result written over an operand."""
+    from acvm_tpu_torch.gpu import ec, ec_fused
+
+    B = 70
+    table = ec._window_table_np(ec.grumpkin.generator(), 4)
+    panel = np.concatenate([exceptional_panel(B), window_entry_panel(table, 6, B)])
+    P = torch.from_numpy(panel)
+    want = ec_fused.pt_add_pairs_plain(P)
+    build.reset_launches()
+    assert torch.equal(ec_fused.pt_add_pairs(P.to(card)).cpu(), want)
+    even, odd = P[0::2].contiguous().to(card), P[1::2].contiguous().to(card)
+    assert torch.equal(ec_fused.pt_add_panels(even, odd).cpu(), want)
+    gathered = P.permute(0, 2, 1, 3).contiguous().to(card).permute(0, 2, 1, 3)
+    assert not gathered.is_contiguous()
+    assert torch.equal(ec_fused.pt_add_pairs(gathered).cpu(), want)
+    assert ec_fused.pt_add_panels(even, odd, out=even) is even
+    assert torch.equal(even.cpu(), want)
+    assert build.LAUNCHES["pt_add"] == 4
+    doubled = ec_fused.pt_add_panels(odd, odd, out=odd)  # acc + acc of the ladder
+    assert torch.equal(doubled.cpu(), ec_fused.pt_add_panels_plain(P[1::2], P[1::2]))
+    whole = P.to(card)
+    with pytest.raises(ValueError, match="overlaps"):
+        ec_fused.pt_add_panels(whole[0::2], whole[1::2], out=whole[:4])
+
+
+@pytest.mark.parametrize("t,with_scale", [(1, False), (3, True), (32, False)])
+def test_v1_kernels_equal_plain_versions(card, t, with_scale):
+    E, B = 5, 70
+    p = BN254_FR
+    vals = elements(E * t * B, p, 3).reshape(E, t, B, 8)
+    coeff = elements(E * t, p, 4).reshape(E, t, 8)
+    if t > 1:
+        coeff[2, 1] = 0  # a padding term
+    qc = elements(E, p, 8)
+    sc = elements(E, p, 9) if with_scale else None
+    build.reset_launches()
+    got = fk.mont_dot_v1(vals.to(card), coeff.to(card), qc.to(card),
+                         None if sc is None else sc.to(card), p)
+    assert torch.equal(got.cpu(), fk.mont_dot_v1_plain(vals, coeff, qc, sc, p))
+    a, b = elements(1000, p, 1), elements(1000, p, 2)
+    assert torch.equal(fk.mont_mul_v1(a.to(card), b.to(card)).cpu(), fk.mont_mul_v1_plain(a, b))
+    assert torch.equal(fk.mont_mul_v1(a.to(card), b[5].to(card)).cpu(),
+                       fk.mont_mul_v1_plain(a, b[5]))
+    assert torch.equal(fk.mont_mul_v1(a.to(card), b.to(card)).cpu(), fk.mont_mul(a.to(card), b.to(card), p).cpu())
+    assert build.LAUNCHES["dot_v1"] == 1 and build.LAUNCHES["mul_v1"] == 3
+
+
+@pytest.mark.parametrize("kind,batch", [("fixed_base", 70), ("pedersen", 70), ("schnorr", 3)])
+def test_gadget_solver_on_card_equals_solver_on_cpu(card, kind, batch):
+    circuit = build_gadget_circuit(kind, 2, msg_len=10)
+    cols = gadget_inputs_columnar(circuit, batch, kind)
+    if kind == "schnorr":  # one forged signature
+        w = int(circuit.opcodes[1].call.signature[5].witness)
+        cols[w] = cols[w].copy()
+        cols[w][1] ^= 1
+    if kind == "fixed_base":  # one scalar limb past 2^128
+        w = int(circuit.opcodes[0].call.high.witness)
+        cols[w] = cols[w].astype(object)
+        cols[w][2] = 1 << 130
+    plan = plan_circuit(circuit)
+    build.reset_launches()
+    gpu = BatchSolver(plan).solve(cols)
+    assert build.LAUNCHES["pt_add"] > 0, build.LAUNCHES
+    cpu = BatchSolver(plan, device="cpu").solve(cols)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel)
+    assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    assert gpu.ok.all() == (kind != "fixed_base")
+
+
+def test_dot_kernel_v1_route_on_card_equals_v2(card):
+    circuit = with_repeated_constraints(
+        build_wide_arith_circuit(num_inputs=8, num_levels=3, gates_per_level=64, dyn_fraction=0.5),
+        20)
+    inputs = random_inputs(circuit, 100)
+    plan = plan_circuit(circuit)
+    v2 = BatchSolver(plan).solve(inputs)
+    assert v2.ok.all()
+    build.reset_launches()
+    v1 = BatchSolver(plan, dot_kernel="v1").solve(inputs)
+    assert build.LAUNCHES["dot_v1"] > 0 and build.LAUNCHES["mul_v1"] > 0
+    assert build.LAUNCHES["dot"] == 0, build.LAUNCHES
+    assert torch.equal(v1.panel, v2.panel) and np.array_equal(v1.fail, v2.fail)

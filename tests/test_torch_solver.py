@@ -32,7 +32,9 @@ from acvm_tpu_torch.acir import opcodes as ops
 from acvm_tpu_torch.fields.field import FieldElement
 from acvm_tpu_torch.fields.params import BN254_FR
 from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
-from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+from acvm_tpu_torch.utils import (
+    build_wide_arith_circuit, random_inputs, with_repeated_constraints,
+)
 
 P = BN254_FR.modulus
 BATCH = 8
@@ -126,10 +128,16 @@ def test_failing_instances_fail(case):
     assert case["res"].ok.tolist() == want
 
 
+@functools.lru_cache(maxsize=None)
+def jax_result(name):
+    case = build_case(name)
+    return JBatchSolver(jplan_circuit(case["jcircuit"])).solve(case["inputs"])
+
+
 @pytest.mark.parametrize("name", JAX_CASES)
 def test_matches_jax_batch_solver(name):
     case = build_case(name)
-    jres = JBatchSolver(jplan_circuit(case["jcircuit"])).solve(case["inputs"])
+    jres = jax_result(name)
     res = case["res"]
     nw = case["plan"].num_witnesses
     assert res.W.shape == (BATCH, nw, 16) and res.W.dtype == np.uint32
@@ -144,6 +152,69 @@ def test_matches_jax_batch_solver(name):
     # state carried across: the JAX panel converts to the port's panel
     assert np.array_equal(
         convert.panel_from_jax(jres.W, num_witnesses=nw), res.panel.numpy())
+
+
+# ---------------------------------------------------------------------------
+# dot_kernel="v1": the first-generation multiply and dot
+# ---------------------------------------------------------------------------
+
+
+def test_dot_kernel_v1_equals_v2(case):
+    v1 = BatchSolver(case["plan"], device="cpu", dot_kernel="v1").solve(case["inputs"])
+    res = case["res"]
+    assert torch.equal(v1.panel, res.panel)
+    assert np.array_equal(v1.ok, res.ok) and np.array_equal(v1.fail, res.fail)
+
+
+@pytest.mark.parametrize("name", JAX_CASES)
+def test_dot_kernel_v1_matches_jax_batch_solver(name):
+    case = build_case(name)
+    jres = jax_result(name)
+    v1 = BatchSolver(case["plan"], device="cpu", dot_kernel="v1").solve(case["inputs"])
+    assert np.array_equal(v1.W, jres.W[:, : case["plan"].num_witnesses])
+    assert np.array_equal(v1.ok, jres.ok) and np.array_equal(v1.fail, jres.fail)
+
+
+@pytest.mark.parametrize("dot_kernel", ["v2", "v1"])
+def test_repeated_quadratic_constraints_plan_as_checks(dot_kernel):
+    """A quadratic constraint stated again is an assert-zero check over known
+    witnesses: the expression evaluation's operand pre-multiply (`mont_mul_v1`
+    under "v1").  Held to the sequential engine; a spoiled input must fail at
+    the first repeat it breaks."""
+    kw = dict(num_inputs=8, num_levels=2, gates_per_level=16, dyn_fraction=0.5)
+    circuit = with_repeated_constraints(build_wide_arith_circuit(**kw), 5)
+    jcircuit = with_repeated_constraints(jbuild(**kw), 5)
+    assert len(circuit.opcodes) == 37 == len(jcircuit.opcodes)
+    plan = plan_circuit(circuit)
+    checks = [g for lv in plan.levels for g in lv.arith_check]
+    assert len(checks) == 5 and all(len(g.expr.mul_idx) == 1 for g in checks)
+    inputs = random_inputs(circuit, 3)
+    res = BatchSolver(plan, device="cpu", dot_kernel=dot_kernel).solve(inputs)
+    assert res.ok.all()
+    for b in range(3):
+        status, acvm = sequential(jcircuit, inputs[b])
+        assert status == ACVMStatus.SOLVED
+        got = res.instance_ints(b)
+        assert all(got[int(w)] == int(v) for w, v in acvm.finalize())
+    with pytest.raises(ValueError, match="only"):
+        with_repeated_constraints(circuit, 1000)
+
+
+def test_dot_kernel_argument_is_checked(case):
+    with pytest.raises(ValueError, match="dot_kernel"):
+        BatchSolver(case["plan"], device="cpu", dot_kernel="v3")
+    bls = Circuit(
+        current_witness_index=2,
+        opcodes=[ops.OpcodeArithmetic(Expression(
+            linear_combinations=[(FieldElement(1), Witness(1)), (-FieldElement(1), Witness(2))]))],
+        private_parameters={Witness(1)},
+    )
+    from acvm_tpu_torch.fields.params import BLS12_381_FR
+
+    plan = plan_circuit(bls, params=BLS12_381_FR)
+    BatchSolver(plan, device="cpu")  # the default route takes any field
+    with pytest.raises(ValueError, match="BN254"):
+        BatchSolver(plan, device="cpu", dot_kernel="v1")
 
 
 def test_witness_maps_and_result_views(case):
