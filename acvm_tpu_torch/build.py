@@ -24,7 +24,9 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1")
+KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder")
+PROBES = ("imad_rate", "mont_probe")
+HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -49,8 +51,14 @@ _SIGNATURES = {
     "pt_add": ("acvm_pt_add", [_P, _LL, _LL, _LL] * 3 + [_LL, _LL, _P, _P]),
     "dot_v1": ("acvm_mont_dot_v1", [_P] * 5 + [_LL, _LL, _I, _P, _P]),
     "mul_v1": ("acvm_mont_mul_v1", [_P, _P, _P, _LL, _P]),
+    # Base view (pointer, coordinate stride, instance stride), scalars, output
+    # view, instances, field, stream.
+    "pt_ladder": ("acvm_pt_ladder", [_P, _LL, _LL, _P, _P, _LL, _LL, _LL, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
+    # The candidate Montgomery products side by side: a, b, out, n, chain
+    # length, variant, threads a block, field, stream.
+    "mont_probe": ("acvm_mont_probe", [_P, _P, _P, _LL, _I, _I, _I, _P, _P]),
 }
 
 
@@ -77,11 +85,11 @@ def _nvcc() -> str:
     )
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, defines: Iterable[str] = ()) -> Path:
     h = hashlib.sha256()
-    for path in (source_path(name), CSRC / "field.cuh"):
+    for path in (source_path(name), *(CSRC / header for header in HEADERS)):
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -131,6 +139,27 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def load_variant(name: str, defines: Iterable[str]):
+    """The C launcher of kernel ``name`` compiled with extra ``-D`` switches
+    (the measurement switches a source documents), built beside the kernel's
+    own library and not counted in ``LAUNCHES``.  For measurements only: no
+    path of the solver calls it."""
+    flags = [f"-D{d}" for d in defines]
+    out = lib_path(name, flags)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(out),
+               str(source_path(name))]
+        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{done.stdout}")
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launch(name: str, *args) -> None:

@@ -1,0 +1,114 @@
+// The group law of an a = 0 short-Weierstrass curve (Grumpkin) for one
+// thread, on registers: a point is (X, Y, Z) Jacobian in Montgomery form,
+// Z == 0 encoding infinity.
+//
+// ec_add is the complete addition of acvm_tpu/tpu/ec_pallas.py::
+// _make_pt_add_kernel: add-2007-bl with the dbl-2009-l doubling for P == Q,
+// the reference's chain of field operations with every intermediate
+// canonical, so X, Y and Z come out bit-identical to it, not just the affine
+// point.  Where the reference computes both formulas for every lane and
+// selects, a thread branches: either operand at infinity costs no product,
+// P == Q costs 8 + 7, a generic pair 16.  ec_dbl is that doubling branch on
+// its own: it reads P only, so a caller that knows both operands are the same
+// point gets the same bits for 7 products.
+//
+// Both work in place on P.  Q is read through pointers, each coordinate when
+// the formula first needs it, so a caller whose Q never changes (a ladder's
+// base) holds none of it in registers between additions.
+#pragma once
+
+#include "field.cuh"
+
+__device__ __forceinline__ void dbl_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
+                                        const Field& f) {
+    add_mod(r, a, a, f);
+}
+
+// P <- 2P, dbl-2009-l (mirrors ec.pt_double, a = 0).  P at infinity stays as
+// it is, limb for limb.
+__device__ __forceinline__ void ec_dbl(uint32_t x[ACVM_LIMBS], uint32_t y[ACVM_LIMBS],
+                                       uint32_t z[ACVM_LIMBS], const Field& f) {
+    if (is_zero(z)) return;
+    uint32_t A[ACVM_LIMBS], Bv[ACVM_LIMBS], C[ACVM_LIMBS], D[ACVM_LIMBS], t[ACVM_LIMBS];
+    mont_mul(z, y, z, f);
+    dbl_mod(z, z, f);            // Z3 = 2 Y1 Z1
+    mont_mul(A, x, x, f);
+    mont_mul(Bv, y, y, f);
+    mont_mul(C, Bv, Bv, f);
+    add_mod(t, x, Bv, f);
+    mont_mul(t, t, t, f);
+    sub_mod(D, t, A, f);
+    sub_mod(D, D, C, f);
+    dbl_mod(D, D, f);            // D = 2((X + B)^2 - A - C)
+    dbl_mod(t, A, f);
+    add_mod(A, t, A, f);         // E = 3A, over A
+    mont_mul(x, A, A, f);        // F
+    dbl_mod(t, D, f);
+    sub_mod(x, x, t, f);         // X3 = F - 2D
+    dbl_mod(C, C, f);
+    dbl_mod(C, C, f);
+    dbl_mod(C, C, f);            // 8C
+    sub_mod(t, D, x, f);
+    mont_mul(y, A, t, f);
+    sub_mod(y, y, C, f);         // Y3 = E(D - X3) - 8C
+}
+
+// P <- P + Q, complete.  Q's coordinates lie 8 limbs each at qx, qy, qz.
+__device__ __forceinline__ void ec_add(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM_LIMBS],
+                                       uint32_t z1[ACVM_LIMBS], const uint32_t* qx,
+                                       const uint32_t* qy, const uint32_t* qz, const Field& f) {
+    uint32_t z2[ACVM_LIMBS], t[ACVM_LIMBS];
+    load_fe(z2, qz);
+    // Identities first (the reference's last selects: Q at infinity wins).
+    if (is_zero(z2)) return;
+    if (is_zero(z1)) {
+        load_fe(x1, qx);
+        load_fe(y1, qy);
+#pragma unroll
+        for (int i = 0; i < ACVM_LIMBS; ++i) z1[i] = z2[i];
+        return;
+    }
+
+    uint32_t z1z1[ACVM_LIMBS], z2z2[ACVM_LIMBS], u1[ACVM_LIMBS], s1[ACVM_LIMBS];
+    uint32_t h[ACVM_LIMBS], rr[ACVM_LIMBS];
+    mont_mul(z1z1, z1, z1, f);
+    mont_mul(z2z2, z2, z2, f);
+    mont_mul(u1, x1, z2z2, f);
+    load_fe(t, qx);
+    mont_mul(t, t, z1z1, f);         // U2
+    sub_mod(h, t, u1, f);            // H = U2 - U1
+    mont_mul(s1, y1, z2, f);
+    mont_mul(s1, s1, z2z2, f);       // S1
+    load_fe(t, qy);
+    mont_mul(t, t, z1, f);
+    mont_mul(t, t, z1z1, f);         // S2
+    sub_mod(rr, t, s1, f);           // r = S2 - S1
+
+    if (is_zero(h) && is_zero(rr)) {
+        ec_dbl(x1, y1, z1, f);       // P == Q
+        return;
+    }
+    // add-2007-bl (mirrors ec.pt_add).  P == -Q has H == 0 and r != 0: the
+    // last product makes Z3 = 0, the reference's explicit select.  X1 and Y1
+    // are dead from here on and take X3 and Y3.
+    uint32_t I[ACVM_LIMBS], J[ACVM_LIMBS];
+    dbl_mod(I, h, f);
+    mont_mul(I, I, I, f);            // I = (2H)^2
+    mont_mul(J, h, I, f);
+    dbl_mod(rr, rr, f);              // r2 = 2r
+    mont_mul(u1, u1, I, f);          // V, over U1
+    mont_mul(x1, rr, rr, f);
+    sub_mod(x1, x1, J, f);
+    dbl_mod(t, u1, f);
+    sub_mod(x1, x1, t, f);           // X3 = r2^2 - J - 2V
+    mont_mul(J, s1, J, f);           // S1 J
+    sub_mod(t, u1, x1, f);
+    mont_mul(y1, rr, t, f);
+    dbl_mod(J, J, f);
+    sub_mod(y1, y1, J, f);           // Y3 = r2 (V - X3) - 2 S1 J
+    add_mod(t, z1, z2, f);
+    mont_mul(t, t, t, f);
+    sub_mod(t, t, z1z1, f);
+    sub_mod(t, t, z2z2, f);
+    mont_mul(z1, t, h, f);           // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+}

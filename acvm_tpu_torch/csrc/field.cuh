@@ -50,97 +50,266 @@ __device__ __forceinline__ bool is_zero(const uint32_t x[ACVM_LIMBS]) {
     return acc == 0;
 }
 
+// Eight-limb add and subtract as one carry-flag chain each (add.cc / addc.cc,
+// sub.cc / subc.cc): eight operations, where 64-bit sums in C cost three a
+// limb.  `carry` / `borrow` is the bit that leaves the top limb, 0 or 1.
+__device__ __forceinline__ uint32_t add_limbs(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
+                                              const uint32_t b[ACVM_LIMBS]) {
+    uint32_t r0, r1, r2, r3, r4, r5, r6, r7, carry;
+    asm("add.cc.u32 %0, %9, %17;\n\t"
+        "addc.cc.u32 %1, %10, %18;\n\t"
+        "addc.cc.u32 %2, %11, %19;\n\t"
+        "addc.cc.u32 %3, %12, %20;\n\t"
+        "addc.cc.u32 %4, %13, %21;\n\t"
+        "addc.cc.u32 %5, %14, %22;\n\t"
+        "addc.cc.u32 %6, %15, %23;\n\t"
+        "addc.cc.u32 %7, %16, %24;\n\t"
+        "addc.u32 %8, 0, 0;"
+        : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3), "=&r"(r4), "=&r"(r5), "=&r"(r6),
+          "=&r"(r7), "=&r"(carry)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    r[0] = r0; r[1] = r1; r[2] = r2; r[3] = r3; r[4] = r4; r[5] = r5; r[6] = r6; r[7] = r7;
+    return carry;
+}
+
+__device__ __forceinline__ uint32_t sub_limbs(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
+                                              const uint32_t b[ACVM_LIMBS]) {
+    uint32_t r0, r1, r2, r3, r4, r5, r6, r7, borrow;
+    asm("sub.cc.u32 %0, %9, %17;\n\t"
+        "subc.cc.u32 %1, %10, %18;\n\t"
+        "subc.cc.u32 %2, %11, %19;\n\t"
+        "subc.cc.u32 %3, %12, %20;\n\t"
+        "subc.cc.u32 %4, %13, %21;\n\t"
+        "subc.cc.u32 %5, %14, %22;\n\t"
+        "subc.cc.u32 %6, %15, %23;\n\t"
+        "subc.cc.u32 %7, %16, %24;\n\t"
+        "subc.u32 %8, 0, 0;"   // 0 - 0 - borrow: all ones where the chain borrowed
+        : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3), "=&r"(r4), "=&r"(r5), "=&r"(r6),
+          "=&r"(r7), "=&r"(borrow)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    r[0] = r0; r[1] = r1; r[2] = r2; r[3] = r3; r[4] = r4; r[5] = r5; r[6] = r6; r[7] = r7;
+    return borrow & 1u;
+}
+
 // x -= p when x >= p.  x < 2p < 2^256 on entry, canonical on exit.
 __device__ __forceinline__ void cond_sub(uint32_t x[ACVM_LIMBS], const Field& f) {
     uint32_t d[ACVM_LIMBS];
-    uint32_t borrow = 0;
+    const uint32_t borrow = sub_limbs(d, x, f.p);
 #pragma unroll
-    for (int i = 0; i < ACVM_LIMBS; ++i) {
-        uint64_t s = (uint64_t)x[i] - f.p[i] - borrow;
-        d[i] = (uint32_t)s;
-        borrow = (uint32_t)(s >> 63);
-    }
-    if (!borrow) {
-#pragma unroll
-        for (int i = 0; i < ACVM_LIMBS; ++i) x[i] = d[i];
-    }
+    for (int i = 0; i < ACVM_LIMBS; ++i) x[i] = borrow ? x[i] : d[i];
 }
 
 // r = a + b mod p for canonical a, b.  a + b < 2p < 2^256: no carry out.
 __device__ __forceinline__ void add_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
                                         const uint32_t b[ACVM_LIMBS], const Field& f) {
-    uint32_t carry = 0;
-#pragma unroll
-    for (int i = 0; i < ACVM_LIMBS; ++i) {
-        uint64_t s = (uint64_t)a[i] + b[i] + carry;
-        r[i] = (uint32_t)s;
-        carry = (uint32_t)(s >> 32);
-    }
+    add_limbs(r, a, b);
     cond_sub(r, f);
 }
 
 // r = a - b mod p for canonical a, b.
 __device__ __forceinline__ void sub_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
                                         const uint32_t b[ACVM_LIMBS], const Field& f) {
-    uint32_t borrow = 0;
+    uint32_t d[ACVM_LIMBS], e[ACVM_LIMBS];
+    const uint32_t borrow = sub_limbs(d, a, b);
+    add_limbs(e, d, f.p);
 #pragma unroll
-    for (int i = 0; i < ACVM_LIMBS; ++i) {
-        uint64_t s = (uint64_t)a[i] - b[i] - borrow;
-        r[i] = (uint32_t)s;
-        borrow = (uint32_t)(s >> 63);
-    }
-    if (borrow) {
-        uint32_t carry = 0;
-#pragma unroll
-        for (int i = 0; i < ACVM_LIMBS; ++i) {
-            uint64_t s = (uint64_t)r[i] + f.p[i] + carry;
-            r[i] = (uint32_t)s;
-            carry = (uint32_t)(s >> 32);
-        }
-    }
+    for (int i = 0; i < ACVM_LIMBS; ++i) r[i] = borrow ? e[i] : d[i];
 }
 
-// Montgomery product a * b * R^-1, CIOS (coarsely integrated operand
-// scanning) over 32-bit limbs with 64-bit partial sums.  Each inner step is
-// one 32x32->64 multiply-add: (2^32-1)^2 + 2(2^32-1) = 2^64-1, so the sum
-// never overflows.  For a * b < p * R (true whenever a, b < p, and for
-// a < 2p, b < p) the result is < 2p < 2^256 and the ninth word ends as zero.
-// `reduce` adds the conditional subtract that makes it canonical.
-// r may alias a or b.
+// ---------------------------------------------------------------------------
+// The Montgomery product: carry-flag chains over even and odd limbs.
+//
+// A 32x32->64 product of limb a[j] lands on limb positions j and j+1.  The
+// products of the EVEN limbs of a (a0, a2, a4, a6) times one word therefore
+// tile eight consecutive limbs without overlap, and so do those of the ODD
+// limbs one position higher.  Each tiling is one chain of mad.lo.cc /
+// madc.hi.cc pairs (one IMAD.WIDE with carry each): four wide multiply-adds
+// that wait only on the carry flag, and the two chains of a row do not wait
+// on each other at all.  The running sum is kept as two accumulators,
+// `even` (limb positions 0..7) and `odd` (positions 1..8), which meet once, at
+// the end.  A row costs 16 wide multiply-adds in four short chains, where CIOS
+// written in C with 64-bit partial sums (mont_probe.cu keeps it as the
+// yardstick) runs 16 in one chain with a 64-bit add between every two.
+// ---------------------------------------------------------------------------
+
+// acc[0..7] += (x[0], x[2], x[4], x[6]) * y, four 64-bit products side by side.
+// The carry out of the top limb is dropped: the caller knows it is zero.
+__device__ __forceinline__ void mad_even(uint32_t acc[8], const uint32_t* x, uint32_t y) {
+    asm("mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+        "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+        "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+        "madc.hi.u32 %7, %11, %12, %7;"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+          "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
+        : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// The same, and the carry out of acc[7] is added to `top`.
+__device__ __forceinline__ void mad_even_top(uint32_t acc[8], uint32_t& top, const uint32_t* x,
+                                             uint32_t y) {
+    asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+        "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+        "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+          "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(top)
+        : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// The shift of one Montgomery row, fused with the odd chain of the next.  On
+// entry `lo` holds limb positions 0..7 with lo[0] == 0 (just reduced) and
+// `hi0` is limb 1 of the other accumulator.  Dividing by 2^32 moves lo[1] onto
+// hi0 and lo[j + 2] onto position j + 1, which is where the product of the
+// odd limb x[j] (x = a + 1) lands: lo becomes the new odd accumulator,
+//   lo[j], lo[j + 1] = x[j] * y + lo[j + 2], lo[j + 3]     (j = 0, 2, 4, 6),
+// every read of a limb ahead of its overwrite, in one carry chain that starts
+// with hi0 += lo[1].  The top product has nothing above it to carry into.
+__device__ __forceinline__ void shift_mad_odd(uint32_t& hi0, uint32_t lo[8], const uint32_t* x,
+                                              uint32_t y) {
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "madc.lo.cc.u32 %1, %9, %13, %3;\n\t"
+        "madc.hi.cc.u32 %2, %9, %13, %4;\n\t"
+        "madc.lo.cc.u32 %3, %10, %13, %5;\n\t"
+        "madc.hi.cc.u32 %4, %10, %13, %6;\n\t"
+        "madc.lo.cc.u32 %5, %11, %13, %7;\n\t"
+        "madc.hi.cc.u32 %6, %11, %13, %8;\n\t"
+        "madc.lo.cc.u32 %7, %12, %13, 0;\n\t"
+        "madc.hi.u32 %8, %12, %13, 0;"
+        : "+r"(hi0), "+r"(lo[0]), "+r"(lo[1]), "+r"(lo[2]), "+r"(lo[3]),
+          "+r"(lo[4]), "+r"(lo[5]), "+r"(lo[6]), "+r"(lo[7])
+        : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// One row: (even, odd) <- ((even, odd) / 2^32 + a * bi + m * p) with m chosen
+// so that the new even[0] is zero.  The caller swaps the two names each row:
+// after the division the old odd accumulator sits on positions 0..7.
+template <bool FIRST>
+__device__ __forceinline__ void mont_row(uint32_t even[8], uint32_t odd[8],
+                                         const uint32_t a[ACVM_LIMBS], uint32_t bi,
+                                         const Field& f) {
+    if (FIRST) {
+#pragma unroll
+        for (int j = 0; j < ACVM_LIMBS; j += 2) {
+            const uint64_t e = (uint64_t)a[j] * bi, o = (uint64_t)a[j + 1] * bi;
+            even[j] = (uint32_t)e;
+            even[j + 1] = (uint32_t)(e >> 32);
+            odd[j] = (uint32_t)o;
+            odd[j + 1] = (uint32_t)(o >> 32);
+        }
+    } else {
+        shift_mad_odd(even[0], odd, a + 1, bi);
+        mad_even_top(even, odd[7], a, bi);
+    }
+    const uint32_t m = even[0] * f.n0;
+    mad_even(odd, f.p + 1, m);
+    mad_even_top(even, odd[7], f.p, m);
+}
+
+// r = even + (odd >> 32): the accumulators of the last row meet.
+__device__ __forceinline__ void merge_rows(uint32_t r[ACVM_LIMBS], const uint32_t even[8],
+                                           const uint32_t odd[8]) {
+    asm("add.cc.u32 %0, %8, %16;\n\t"
+        "addc.cc.u32 %1, %9, %17;\n\t"
+        "addc.cc.u32 %2, %10, %18;\n\t"
+        "addc.cc.u32 %3, %11, %19;\n\t"
+        "addc.cc.u32 %4, %12, %20;\n\t"
+        "addc.cc.u32 %5, %13, %21;\n\t"
+        "addc.cc.u32 %6, %14, %22;\n\t"
+        "addc.u32 %7, %15, 0;"
+        : "=&r"(r[0]), "=&r"(r[1]), "=&r"(r[2]), "=&r"(r[3]),
+          "=&r"(r[4]), "=&r"(r[5]), "=&r"(r[6]), "=&r"(r[7])
+        : "r"(even[0]), "r"(even[1]), "r"(even[2]), "r"(even[3]),
+          "r"(even[4]), "r"(even[5]), "r"(even[6]), "r"(even[7]),
+          "r"(odd[1]), "r"(odd[2]), "r"(odd[3]), "r"(odd[4]),
+          "r"(odd[5]), "r"(odd[6]), "r"(odd[7]));
+}
+
+// Montgomery product a * b * R^-1.  The running sum never passes
+// (a + p) * 2^32, so it fits its two accumulators whenever a + p < 2^256: any
+// a < p, and a < 2p for BN254.  b may be any 256-bit value; where one operand
+// is only known to be < 2p, pass it as b.  For a * b < p * R the result is
+// < 2p < 2^256; `reduce` adds the conditional subtract that makes it
+// canonical.  r may alias a or b.
 __device__ __forceinline__ void mont_mul(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
                                          const uint32_t b[ACVM_LIMBS], const Field& f,
                                          bool reduce = true) {
-    uint32_t t[ACVM_LIMBS + 2];
+    uint32_t even[8], odd[8];
+    mont_row<true>(even, odd, a, b[0], f);
+    mont_row<false>(odd, even, a, b[1], f);
 #pragma unroll
-    for (int i = 0; i < ACVM_LIMBS + 2; ++i) t[i] = 0;
+    for (int i = 2; i < ACVM_LIMBS; i += 2) {
+        mont_row<false>(even, odd, a, b[i], f);
+        mont_row<false>(odd, even, a, b[i + 1], f);
+    }
+    // The last row ran with the names swapped: `odd` holds positions 0..7.
+    merge_rows(r, even, odd);
+    if (reduce) cond_sub(r, f);
+}
+
+// r = (sum over the terms t in LIVE of a[t] * b[t]) * R^-1: a sum of products
+// with ONE reduction.  Each row adds every live term's a[t] * b[t][i] to the
+// accumulators before the single m * p that clears the low limb, so T terms
+// cost 64 T + 64 wide multiply-adds where T separate products cost 128 T (and
+// T conditional subtracts and modular adds).  Bit t of LIVE says that term t
+// takes part; it is a template argument, so the rows are straight-line code.
+// a[t] are register arrays of canonical elements, b[t] may point anywhere
+// (one word is read a row).  The running sum stays below (T p + p) * 2^32, so
+// the caller must keep (T + 1) * p < 2^256 for the live count T; then the
+// result is < 2p before the conditional subtract and canonical after it.
+// The lowest live term carries the division by 2^32 in its odd chain.
+template <int TERMS, uint32_t LIVE>
+__device__ __forceinline__ void mont_mul_sum(uint32_t r[ACVM_LIMBS],
+                                             const uint32_t* const (&a)[TERMS],
+                                             const uint32_t* const (&b)[TERMS], const Field& f) {
+    static_assert(LIVE != 0 && LIVE < (1u << TERMS), "at least one live term");
+    uint32_t acc[2][8];   // the even and the odd accumulator, swapping each row
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[0][j] = acc[1][j] = 0;
 #pragma unroll
     for (int i = 0; i < ACVM_LIMBS; ++i) {
-        uint64_t c = 0;
-        const uint32_t bi = b[i];
+        uint32_t* even = acc[i & 1];
+        uint32_t* odd = acc[(i & 1) ^ 1];
+        bool shifted = (i == 0);   // nothing to divide before the first row
 #pragma unroll
-        for (int j = 0; j < ACVM_LIMBS; ++j) {
-            uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
-            t[j] = (uint32_t)s;
-            c = s >> 32;
+        for (int t = 0; t < TERMS; ++t) {
+            if (!(LIVE & (1u << t))) continue;
+            const uint32_t bt = b[t][i];
+            if (shifted) mad_even(odd, a[t] + 1, bt);
+            else shift_mad_odd(even[0], odd, a[t] + 1, bt);
+            shifted = true;
+            mad_even_top(even, odd[7], a[t], bt);
         }
-        uint64_t s = (uint64_t)t[ACVM_LIMBS] + c;
-        t[ACVM_LIMBS] = (uint32_t)s;
-        t[ACVM_LIMBS + 1] = (uint32_t)(s >> 32);
-
-        const uint32_t m = t[0] * f.n0;
-        s = (uint64_t)m * f.p[0] + t[0];
-        c = s >> 32;
-#pragma unroll
-        for (int j = 1; j < ACVM_LIMBS; ++j) {
-            s = (uint64_t)m * f.p[j] + t[j] + c;
-            t[j - 1] = (uint32_t)s;
-            c = s >> 32;
-        }
-        s = (uint64_t)t[ACVM_LIMBS] + c;
-        t[ACVM_LIMBS - 1] = (uint32_t)s;
-        t[ACVM_LIMBS] = t[ACVM_LIMBS + 1] + (uint32_t)(s >> 32);
+        const uint32_t m = even[0] * f.n0;
+        mad_even(odd, f.p + 1, m);
+        mad_even_top(even, odd[7], f.p, m);
     }
-#pragma unroll
-    for (int i = 0; i < ACVM_LIMBS; ++i) r[i] = t[i];
-    if (reduce) cond_sub(r, f);
+    // Eight rows: the names are back where they started, and the last row
+    // left positions 0..7 in acc[1].
+    merge_rows(r, acc[0], acc[1]);
+    cond_sub(r, f);
+}
+
+// The same for a mask known only at run time (the same for the whole warp):
+// one branch to the instance compiled for it.  live == 0 leaves r untouched.
+template <int TERMS, uint32_t LIVE = 1>
+__device__ __forceinline__ void mont_mul_sum_of(uint32_t r[ACVM_LIMBS],
+                                                const uint32_t* const (&a)[TERMS],
+                                                const uint32_t* const (&b)[TERMS], uint32_t live,
+                                                const Field& f) {
+    if (live == LIVE) {
+        mont_mul_sum<TERMS, LIVE>(r, a, b, f);
+    } else if constexpr (LIVE + 1 < (1u << TERMS)) {
+        mont_mul_sum_of<TERMS, LIVE + 1>(r, a, b, live, f);
+    }
 }

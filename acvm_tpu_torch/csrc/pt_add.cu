@@ -7,12 +7,15 @@
 // chain of field operations of the reference (every intermediate canonical),
 // so X, Y and Z come out bit-identical to it, not just the affine point.
 //
-// One thread owns one (pair c, instance b): it loads the six coordinates into
-// registers, runs the whole chain there and stores three.  No intermediate
-// touches device memory.  Where the reference computes the doubling for every
-// lane and selects, a thread here branches: either operand at infinity costs
-// no product, P == Q costs 8 + 7, a generic pair 16.  At 288 bytes against
-// 16 products (2,176 multiply-adds) a pair the integer pipes bound it.
+// One thread owns one (pair c, instance b): it loads P into registers, runs
+// the group law of ec.cuh there (Q is read where it lies, a coordinate when
+// the formula first needs it) and stores three coordinates.  No intermediate
+// touches device memory.  Either operand at infinity costs no product, P == Q
+// costs 8 + 7, a generic pair 16.  At 288 bytes against 16 products a pair the
+// integer pipes bound it, not memory.  A launch of few pairs (a tree's last
+// rounds) is bound by latency instead: a lone warp waits out its chain of
+// dependent products, 0.48 us each with field.cuh's carry-flag product against
+// 0.77 us with the C product it replaced (H100, mont_probe.cu).
 //
 // Each operand comes with its own strides (in 32-bit words) for the point,
 // coordinate and instance axes, so the even/odd pairs of one panel (a tree
@@ -21,17 +24,12 @@
 // thread reads its six inputs before it writes, and no other thread touches
 // its slots, so `out` may be exactly P or exactly Q (same strides); the
 // wrapper refuses any other overlap.
-#include "field.cuh"
+#include "ec.cuh"
 
 struct PointView {
     const uint32_t* base;
     long long point, coord, inst;   // strides in words
 };
-
-__device__ __forceinline__ void dbl_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
-                                        const Field& f) {
-    add_mod(r, a, a, f);
-}
 
 __global__ void __launch_bounds__(128)
 pt_add_kernel(const PointView P, const PointView Q, uint32_t* out, long long o_point,
@@ -45,94 +43,14 @@ pt_add_kernel(const PointView P, const PointView Q, uint32_t* out, long long o_p
     const uint32_t* q = Q.base + c * Q.point + b * Q.inst;
     uint32_t* o = out + c * o_point + b * o_inst;
 
-    uint32_t x1[ACVM_LIMBS], y1[ACVM_LIMBS], z1[ACVM_LIMBS];
-    uint32_t x2[ACVM_LIMBS], y2[ACVM_LIMBS], z2[ACVM_LIMBS];
-    load_fe(x1, p);
-    load_fe(y1, p + P.coord);
-    load_fe(z1, p + 2 * P.coord);
-    load_fe(x2, q);
-    load_fe(y2, q + Q.coord);
-    load_fe(z2, q + 2 * Q.coord);
-
-    // Identities first (the reference's last selects: Q at infinity wins).
-    if (is_zero(z2)) {
-        store_fe(o, x1);
-        store_fe(o + o_coord, y1);
-        store_fe(o + 2 * o_coord, z1);
-        return;
-    }
-    if (is_zero(z1)) {
-        store_fe(o, x2);
-        store_fe(o + o_coord, y2);
-        store_fe(o + 2 * o_coord, z2);
-        return;
-    }
-
-    uint32_t z1z1[ACVM_LIMBS], z2z2[ACVM_LIMBS], u1[ACVM_LIMBS], s1[ACVM_LIMBS];
-    uint32_t h[ACVM_LIMBS], rr[ACVM_LIMBS], t[ACVM_LIMBS];
-    mont_mul(z1z1, z1, z1, f);
-    mont_mul(z2z2, z2, z2, f);
-    mont_mul(u1, x1, z2z2, f);
-    mont_mul(t, x2, z1z1, f);        // U2
-    sub_mod(h, t, u1, f);            // H = U2 - U1
-    mont_mul(s1, y1, z2, f);
-    mont_mul(s1, s1, z2z2, f);       // S1
-    mont_mul(t, y2, z1, f);
-    mont_mul(t, t, z1z1, f);         // S2
-    sub_mod(rr, t, s1, f);           // r = S2 - S1
-
-    uint32_t x3[ACVM_LIMBS], y3[ACVM_LIMBS], z3[ACVM_LIMBS];
-    if (is_zero(h) && is_zero(rr)) {
-        // P == Q: dbl-2009-l on P (mirrors ec.pt_double, a = 0).
-        uint32_t A[ACVM_LIMBS], Bv[ACVM_LIMBS], C[ACVM_LIMBS], D[ACVM_LIMBS], E[ACVM_LIMBS];
-        mont_mul(A, x1, x1, f);
-        mont_mul(Bv, y1, y1, f);
-        mont_mul(C, Bv, Bv, f);
-        add_mod(t, x1, Bv, f);
-        mont_mul(t, t, t, f);
-        sub_mod(D, t, A, f);
-        sub_mod(D, D, C, f);
-        dbl_mod(D, D, f);            // D = 2((X + B)^2 - A - C)
-        dbl_mod(E, A, f);
-        add_mod(E, E, A, f);         // E = 3A
-        mont_mul(x3, E, E, f);       // F
-        dbl_mod(t, D, f);
-        sub_mod(x3, x3, t, f);       // X3 = F - 2D
-        dbl_mod(C, C, f);
-        dbl_mod(C, C, f);
-        dbl_mod(C, C, f);            // 8C
-        sub_mod(t, D, x3, f);
-        mont_mul(y3, E, t, f);
-        sub_mod(y3, y3, C, f);       // Y3 = E(D - X3) - 8C
-        mont_mul(z3, y1, z1, f);
-        dbl_mod(z3, z3, f);          // Z3 = 2 Y1 Z1
-    } else {
-        // add-2007-bl (mirrors ec.pt_add).  P == -Q has H == 0 and r != 0:
-        // the last product makes Z3 = 0, the reference's explicit select.
-        uint32_t I[ACVM_LIMBS], J[ACVM_LIMBS], V[ACVM_LIMBS];
-        dbl_mod(I, h, f);
-        mont_mul(I, I, I, f);        // I = (2H)^2
-        mont_mul(J, h, I, f);
-        dbl_mod(rr, rr, f);          // r2 = 2r
-        mont_mul(V, u1, I, f);
-        mont_mul(x3, rr, rr, f);
-        sub_mod(x3, x3, J, f);
-        dbl_mod(t, V, f);
-        sub_mod(x3, x3, t, f);       // X3 = r2^2 - J - 2V
-        mont_mul(J, s1, J, f);       // S1 J
-        sub_mod(t, V, x3, f);
-        mont_mul(y3, rr, t, f);
-        dbl_mod(J, J, f);
-        sub_mod(y3, y3, J, f);       // Y3 = r2 (V - X3) - 2 S1 J
-        add_mod(t, z1, z2, f);
-        mont_mul(t, t, t, f);
-        sub_mod(t, t, z1z1, f);
-        sub_mod(t, t, z2z2, f);
-        mont_mul(z3, t, h, f);       // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
-    }
-    store_fe(o, x3);
-    store_fe(o + o_coord, y3);
-    store_fe(o + 2 * o_coord, z3);
+    uint32_t x[ACVM_LIMBS], y[ACVM_LIMBS], z[ACVM_LIMBS];
+    load_fe(x, p);
+    load_fe(y, p + P.coord);
+    load_fe(z, p + 2 * P.coord);
+    ec_add(x, y, z, q, q + Q.coord, q + 2 * Q.coord, f);
+    store_fe(o, x);
+    store_fe(o + o_coord, y);
+    store_fe(o + 2 * o_coord, z);
 }
 
 extern "C" int acvm_pt_add(const void* p, long long p_point, long long p_coord, long long p_inst,

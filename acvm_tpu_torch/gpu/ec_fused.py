@@ -1,5 +1,5 @@
-"""The fused complete-addition kernel and what runs on it: the MSM tree and
-the variable-base ladder.
+"""The fused complete-addition kernel and what runs on it (the MSM tree), and
+the variable-base ladder, a kernel of its own over the same group law.
 
 Replaces ``acvm_tpu/tpu/ec_pallas.py``.  The op-by-op group law
 (:func:`acvm_tpu_torch.gpu.ec.pt_add`) issues 23 separate Montgomery
@@ -16,7 +16,10 @@ tree round), two separate panels (a ladder step) and a panel gathered as
 ``(N, B, 3, 8)`` are all read where they lie.
 
 ``pt_add_panels`` is the wrapper: a CUDA panel launches the kernel or raises,
-a CPU panel runs ``pt_add_panels_plain`` beside it.
+a CPU panel runs ``pt_add_panels_plain`` beside it.  ``scalar_mul_fused`` is
+the ladder's: ``csrc/pt_ladder.cu`` runs all 256 steps in one launch with the
+accumulator in registers, where the reference's scan calls the addition kernel
+twice a step; ``scalar_mul_fused_plain`` is that scan.
 """
 
 from __future__ import annotations
@@ -165,14 +168,11 @@ def tree_reduce_fused(ctx, P: torch.Tensor):
     return ec.point_of(P[0])
 
 
-def scalar_mul_fused(ctx, point, scalar_limbs: torch.Tensor):
-    """Variable-base double-and-add ladder through the fused kernel.
-
-    ``point``: (x, y, z) Montgomery Jacobian (B, 8) tensors; ``scalar_limbs``
-    (B, 8) standard form.  MSB-first, the group-law semantics of
-    ``ec.scalar_mul``: doubling rides the complete addition's equal-points
-    branch, and a step is two kernel launches (acc + acc in place, then
-    + base) and one select, with no stacking copies."""
+def scalar_mul_fused_plain(ctx, point, scalar_limbs: torch.Tensor):
+    """Plain version of :func:`scalar_mul_fused`: the 256 steps of the
+    reference ladder, MSB-first, each ``acc + acc`` (the complete addition's
+    equal-points branch), ``+ base`` and a select, through
+    :func:`pt_add_panels`."""
     B = scalar_limbs.shape[0]
     base = ec.panel_of(point)[None]  # (1, 3, B, 8)
     acc = torch.zeros((1, 3, B, LIMBS), dtype=torch.int32, device=scalar_limbs.device)
@@ -183,3 +183,36 @@ def scalar_mul_fused(ctx, point, scalar_limbs: torch.Tensor):
         pt_add_panels(acc, base, ctx.params, out=added)
         acc = torch.where(bits[i], added, acc)
     return ec.point_of(acc[0])
+
+
+def scalar_mul_fused(ctx, point, scalar_limbs: torch.Tensor):
+    """Variable-base double-and-add ladder, a = 0 curves.
+
+    ``point``: (x, y, z) Montgomery Jacobian (B, 8) tensors; ``scalar_limbs``
+    (B, 8) standard form, all 256 bits used as they come.  MSB-first, the group-law semantics of ``ec.scalar_mul``.  On
+    CUDA tensors the whole ladder is ONE launch of ``csrc/pt_ladder.cu`` (a
+    thread an instance, the accumulator in registers); on CPU tensors
+    :func:`scalar_mul_fused_plain` runs.  X, Y and Z are the same limbs either
+    way."""
+    if scalar_limbs.dtype != torch.int32 or scalar_limbs.dim() != 2 or scalar_limbs.shape[1] != LIMBS:
+        raise TypeError(
+            f"scalar_mul_fused: scalars must be (B, {LIMBS}) int32, got "
+            f"{tuple(scalar_limbs.shape)} {scalar_limbs.dtype}"
+        )
+    if not scalar_limbs.is_cuda:
+        return scalar_mul_fused_plain(ctx, point, scalar_limbs)
+    B = scalar_limbs.shape[0]
+    base = ec.panel_of(point)[None]  # (1, 3, B, 8)
+    _check_panel(base, "scalar_mul_fused base")
+    if base.shape[2] != B or base.device != scalar_limbs.device:
+        raise ValueError("scalar_mul_fused: base and scalars differ in batch or device")
+    scalars = scalar_limbs.contiguous()
+    out = torch.empty((3, B, LIMBS), dtype=torch.int32, device=scalars.device)
+    if B:
+        base_ptr, _, b_coord, b_inst = _view_args(base, "scalar_mul_fused base")
+        build.launch(
+            "pt_ladder", base_ptr, b_coord, b_inst, scalars.data_ptr(),
+            out.data_ptr(), B * LIMBS, LIMBS, B,
+            fk._host_ptr(fk.field_words(ctx.params)), fk._stream(out),
+        )
+    return ec.point_of(out)

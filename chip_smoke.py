@@ -5,6 +5,10 @@
     python3 chip_smoke.py --ptxas    # also print ptxas' register/spill report
     python3 chip_smoke.py --profile  # also one profiled solve per path: device
                                      # time by kernel, device busy share
+    python3 chip_smoke.py --level-variants  # also the level kernel built with
+                                     # its measurement switches: loads only,
+                                     # products only, the other block order,
+                                     # loads ahead, 64 instances a block
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -12,8 +16,11 @@ build, a failed launch or a failed comparison raises and the exit code is not
 
 1. ``device``  card name and power limit (nvidia-smi), torch and CUDA versions;
 2. ``build``   seconds to compile the kernels from ``acvm_tpu_torch/csrc``;
-3. ``int32``   the multiply-add rate the bounds use, and the rate a probe
-               kernel reaches on this card;
+3. ``int32``   the multiply-add rate the bounds use, the rate a probe kernel
+               reaches on this card, and the candidate Montgomery products of
+               ``csrc/field.cuh`` side by side: products a second at N = 2^20
+               with 1 and with 32 products a thread, and microseconds a product
+               in one warp's chain of 256;
 4. ``path_static``  the 2^16-gate BN254 circuit (8 levels x 8,192 gates) over
                2,048 instances through ``plan_circuit`` -> ``BatchSolver`` ->
                ``solve``: flags, two full witness maps against a Python-int
@@ -29,7 +36,8 @@ build, a failed launch or a failed comparison raises and the exit code is not
                columnar inputs: ``pedersen`` 2 gadgets x 2,048 instances,
                ``fixed_base`` 4 x 4,096, ``schnorr`` 2 x 1,024 (32-byte
                messages); outputs of two instances against the host curve code,
-               forged signatures and off-curve keys, out-of-range scalars;
+               forged signatures and off-curve keys, out-of-range scalars; one
+               ``pt_ladder`` launch a Schnorr gadget level;
 8. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, its bound and
                its launches on each path;
@@ -40,6 +48,7 @@ build, a failed launch or a failed comparison raises and the exit code is not
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +128,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     P = BN254_FR.modulus
+    N_ORDER = host_gk.grumpkin.params.n
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -130,17 +140,29 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     # -- 2. build -------------------------------------------------------------
-    extra = ["-Xptxas", "-v"] if "--ptxas" in sys.argv else []
-    built = build.build(build.KERNELS + ("imad_rate",), extra_flags=extra)
-    if extra:
+    built = build.build(build.KERNELS + build.PROBES, extra_flags=["-Xptxas", "-v"])
+    if "--ptxas" in sys.argv:
         for name, text in built["log"].items():
             print(f"--- ptxas {name}\n{text}", flush=True)
     for name in built["built"]:
         build.load(name)
-    emit({"build": {"seconds": built["seconds"], "built": built["built"]}})
+    # ptxas' report per kernel: the most registers and spill bytes of its entry functions.
+    ptxas = {}
+    for name, text in built["log"].items():
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(a) + int(b) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        stack = [int(n) for n in re.findall(r"(\d+) bytes stack frame", text)]
+        assert regs, f"no ptxas report for {name}"
+        ptxas[name] = {"registers": max(regs), "spill_bytes": max(spills), "stack_bytes": max(stack)}
+    emit({"build": {"seconds": built["seconds"], "built": built["built"], "ptxas": ptxas}})
 
-    def time_ms(fn, reps=7):
-        """Median CUDA-event time of fn() in ms, after two warm-up calls."""
+    def time_ms(fn, reps=7, calls=1):
+        """Median CUDA-event time of one fn() in ms, after two warm-up calls.
+        With calls = 1 the events bracket a single call, host gap between the
+        event and the launch included (tens of microseconds, which is most of
+        what a kernel under 0.1 ms reads); with more, that many calls are
+        queued back to back between the events and the time is divided."""
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -149,22 +171,12 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
-
-    # -- 3. the integer rate ----------------------------------------------------
-    blocks, threads, iters = 132 * 16, 256, 4096
-    probe_out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
-    probe_ms = time_ms(lambda: build.launch(
-        "imad_rate", probe_out.data_ptr(), blocks, threads, iters,
-        torch.cuda.current_stream().cuda_stream))
-    emit({"int32": {"bound_madds_per_s": INT32_MADDS_PER_S,
-                    "bound_from": "data sheet: 132 SMs x 64 int32 lanes x 1.98 GHz",
-                    "probe_madds_per_s": blocks * threads * iters * 8 / (probe_ms * 1e-3),
-                    "probe": "acvm_tpu_torch/csrc/imad_rate.cu"}})
 
     def bound(bytes_moved, madds):
         t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
@@ -183,6 +195,53 @@ def main() -> int:
         raw[:, 7] %= np.uint32(top)
         raw[:zeros] = 0
         return torch.from_numpy(raw.view(np.int32)).reshape(*shape, 8).to(dev)
+
+    # -- 3. the integer rate ----------------------------------------------------
+    blocks, threads, iters = 132 * 16, 256, 4096
+    probe_out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    probe_ms = time_ms(lambda: build.launch(
+        "imad_rate", probe_out.data_ptr(), blocks, threads, iters,
+        torch.cuda.current_stream().cuda_stream))
+    # The candidate products: throughput at the shape of mul (N = 2^20, one
+    # product a thread) and latency in one warp's chain of 256 dependent products.
+    n_mul, chain = 1 << 20, 256
+    pa = random_elements((n_mul,), BN254_FR, 1)
+    pb = random_elements((n_mul,), BN254_FR, 2)
+    words = fk._host_ptr(fk.field_words(BN254_FR))
+
+    def mont_probe(variant, n, chain_len, threads_per_block):
+        out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+        run = lambda: build.launch(  # noqa: E731
+            "mont_probe", pa.data_ptr(), pb.data_ptr(), out.data_ptr(), n, chain_len, variant,
+            threads_per_block, words, torch.cuda.current_stream().cuda_stream)
+        return out, time_ms(run, calls=10)
+
+    want_one = torch.cat([fk.mont_mul_plain(pa[i : i + (1 << 18)], pb[i : i + (1 << 18)], BN254_FR)
+                          for i in range(0, n_mul, 1 << 18)])
+    want_chain = pa[:32]
+    for _ in range(chain):
+        want_chain = fk.mont_mul_plain(want_chain, pb[:32], BN254_FR)
+    candidates = {}
+    for variant, name in enumerate(("c_64bit_sums", "carry_flag_even_odd", "wide_then_one_reduction")):
+        got_one, one_ms = mont_probe(variant, n_mul, 1, 128)
+        got_chain, chain_ms = mont_probe(variant, 32, chain, 32)
+        _, busy_ms = mont_probe(variant, n_mul, 32, 128)  # 32 products a thread: the pipes, not memory
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got_one, want_one), max_abs_err(got_chain, want_chain))
+        assert err == 0, (name, err)
+        candidates[name] = {"max_abs_err": err, "ms_n_2_20": one_ms,
+                            "products_per_s": n_mul / (one_ms * 1e-3),
+                            "ms_n_2_20_chain_32": busy_ms,
+                            "products_per_s_chain_32": 32 * n_mul / (busy_ms * 1e-3),
+                            "chain_256_ms": chain_ms, "us_per_product_in_chain": chain_ms * 1e3 / chain}
+    del pa, pb, want_one, got_one
+    emit({"int32": {"bound_madds_per_s": INT32_MADDS_PER_S,
+                    "bound_from": "data sheet: 132 SMs x 64 int32 lanes x 1.98 GHz",
+                    "probe_madds_per_s": blocks * threads * iters * 8 / (probe_ms * 1e-3),
+                    "probe": "acvm_tpu_torch/csrc/imad_rate.cu",
+                    "mont_mul_candidates": candidates,
+                    "candidates_probe": "acvm_tpu_torch/csrc/mont_probe.cu",
+                    "field_cuh_mont_mul_is": "carry_flag_even_odd"}})
 
     kernels = {}
 
@@ -211,6 +270,7 @@ def main() -> int:
         replaces="acvm_tpu/fields/pallas_mul_v2.py:241", shape=f"N={n_mul}",
         max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_mul(a, b, BN254_FR, out=out)),
+        ms_queued=time_ms(lambda: fk.mont_mul(a, b, BN254_FR, out=out), calls=10),
         plain_ms=time_ms(lambda: fk.mont_mul_plain(a[: 1 << 18], b[: 1 << 18], BN254_FR), 5) * 4,
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, b, out, got, want
@@ -234,6 +294,7 @@ def main() -> int:
         replaces="acvm_tpu/fields/pallas_mul.py:175", shape=f"N={n_pow}, e=p-2",
         max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_pow(a, P - 2, BN254_FR)),
+        ms_queued=time_ms(lambda: fk.mont_pow(a, P - 2, BN254_FR), calls=10),
         plain_ms=time_ms(lambda: fk.mont_pow_plain(a, P - 2, BN254_FR), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, got, want
@@ -272,6 +333,7 @@ def main() -> int:
         replaces="acvm_tpu/fields/pallas_mul_v2.py:353",
         shape=f"E={E}, B={B}, T1={T1}, T2={T2}", max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, None, BN254_FR)),
+        ms_queued=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, None, BN254_FR), calls=10),
         ms_with_scale=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, sc, BN254_FR)),
         plain_ms=time_ms(lambda: fk.mont_dot_plain(
             lv[s], lc[s], m1[s], m2[s], mc[s], qc[s], None, BN254_FR), 5) * (E // step),
@@ -296,6 +358,7 @@ def main() -> int:
         replaces="acvm_tpu/fields/pallas_mul.py:359", shape=f"N={n_mul}",
         max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_mul_v1(a, b)),
+        ms_queued=time_ms(lambda: fk.mont_mul_v1(a, b), calls=10),
         plain_ms=time_ms(lambda: fk.mont_mul_v1_plain(a[: 1 << 18], b[: 1 << 18]), 5) * 4,
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, b, got, want
@@ -321,6 +384,7 @@ def main() -> int:
         replaces="acvm_tpu/fields/pallas_mul.py:331",
         shape=f"E={E}, B={B}, T={T}", max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, None, BN254_FR)),
+        ms_queued=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, None, BN254_FR), calls=10),
         ms_with_scale=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, sc, BN254_FR)),
         plain_ms=time_ms(lambda: fk.mont_dot_v1_plain(
             vals[s], coeff[s], qc[s], None, BN254_FR), 5) * (E // step),
@@ -378,11 +442,130 @@ def main() -> int:
         shape=f"N=128 points (64 pairs), B={ec_B}", max_abs_err=max(errs),
         products_per_pair=products / pairs, pairs_with_infinity=n_inf, pairs_doubling=n_dbl,
         ms=time_ms(lambda: ec_fused.pt_add_pairs(pts)),
+        ms_queued=time_ms(lambda: ec_fused.pt_add_pairs(pts), calls=10),
         ms_contiguous_panel=time_ms(lambda: ec_fused.pt_add_pairs(pts_c)),
         plain_ms=time_ms(lambda: ec_fused.pt_add_pairs_plain(pts), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del pts, pts_c, round1, round2, acc, tables, digits
+    del pts_c, round2, acc, tables, digits
+
+    # -- 6g. pt_ladder: 2,048 lanes, one launch -----------------------------------
+    # The edge scalars 0, 1, 2, n-1, n (the last addition meets P = -Q), n+1
+    # (the last addition meets P = Q at another Z), 2^256-1 (the ladder does
+    # not reduce) and (n+1)/2 each meet a base with Z = 1, a base with a random
+    # Z, a base at infinity with junk in X and Y, and a first-round sum of the
+    # tree above; every other lane has a random 256-bit scalar (half of them
+    # with 28 leading zero bits) on the exceptional panel's points or such sums.
+    lad_B = 2048
+    edge = [0, 1, 2, N_ORDER - 1, N_ORDER, N_ORDER + 1, (1 << 256) - 1, (N_ORDER + 1) // 2]
+    rng = np.random.default_rng(31)
+    raw = rng.integers(0, 1 << 32, size=(lad_B, 8), dtype=np.uint64).astype(np.uint32)
+    raw[1024:] &= np.uint32(0x0FFFFFFF)  # half the lanes: 28 leading zero bits
+    scalars = torch.from_numpy(raw.view(np.int32)).to(dev)
+    ex = torch.from_numpy(exceptional_panel(lad_B)).to(dev)
+    base = torch.cat([ex[0, :, :512], ex[1, :, :512], round1[0, :, :1024]], dim=1).contiguous()
+    edge_limbs = torch.from_numpy(fk.ints_to_limbs32(edge).copy()).to(dev)
+    for case in (0, 1, 6):  # lane % 9 of the exceptional panel: generic, generic_z, p_infinity
+        scalars[case : case + 9 * len(edge) : 9] = edge_limbs
+    scalars[1024 : 1024 + len(edge)] = edge_limbs
+    lad_point = (base[0], base[1], base[2])
+    got = ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars)
+    want = ec_fused.scalar_mul_fused_plain(ec_ctx, lad_point, scalars)
+    torch.cuda.synchronize()
+    errs = [max_abs_err(g, w) for g, w in zip(got, want)]
+    base_inf, got_inf = ec.pt_is_inf(lad_point).tolist(), ec.pt_is_inf(got).tolist()
+    assert base_inf[6] and not base_inf[0] and not base_inf[1]
+    # 0 * P and n * P are infinity, (n + 1) * P is not; anything times infinity is.
+    assert got_inf[0] and got_inf[9 * 4] and not got_inf[9 * 5] and all(got_inf[6 : 6 + 72 : 9])
+
+    def ladder_products(point, k):
+        """Montgomery products this ladder needs on these lanes, step by step
+        with the accumulator the ladder really holds: a doubling 7 (none at
+        infinity), an addition for a set bit 16, or 8 + 7 where it meets P = Q,
+        none where either point is at infinity."""
+        c = ec_ctx
+        base_inf = ec.pt_is_inf(point)
+        acc = torch.zeros((1, 3, k.shape[0], 8), dtype=torch.int32, device=dev)
+        panel = ec.panel_of(point)[None]
+        bits = ec.scalar_bits(k)
+        total = 0
+        for i in range(255, -1, -1):
+            total += 7 * int((~c.is_zero(acc[0, 2])).sum().item())
+            ec_fused.pt_add_panels(acc, acc, out=acc)
+            live = bits[i] & ~base_inf & ~c.is_zero(acc[0, 2])
+            if live.any():
+                x1, y1, z1 = acc[0, 0], acc[0, 1], acc[0, 2]
+                zz1, zz2 = c.mont_mul(z1, z1), c.mont_mul(point[2], point[2])
+                same = (c.eq(c.mont_mul(point[0], zz1), c.mont_mul(x1, zz2))
+                        & c.eq(c.mont_mul(c.mont_mul(point[1], z1), zz1),
+                               c.mont_mul(c.mont_mul(y1, point[2]), zz2)))
+                total += int(torch.where(live, torch.where(same, 15, 16), 0).sum().item())
+            added = ec_fused.pt_add_panels(acc, panel)
+            acc = torch.where(bits[i][None, None, :, None], added, acc)
+        return total
+
+    products = ladder_products(lad_point, scalars)
+    b_ms, b_by = bound((96 + 32 + 96) * lad_B, products * MADDS_PER_MONT_MUL)
+    kernels["pt_ladder"] = dict(
+        name="pt_ladder", route="cuda", source="acvm_tpu_torch/csrc/pt_ladder.cu",
+        replaces="acvm_tpu/tpu/ec_pallas.py:179",
+        shape=f"B={lad_B}, 256 bits, half the lanes with 28 leading zero bits",
+        max_abs_err=max(errs), products_per_lane=products / lad_B,
+        ms=time_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars)),
+        ms_queued=time_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars), calls=10),
+        plain_ms=time_ms(lambda: ec_fused.scalar_mul_fused_plain(ec_ctx, lad_point, scalars), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del pts, round1, ex, base, scalars, got, want, lad_point
     torch.cuda.empty_cache()
+
+    # -- 6h. level at wide gates ------------------------------------------------------
+    # Gates of 1-32 linear terms with every coefficient and operand p - 1 (where
+    # a lazy one-chain sum would overflow), with product terms, padding terms
+    # and a ragged batch; then the unrolled shape (2 linear terms, 1 product),
+    # whose three products BN254 sums unreduced, with a gate at p - 1 throughout
+    # and rows that start off a 16-byte boundary.
+    from acvm_tpu_torch.gpu.fused_level import pack_level_desc
+
+    def level_err(params, panel, num, u_idx, t1, t2, skip=0):
+        desc = torch.from_numpy(pack_level_desc(dict(num=num, u_idx=u_idx))).to(dev)[skip:]
+        want = fused_level_plain(panel.clone(), desc, params, t1, t2)
+        got = fused_level_call(panel.clone(), desc, params, t1, t2)
+        torch.cuda.synchronize()
+        return max_abs_err(got, want)
+
+    wide_errs = []
+    for params in (BN254_FR, BLS12_381_FR):
+        p_minus_1 = fk.int_to_limbs32(params.modulus - 1)
+        wide_NW, wide_B = 64, 200
+        panel = random_elements((wide_NW, wide_B), params, 41)
+        panel[1:21] = torch.from_numpy(p_minus_1.copy()).to(dev)
+        counts = (15, 18, 19, 32, 1, 2, 3, 4, 5, 6, 10, 11)
+        n_wide, wt1, wt2 = len(counts), 32, 1
+        lin_idx = np.zeros((n_wide, wt1), np.int32)
+        lin_c = np.zeros((n_wide, wt1, 8), np.int32)
+        for g, n in enumerate(counts):
+            lin_idx[g, :n] = 1 + np.arange(n) % 20
+            lin_c[g, :n] = p_minus_1
+        mul_c = np.zeros((n_wide, wt2, 8), np.int32)
+        mul_c[0::2, 0] = p_minus_1  # every other gate has its product term, the rest padding
+        num = dict(lin_idx=lin_idx, mul_idx=np.tile(np.array([[[3, 30]]], np.int32), (n_wide, 1, 1)),
+                   lin_coeff=lin_c, mul_coeff=mul_c, qc=np.tile(p_minus_1, (n_wide, 1)))
+        wide_errs.append(level_err(params, panel, num, np.arange(40, 40 + n_wide, dtype=np.int32), wt1, wt2))
+        rng = np.random.default_rng(43)
+        n_small = 37
+        lc = random_elements((n_small, 2), params, 44).cpu().numpy()
+        mc = random_elements((n_small, 1), params, 45).cpu().numpy()
+        lc[3, 1] = 0
+        lc[4] = 0
+        mc[4] = mc[5] = 0
+        lc[1:3], mc[1:3] = p_minus_1, p_minus_1
+        small_lin = rng.integers(0, 25, size=(n_small, 2)).astype(np.int32)
+        small_mul = rng.integers(0, 25, size=(n_small, 1, 2)).astype(np.int32)
+        small_lin[1:3], small_mul[1:3] = [1, 2], [3, 4]  # rows of p - 1
+        num = dict(lin_idx=small_lin, mul_idx=small_mul,
+                   lin_coeff=lc, mul_coeff=mc, qc=random_elements((n_small,), params, 46).cpu().numpy())
+        for skip in (0, 1):
+            wide_errs.append(level_err(params, panel, num, np.arange(25, 25 + n_small, dtype=np.int32), 2, 1, skip))
+    assert max(wide_errs) == 0, wide_errs
 
     def check_instances(circuit, inputs, res, instances):
         """Full witness maps of the given instances against the evaluator."""
@@ -420,6 +603,7 @@ def main() -> int:
         busy_ms = sum(r[1] for r in rows)
         return {"device_busy_ms": busy_ms, "wall_ms": wall_seconds * 1e3,
                 "device_busy_share": busy_ms / (wall_seconds * 1e3),
+                "kernel_launches": sum(r[2] for r in rows),
                 "top": [{"kernel": k[:60], "ms": ms, "calls": n} for k, ms, n in rows[:8]]}
 
     want_profile = "--profile" in sys.argv
@@ -458,6 +642,7 @@ def main() -> int:
     want = W.index_select(0, out_rows)
     W.index_fill_(0, out_rows, 0)
     level_ms = time_ms(lambda: fused_level_call(W, desc, BN254_FR, t1, t2))
+    level_ms_queued = time_ms(lambda: fused_level_call(W, desc, BN254_FR, t1, t2), calls=10)
     got = W.index_select(0, out_rows)
     plain_level_ms = time_ms(
         lambda: fused_level_plain(W, desc[:128], BN254_FR, t1, t2), 3) * (desc.shape[0] / 128)
@@ -479,8 +664,35 @@ def main() -> int:
         replaces="acvm_tpu/tpu/fused_level.py:177",
         shape=f"NW={W.shape[0]}, B={batch}, E={level_E}, t1={t1}, t2={t2}",
         products_per_gate=products / level_E, operand_rows=read_rows,
-        max_abs_err=max(max_abs_err(got, want), max_abs_err(got, solved)),
-        ms=level_ms, plain_ms=plain_level_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=max(max_abs_err(got, want), max_abs_err(got, solved), *wide_errs),
+        wide_gate_cases=len(wide_errs), ms=level_ms, ms_queued=level_ms_queued, plain_ms=plain_level_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if "--level-variants" in sys.argv:
+        # The level kernel rebuilt with its measurement switches, at the timed
+        # shape.  The variants write wrong values or none: the panel is not
+        # read again after this.
+        words = fk._host_ptr(fk.field_words(BN254_FR))
+        variants = {"as_built": None, "loads_and_store_only": ["ACVM_LEVEL_NO_PRODUCTS"],
+                    "products_only_cached_operands": ["ACVM_LEVEL_CACHED_OPERANDS"],
+                    "gates_fastest_block_order": ["ACVM_LEVEL_GATES_FASTEST"],
+                    "loads_ahead": ["ACVM_LEVEL_PREFETCH=1"],
+                    "64_instances_a_block": ["ACVM_LEVEL_THREADS=64"],
+                    "64_instances_gates_fastest": ["ACVM_LEVEL_THREADS=64", "ACVM_LEVEL_GATES_FASTEST"],
+                    "64_instances_gates_fastest_loads_only": [
+                        "ACVM_LEVEL_THREADS=64", "ACVM_LEVEL_GATES_FASTEST", "ACVM_LEVEL_NO_PRODUCTS"]}
+        times = {}
+        for name, defines in variants.items():
+            if defines is None:
+                times[name] = time_ms(lambda: fused_level_call(W, desc, BN254_FR, t1, t2))
+                continue
+            fn = build.load_variant("level", defines)
+
+            def run_variant():
+                err = fn(W.data_ptr(), desc.data_ptr(), level_E, batch, t1, t2, words,
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, (name, err)
+
+            times[name] = time_ms(run_variant)
+        emit({"level_variants": {"shape": kernels["level"]["shape"], "ms": times}})
     del W, got, want, solved
 
     state = solver.initial_state(inputs)
@@ -586,7 +798,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. path_ec -------------------------------------------------------------------
-    N_ORDER = host_gk.grumpkin.params.n
     ec_launches = {}
     ec_report = {}
 
@@ -632,6 +843,12 @@ def main() -> int:
         circuit, cols, solver, res, launches, plan_seconds = solve_gadgets(kind, num_gadgets, B)
         assert res.ok.all() and (res.fail == FAIL_NONE).all(), kind
         assert launches["pt_add"] > 0 and launches["pow"] > 0, (kind, launches)
+        if kind == "schnorr":
+            # One gadget level: one ladder launch, and pt_add only for the two
+            # trees (6 + 8 rounds) and R = sG + eP: 527 before the ladder kernel.
+            assert launches["pt_ladder"] == 1 and launches["pt_add"] == 15, launches
+        else:
+            assert launches["pt_ladder"] == 0, (kind, launches)
         check_gadget_instances(kind, circuit, cols, res, (0, B - 1))
         state = solver.initial_state(cols)
         rate, secs = timed_rate(device_solve_of(solver, state, torch), num_gadgets * B, reps=3)
@@ -701,6 +918,7 @@ def main() -> int:
     rows = []
     for name in build.KERNELS:
         row = kernels[name]
+        row.update(ptxas[name])
         assert row["max_abs_err"] == 0, (name, row["max_abs_err"])
         for path, counts in paths.items():
             row[f"launches_{path}"] = counts[name]

@@ -279,10 +279,24 @@ def test_msm_and_to_affine_match_jax_and_host(jax_add, scalars16):
     assert np.array_equal(convert.limbs16_to_limbs32(np.asarray(jy)), ay.numpy())
 
 
+def jax_ladder(jax_add, base: np.ndarray, scalars) -> np.ndarray:
+    """(3, LANES, 8) base, LANES ints -> (3, LANES, 8): the steps of the
+    reference's `scalar_mul_fused` (acc + acc, + base, select), MSB-first over
+    all 256 bits, each addition the JAX package's `ec.pt_add`."""
+    acc = np.zeros_like(base)
+    for i in range(255, -1, -1):
+        dbl = jax_add(acc, acc)
+        add = jax_add(dbl, base)
+        bit = np.array([(v >> i) & 1 for v in scalars], dtype=bool)[None, :, None]
+        acc = np.where(bit, add, dbl)
+    return acc
+
+
 def test_scalar_mul_matches_jax_ladder_and_host(jax_add):
     """The 256-step ladder on full-width scalars (0, 1, the order minus one
     among them): the steps of the reference's `scalar_mul_fused` (acc + acc,
-    + base, select) give the same X, Y and Z, and the host the same point."""
+    + base, select) give the same X, Y and Z, and the host the same point.
+    Tolerance 0."""
     assert ec_pallas.scalar_mul_fused.__doc__  # the function these steps mirror
     rng = random.Random(6)
     scalars = [0, 1, N_ORDER - 1] + [rng.randrange(N_ORDER) for _ in range(LANES - 3)]
@@ -291,12 +305,7 @@ def test_scalar_mul_matches_jax_ladder_and_host(jax_add):
                      for v in (base_aff[0], base_aff[1], 1)])
     point = tuple(torch.from_numpy(c.copy()) for c in base)
     got = ec.scalar_mul(CTX, point, to_limbs(scalars))
-    acc = np.zeros_like(base)
-    for i in range(255, -1, -1):
-        dbl = jax_add(acc, acc)
-        add = jax_add(dbl, base)
-        bit = np.array([(v >> i) & 1 for v in scalars], dtype=bool)[None, :, None]
-        acc = np.where(bit, add, dbl)
+    acc = jax_ladder(jax_add, base, scalars)
     assert all(np.array_equal(g.numpy(), w) for g, w in zip(got, acc))
     host = [grumpkin.mul(v, base_aff) if v else None for v in scalars]
     assert affine(got) == host
@@ -304,6 +313,62 @@ def test_scalar_mul_matches_jax_ladder_and_host(jax_add):
     general = ec.scalar_mul(CTX, tuple(c[2:5] for c in point), to_limbs(scalars[2:5]),
                             a_mont=torch.zeros(8, dtype=torch.int32))
     assert affine(general) == host[2:5]
+
+
+# One lane each: (scalar, which point of `exceptional_pairs` is the base).  The
+# ladder takes the scalar's 256 bits as they come, so n, n + 1 and 2^256 - 1 run
+# past the group order: n * P meets P = -Q in its last addition and ends at
+# infinity, (n + 1) * P meets P = Q there, at another Z than the base's.
+EDGE_LANES = {
+    "zero": (0, "generic_z"),
+    "one": (1, "generic_z"),
+    "two": (2, "generic"),
+    "order_minus_one": (N_ORDER - 1, "generic_z"),
+    "order": (N_ORDER, "generic_z"),
+    "order_plus_one": (N_ORDER + 1, "generic_z"),
+    "all_ones": ((1 << 256) - 1, "equal_other_z"),
+    "random_scalar": (random.Random(7).randrange(1 << 256), "generic_z"),
+    "base_at_infinity": (random.Random(8).randrange(1 << 256), "p_infinity"),
+}
+assert len(EDGE_LANES) == LANES
+
+
+@pytest.fixture(scope="module")
+def edge_ladder(jax_add):
+    """One ladder over the lanes of EDGE_LANES through the port (its plain
+    version: CPU tensors), the JAX steps and the host curve code."""
+    pairs = {name: Pn for name, Pn, _ in exceptional_pairs()}
+    scalars = [k for k, _ in EDGE_LANES.values()]
+    base = np.stack([pairs[which] for _, which in EDGE_LANES.values()], axis=1)  # (3, LANES, 8)
+    point = tuple(torch.from_numpy(c.copy()) for c in base)
+    got = ec_fused.scalar_mul_fused(CTX, point, to_limbs(scalars))
+    want = jax_ladder(jax_add, base, scalars)
+    host = [grumpkin.mul(k % N_ORDER, b) if b is not None and k % N_ORDER else None
+            for k, b in zip(scalars, affine(base))]
+    return np.stack([c.numpy() for c in got]), want, host
+
+
+@pytest.mark.parametrize("lane", list(EDGE_LANES))
+def test_scalar_mul_edge_lane_matches_jax_ladder_and_host(edge_ladder, lane):
+    """Edge scalars and bases, a lane each: X, Y and Z equal to the JAX
+    ladder's steps limb for limb, the affine point equal to the host curve
+    code's.  Tolerance 0."""
+    got, want, host = edge_ladder
+    b = list(EDGE_LANES).index(lane)
+    assert np.array_equal(got[:, b], want[:, b])
+    assert affine(got)[b] == host[b]
+    if lane in ("zero", "order", "base_at_infinity"):
+        assert host[b] is None
+    if lane == "base_at_infinity":  # nothing was ever added: the accumulator's zeros
+        assert not got[:, b].any()
+
+
+def test_scalar_mul_fused_refuses_other_scalars():
+    point = tuple(torch.zeros((2, 8), dtype=torch.int32) for _ in range(3))
+    with pytest.raises(TypeError, match="scalars"):
+        ec_fused.scalar_mul_fused(CTX, point, torch.zeros((2, 8), dtype=torch.int64))
+    with pytest.raises(TypeError, match="scalars"):
+        ec_fused.scalar_mul_fused(CTX, point, torch.zeros((2, 4), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,7 @@ N_RANDOM = 6
 
 @pytest.fixture(scope="module")
 def level():
-    """One level of ten gates, packed to the widest (32 linear terms, one
+    """One level of eleven gates, packed to the widest (32 linear terms, one
     product) as the solver packs ragged gates:
 
     * gates 0-5: two random linear terms and one random product, some with a
@@ -89,11 +89,16 @@ def level():
       every operand p - 1.  The JAX package's TPU kernels pick a lazy
       one-chain sum whose bound fails from 18 terms on; its jnp twin is right,
       and so must the port be.
+    * gate 10: two linear terms and one product with every coefficient and
+      every operand p - 1: the largest values the common shape can meet.  The
+      port's CUDA level kernel adds the three products of such a gate
+      unreduced and reduces once (it runs only on a card; this pins the value
+      it is held to there).
 
     The jnp twin runs ONCE, un-jitted and with the unrolled multiply (the
     32-term program takes most of a minute to compile on a CPU)."""
     t1, t2 = max(WIDE_T1), 1
-    E = N_RANDOM + len(WIDE_T1)
+    E = N_RANDOM + len(WIDE_T1) + 1
     rng = np.random.default_rng(21)
     W_ints = [rand_ints(100 + w, B) for w in range(NW)]
     W_ints[0] = [0] * B
@@ -113,7 +118,11 @@ def level():
     for g, n in enumerate(WIDE_T1):
         lin_idx[N_RANDOM + g, :n] = 1 + (np.arange(n) % 20)
         lin_c[N_RANDOM + g][:n] = [P - 1] * n
-    qc = rand_ints(400, N_RANDOM) + [P - 1] * len(WIDE_T1)
+    lin_idx[E - 1, :2] = [1, 2]
+    lin_c[E - 1][:2] = [P - 1, P - 1]
+    mul_idx[E - 1, 0] = [3, 4]
+    mul_c[E - 1][0] = P - 1
+    qc = rand_ints(400, N_RANDOM) + [P - 1] * (len(WIDE_T1) + 1)
     out_idx = list(range(30, 30 + E))
     desc = jax_desc(lin_idx, mul_idx, out_idx, lin_c, mul_c, qc)
     return dict(W=W_ints, desc=desc, lin_idx=lin_idx, mul_idx=mul_idx,
@@ -154,11 +163,21 @@ def test_level_gate_matches_ints(level, solved, gate):
 
 @pytest.mark.parametrize("gate,n_terms", list(enumerate(WIDE_T1)))
 def test_wide_gate_matches_jnp_twin_and_ints(level, solved, gate, n_terms):
+    """Tolerance 0, against the jnp twin and against Python ints."""
     got, want = solved
     row = level["out_idx"][N_RANDOM + gate]
     assert np.array_equal(got[row], want[row])
     # qc + n * (p-1)*(p-1)*R^-1  with qc = p - 1
     value = ((P - 1) + n_terms * (P - 1) * (P - 1) * R_INV) % P
+    assert fk.limbs32_to_ints(got[row]) == [value] * B
+
+
+def test_three_term_gate_at_p_minus_1_matches_jnp_twin_and_ints(level, solved):
+    """Two linear terms and a product, all at p - 1.  Tolerance 0."""
+    got, want = solved
+    row = level["out_idx"][-1]
+    assert np.array_equal(got[row], want[row])
+    value = gate_value(level["W"], 0, [(P - 1, 1), (P - 1, 2)], [(P - 1, 3, 4)], P - 1)
     assert fk.limbs32_to_ints(got[row]) == [value] * B
 
 

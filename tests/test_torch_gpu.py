@@ -96,21 +96,22 @@ def test_dot_kernel_equals_plain_version(card, t1, t2, with_scale):
 
 def test_level_kernel_equals_plain_version_at_wide_gates(card):
     """Gates of 15-32 linear terms at p - 1 (where a lazy one-chain sum would
-    overflow), a product term, padding terms and a ragged batch."""
+    overflow), of 5 and 6, a product term, padding terms and a ragged batch."""
     from acvm_tpu_torch.gpu import fused_level as fl
 
     p = BN254_FR.modulus
     NW, B, t1, t2 = 60, 70, 32, 1
     panel = elements(NW * B, BN254_FR, 11).reshape(NW, B, 8)
     panel[1:21] = torch.from_numpy(fk.ints_to_limbs32([p - 1] * (20 * B)).copy()).reshape(20, B, 8)
-    E = 5
+    E = 7
     lin_idx = np.zeros((E, t1), np.int32)
     lin_c = np.zeros((E, t1), dtype=object)
-    for g, n in enumerate((15, 18, 19, 32, 2)):
+    for g, n in enumerate((15, 18, 19, 32, 2, 5, 6)):
         lin_idx[g, :n] = 1 + np.arange(n) % 20
         lin_c[g, :n] = p - 1
-    mul_idx = np.array([[[3, 30]], [[0, 0]], [[31, 32]], [[0, 0]], [[33, 34]]], np.int32)
-    mul_c = np.array([[p - 1], [0], [12345], [0], [p - 2]], dtype=object)
+    mul_idx = np.array([[[3, 30]], [[0, 0]], [[31, 32]], [[0, 0]], [[33, 34]], [[0, 0]], [[3, 3]]],
+                       np.int32)
+    mul_c = np.array([[p - 1], [0], [12345], [0], [p - 2], [0], [p - 1]], dtype=object)
     num = dict(
         lin_idx=lin_idx, mul_idx=mul_idx,
         lin_coeff=fk.ints_to_limbs32(lin_c.reshape(-1)).reshape(E, t1, 8),
@@ -151,6 +152,33 @@ def test_pt_add_kernel_equals_plain_version(card):
         ec_fused.pt_add_panels(whole[0::2], whole[1::2], out=whole[:4])
 
 
+def test_pt_ladder_kernel_equals_plain_version(card):
+    """One launch of the ladder kernel against the 512 additions of its plain
+    version: X, Y and Z equal on edge scalars (0, 1, 2, n - 1, n, n + 1,
+    2^256 - 1), bases with Z = 1, a random Z and at infinity, a ragged batch."""
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import ec, ec_fused
+
+    n = ec.grumpkin.params.n
+    B = 70
+    edge = [0, 1, 2, n - 1, n, n + 1, (1 << 256) - 1]
+    rng = np.random.default_rng(13)
+    scalars = edge * 3 + [int.from_bytes(rng.bytes(32), "little") for _ in range(B - 3 * len(edge))]
+    panel = exceptional_panel(9 * len(edge))  # lane b: case b % 9
+    lanes = [9 * i + case for case in (0, 1, 6) for i in range(len(edge))]  # generic, generic_z, p_infinity
+    base = np.concatenate([panel[0][:, lanes], exceptional_panel(B - len(lanes))[1]], axis=1)
+    ctx = LimbContext(BN254_FR, card)
+    point = tuple(torch.from_numpy(c.copy()).to(card) for c in base)
+    k = torch.from_numpy(fk.ints_to_limbs32(scalars).copy()).to(card)
+    build.reset_launches()
+    got = ec_fused.scalar_mul_fused(ctx, point, k)
+    assert build.LAUNCHES["pt_ladder"] == 1 and build.LAUNCHES["pt_add"] == 0
+    want = ec_fused.scalar_mul_fused_plain(ctx, point, k)
+    assert build.LAUNCHES["pt_add"] == 512
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ec.pt_is_inf(got)[:2 * len(edge) : len(edge)].all()  # 0 * P
+
+
 @pytest.mark.parametrize("t,with_scale", [(1, False), (3, True), (32, False)])
 def test_v1_kernels_equal_plain_versions(card, t, with_scale):
     E, B = 5, 70
@@ -189,6 +217,7 @@ def test_gadget_solver_on_card_equals_solver_on_cpu(card, kind, batch):
     build.reset_launches()
     gpu = BatchSolver(plan).solve(cols)
     assert build.LAUNCHES["pt_add"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["pt_ladder"] == (1 if kind == "schnorr" else 0), build.LAUNCHES
     cpu = BatchSolver(plan, device="cpu").solve(cols)
     assert torch.equal(gpu.panel.cpu(), cpu.panel)
     assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
