@@ -24,9 +24,9 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder")
+KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv")
 PROBES = ("imad_rate", "mont_probe")
-HEADERS = ("field.cuh", "ec.cuh")
+HEADERS = ("field.cuh", "ec.cuh", "pow.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +43,7 @@ _I = ctypes.c_int
 # pass every pointer as a 32-bit int.
 _SIGNATURES = {
     "mul": ("acvm_mont_mul", [_P, _P, _P, _LL, _I, _I, _P, _P]),
+    # a, out, n, the chain's schedule words, field, stream.
     "pow": ("acvm_mont_pow", [_P, _P, _LL, _P, _P, _P]),
     "dot": ("acvm_mont_dot", [_P] * 8 + [_LL, _LL, _I, _I, _P, _P]),
     "level": ("acvm_fused_level", [_P, _P, _LL, _LL, _I, _I, _P, _P]),
@@ -54,6 +55,8 @@ _SIGNATURES = {
     # Base view (pointer, coordinate stride, instance stride), scalars, output
     # view, instances, field, stream.
     "pt_ladder": ("acvm_pt_ladder", [_P, _LL, _LL, _P, _P, _LL, _LL, _LL, _P, _P]),
+    # a, out, rows G, columns L, rows a chunk, schedule words, field, stream.
+    "batch_inv": ("acvm_batch_inv", [_P, _P, _LL, _LL, _I, _P, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain

@@ -15,9 +15,15 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
 
 * ``mont_mul``  — ``fields/pallas_mul_v2.py::_make_mul_kernel``.  96 bytes and
   136 32-bit multiply-adds per element: bound by the integer pipes.
-* ``mont_pow``  — ``fields/pallas_mul.py::_make_pow_kernel``.  335 multiplies
-  per 64 bytes: bound by the integer pipes; the whole chain stays in registers
-  and local memory.
+* ``mont_pow``  — ``fields/pallas_mul.py::_make_pow_kernel``.  A sliding
+  window over odd powers (:func:`pow_schedule`, 311 products for p - 2 of
+  BN254) per 64 bytes: bound by the integer pipes once the card is full, by one
+  chain's latency below that; the chain stays in registers and local memory.
+* ``mont_batch_inv`` — ``fields/jnp_ops.py::LimbContext.mont_batch_inv`` (the
+  prefix/suffix scans over the multiply kernel around one pow chain).  One
+  launch: a thread runs a chunk of g values of one column forward (prefix
+  products), through the chain, and back; 3(g - 1) products and one chain a
+  chunk, about 160 bytes moved a value.  Bound by the integer pipes.
 * ``mont_dot``  — ``fields/pallas_mul_v2.py::_make_dot_kernel_v2``.  32 bytes
   per operand against 136 multiply-adds per product: integer pipes at the usual
   2-3 terms; one launch per expression panel keeps every intermediate out of
@@ -313,23 +319,91 @@ def mont_mul(
 # pow
 # ---------------------------------------------------------------------------
 
+POW_WINDOW = 4  # bits of a window: the table holds the odd powers a .. a^15
+POW_MAX_WINDOWS = 64  # a window starts at least POW_WINDOW bits below the last
+
+
+def pow_schedule(exponent: int):
+    """The left-to-right sliding-window chain of a^exponent over the odd
+    powers a^1, a^3, ..., a^15, as ``(first, steps, tail)``: start from table
+    entry ``first`` (a^(2 first + 1)); for each ``(squarings, entry)`` of
+    ``steps`` square that many times and multiply by the entry; square
+    ``tail`` times.  Exact for any exponent in [0, 2^256); 0 is
+    ``(-1, [], 0)`` (the result is one)."""
+    if not 0 <= exponent < 1 << 256:
+        raise ValueError("pow_schedule: exponent out of range")
+    if exponent == 0:
+        return -1, [], 0
+    windows = []  # (odd value, position of its lowest bit), top window first
+    i = exponent.bit_length() - 1
+    while i >= 0:
+        if not (exponent >> i) & 1:
+            i -= 1
+            continue
+        lo = max(i - POW_WINDOW + 1, 0)
+        while not (exponent >> lo) & 1:
+            lo += 1
+        windows.append(((exponent >> lo) & ((1 << (i - lo + 1)) - 1), lo))
+        i = lo - 1
+    (value, prev), steps = windows[0], []
+    for value_k, lo in windows[1:]:
+        steps.append((prev - lo, (value_k - 1) // 2))
+        prev = lo
+    return (value - 1) // 2, steps, prev
+
+
+# Products that build the table of a .. a^15 (a tree of depth 4: a^2; a^3, a^4;
+# a^5, a^7, a^8; a^9, a^11, a^13, a^15).
+POW_TABLE_PRODUCTS = 10
+
+
+def pow_chain_products(exponent: int) -> int:
+    """Montgomery products one chain of :func:`pow_schedule` takes."""
+    first, steps, tail = pow_schedule(exponent)
+    if first < 0:
+        return 0
+    return POW_TABLE_PRODUCTS + sum(sq + 1 for sq, _ in steps) + tail
+
+
+@lru_cache(maxsize=None)
+def pow_schedule_words(exponent: int) -> np.ndarray:
+    """The 3 + 64 uint32 words [first | windows | tail | op] the C launchers
+    of ``pow`` and ``batch_inv`` take; op k = squarings << 16 | entry."""
+    first, steps, tail = pow_schedule(exponent)
+    words = np.zeros(3 + POW_MAX_WINDOWS, dtype=np.uint32)
+    words[:3] = [first & M32, len(steps), tail]
+    for k, (sq, entry) in enumerate(steps):
+        words[3 + k] = sq << 16 | entry
+    return words
+
+
+def _odd_power_table(hf: "HalfField", base: torch.Tensor) -> list:
+    """[a, a^3, ..., a^15] in half-limbs, by the kernel's tree."""
+    mul = hf.mont_mul
+    a2 = mul(base, base)
+    a3, a4 = mul(a2, base), mul(a2, a2)
+    a5, a7, a8 = mul(a4, base), mul(a4, a3), mul(a4, a4)
+    return [base, a3, a5, a7, mul(a8, base), mul(a8, a3), mul(a8, a5), mul(a8, a7)]
+
 
 def mont_pow_plain(
     a: torch.Tensor, exponent: int, params: FieldParams = BN254_FR
 ) -> torch.Tensor:
-    """Plain version of :func:`mont_pow`: the same 4-bit-window chain."""
+    """Plain version of :func:`mont_pow`: the same sliding-window chain."""
     hf = half_field(params, a.device)
     base = split_half(a)
-    one = hf.one.expand(base.shape)
-    table = [one]
-    for _ in range(15):
-        table.append(hf.mont_mul(table[-1], base))
-    acc = one
-    # Leading zero windows are identity steps (R squared stays R, a^0 = R).
-    for w in range((max(exponent.bit_length(), 1) - 1) // 4, -1, -1):
-        for _ in range(4):
+    first, steps, tail = pow_schedule(exponent)
+    if first < 0:
+        acc = hf.one.expand(base.shape)
+    else:
+        table = _odd_power_table(hf, base)
+        acc = table[first]
+        for squarings, entry in steps:
+            for _ in range(squarings):
+                acc = hf.mont_mul(acc, acc)
+            acc = hf.mont_mul(acc, table[entry])
+        for _ in range(tail):
             acc = hf.mont_mul(acc, acc)
-        acc = hf.mont_mul(acc, table[(exponent >> (4 * w)) & 0xF])
     zero = (base == 0).all(dim=-1, keepdim=True)
     return join_half(torch.where(zero, torch.zeros_like(acc), acc))
 
@@ -348,12 +422,95 @@ def mont_pow(
     out = torch.empty_like(a)
     n = a.numel() // LIMBS
     if n:
-        exp_words = np.ascontiguousarray(int_to_limbs32(exponent).view(np.uint32))
         build.launch(
-            "pow", a.data_ptr(), out.data_ptr(), n, _host_ptr(exp_words),
+            "pow", a.data_ptr(), out.data_ptr(), n, _host_ptr(pow_schedule_words(exponent)),
             _host_ptr(field_words(params)), _stream(a),
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# batch_inv
+# ---------------------------------------------------------------------------
+
+
+def _r_limbs(params: FieldParams, device) -> torch.Tensor:
+    return torch.from_numpy(int_to_limbs32(params.r).copy()).to(device)
+
+
+def _batch_inv_axis0_plain(b_m: torch.Tensor, params: FieldParams) -> torch.Tensor:
+    """Batch inversion along axis 0: running prefix and suffix products
+    around one Fermat chain."""
+    G = b_m.shape[0]
+    r = _r_limbs(params, b_m.device)
+    is_zero = (b_m == 0).all(dim=-1, keepdim=True)
+    b = torch.where(is_zero, r, b_m)
+    prefix = torch.empty_like(b)
+    suffix = torch.empty_like(b)
+    prefix[0] = b[0]
+    suffix[G - 1] = b[G - 1]
+    for i in range(1, G):
+        prefix[i] = mont_mul_plain(prefix[i - 1], b[i], params)
+        suffix[G - 1 - i] = mont_mul_plain(b[G - 1 - i], suffix[G - i], params)
+    total_inv = mont_pow_plain(prefix[G - 1], params.modulus - 2, params)  # (..., 8)
+    # inv[i] = prefix[i-1] * suffix[i+1] * total_inv  (empty product = one)
+    one = r.expand(b.shape[1:])[None]
+    pre = torch.cat([one, prefix[:-1]], dim=0)
+    suf = torch.cat([suffix[1:], one], dim=0)
+    inv = mont_mul_plain(mont_mul_plain(pre, suf, params), total_inv[None], params)
+    return torch.where(is_zero, torch.zeros_like(inv), inv)
+
+
+def mont_batch_inv_plain(
+    a: torch.Tensor, params: FieldParams = BN254_FR, axis: int = 0, max_scan: int = 256
+) -> torch.Tensor:
+    """Plain version of :func:`mont_batch_inv` (any device): Montgomery's
+    trick in tensor ops.  The axis is cut into chunks of ``max_scan`` that are
+    inverted side by side (the chunks share every op)."""
+    if a.shape[axis] == 1:
+        return mont_pow_plain(a, params.modulus - 2, params)
+    a_m = torch.movedim(a, axis, 0)  # (G, ..., 8)
+    G = a_m.shape[0]
+    rest = a_m.shape[1:]
+    gc = min(G, max_scan)
+    C = -(-G // gc)
+    pad = C * gc - G
+    if pad:
+        a_m = torch.cat([a_m, _r_limbs(params, a.device).expand((pad,) + rest)], dim=0)
+    # (C, gc, ...) -> (gc, C, ...): step i of every chunk is one contiguous slab.
+    chunks = a_m.reshape((C, gc) + rest).movedim(1, 0).contiguous()
+    inv = _batch_inv_axis0_plain(chunks, params)
+    inv = inv.movedim(0, 1).reshape((C * gc,) + rest)[:G]
+    return torch.movedim(inv, 0, axis)
+
+
+def mont_batch_inv(
+    a: torch.Tensor, params: FieldParams = BN254_FR, axis: int = 0, max_scan: int = 256
+) -> torch.Tensor:
+    """Inverses in Montgomery form (a R -> a^-1 R) along ``axis`` by
+    Montgomery's trick, in chunks of at most ``max_scan`` values that each
+    share one Fermat chain; zero maps to zero.  Any chunking gives the same
+    bits: inverses are unique and every output is canonical.  On the CUDA
+    route the axis is moved to the front once (no copy for axis 0 of a
+    contiguous tensor) and one ``batch_inv`` launch does the rest."""
+    _check(a, "mont_batch_inv a")
+    if a.dim() < 2 or axis % a.dim() == a.dim() - 1:
+        raise ValueError("mont_batch_inv: axis must be a batch axis, not the limb axis")
+    if max_scan < 1:
+        raise ValueError("mont_batch_inv: max_scan must be at least 1")
+    if not a.is_cuda:
+        return mont_batch_inv_plain(a, params, axis, max_scan)
+    a_m = torch.movedim(a, axis, 0).contiguous()
+    out = torch.empty_like(a_m)
+    G = a_m.shape[0]
+    L = a_m.numel() // (G * LIMBS) if G else 0
+    if L:
+        build.launch(
+            "batch_inv", a_m.data_ptr(), out.data_ptr(), G, L, min(G, max_scan),
+            _host_ptr(pow_schedule_words(params.modulus - 2)),
+            _host_ptr(field_words(params)), _stream(a_m),
+        )
+    return torch.movedim(out, 0, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ arbitrary leading batch dimensions with a trailing axis of 8 ``int32`` limbs
 (the bit pattern of uint32, little-endian).  Montgomery radix R = 2^256, all
 results canonical (< p).
 
-``mont_mul`` and ``mont_inv`` go to the hand-written CUDA kernels for CUDA
-tensors and to their plain versions for CPU tensors
+``mont_mul``, ``mont_inv`` and ``mont_batch_inv`` go to the hand-written CUDA
+kernels for CUDA tensors and to their plain versions for CPU tensors
 (:mod:`acvm_tpu_torch.fields.kernels`).  ``add`` / ``sub`` / ``neg`` and the
 predicates are plain tensor ops on either device: they have no kernel in the
 JAX package either.
@@ -97,79 +97,41 @@ class LimbContext:
     def mont_batch_inv(
         self, a: torch.Tensor, axis: int = -2, max_scan: int = 256
     ) -> torch.Tensor:
-        """Montgomery's batch-inversion trick along ``axis``: running prefix
-        and suffix products amortize ONE Fermat chain over up to ``max_scan``
-        values (about 4 multiplies a value instead of 335).  Zero maps to
-        zero, matching ``mont_inv``.
+        """Montgomery's batch-inversion trick along ``axis``: running products
+        amortize ONE Fermat chain over up to ``max_scan`` values (about 3
+        products a value instead of 311).  Zero maps to zero, matching
+        ``mont_inv``; any chunking gives the same bits.  One ``batch_inv``
+        launch on CUDA tensors (:func:`kernels.mont_batch_inv`)."""
+        return kernels.mont_batch_inv(a, self.params, axis, max_scan)
 
-        Axes longer than ``max_scan`` are cut into chunks that are inverted
-        independently and side by side (the chunks share every launch).  The
-        products associate left to right; the result does not depend on the
-        association, and every output is canonical."""
-        if a.shape[axis] == 1:
-            return self.mont_inv(a)
-        a_m = torch.movedim(a, axis, 0)  # (G, ..., 8)
-        G = a_m.shape[0]
-        rest = a_m.shape[1:]
-        gc = min(G, max_scan)
-        C = -(-G // gc)
-        pad = C * gc - G
-        if pad:
-            one = self.r_limbs.expand((pad,) + rest)
-            a_m = torch.cat([a_m, one], dim=0)
-        # (C, gc, ...) -> (gc, C, ...): step i of every chunk is one
-        # contiguous slab.
-        chunks = a_m.reshape((C, gc) + rest).movedim(1, 0).contiguous()
-        inv = self._batch_inv_axis0(chunks)
-        inv = inv.movedim(0, 1).reshape((C * gc,) + rest)[:G]
-        return torch.movedim(inv, 0, axis)
-
-    def _batch_inv_axis0(self, a_m: torch.Tensor) -> torch.Tensor:
-        """Batch inversion along axis 0 (the prefix/suffix-product core)."""
-        G = a_m.shape[0]
-        is_zero = (a_m == 0).all(dim=-1, keepdim=True)
-        b = torch.where(is_zero, self.r_limbs, a_m)
-        prefix = torch.empty_like(b)
-        suffix = torch.empty_like(b)
-        prefix[0] = b[0]
-        suffix[G - 1] = b[G - 1]
-        for i in range(1, G):
-            self.mont_mul(prefix[i - 1], b[i], out=prefix[i])
-            self.mont_mul(b[G - 1 - i], suffix[G - i], out=suffix[G - 1 - i])
-        total_inv = self.mont_inv(prefix[G - 1])  # (..., 8)
-        # inv[i] = prefix[i-1] * suffix[i+1] * total_inv  (empty product = one)
-        one = self.r_limbs.expand(b.shape[1:])[None]
-        pre = torch.cat([one, prefix[:-1]], dim=0)
-        suf = torch.cat([suffix[1:], one], dim=0)
-        inv = self.mont_mul(self.mont_mul(pre, suf), total_inv[None])
-        return torch.where(is_zero, torch.zeros_like(inv), inv)
-
-    # What one sequential kernel launch costs, in Fermat chains: an H100 runs a
-    # chain in about 11 ns and Python launches a small kernel in tens of
-    # microseconds.
-    CHAINS_PER_LAUNCH = 8192
+    # Lanes (chunks) from which an H100 is full of Fermat chains: on one
+    # `batch_inv` launch of n values in chunks of g, n / g = 2^14 lanes was the
+    # best split at every n from 2^16 to 2^20 measured (`chip_smoke.py
+    # --fold-sweep`), and at n = 2^14 the pow kernel beat every split.  The
+    # gadget paths' affine conversions (2,048-16,384 values) stay below 2^15
+    # and call the pow kernel directly.
+    FOLD_LANES = 1 << 14
 
     def mont_inv_grouped(self, a: torch.Tensor, group: int = 32) -> torch.Tensor:
-        """Invert a flat (..., n, 8) array by folding its axis -2 into groups
-        of g values and amortizing one Fermat chain per group (see
-        ``mont_batch_inv``).  g is a power of two that divides n (no padding),
-        at most ``group``; any g gives the same bits.
+        """Invert every value of ``a`` (any shape (..., 8)), folding them into
+        g groups along a new leading axis and amortizing one Fermat chain per
+        chunk of g (see ``mont_batch_inv``).  g is a power of two that divides
+        the value count n (no padding), at most ``group``; any g gives the same
+        bits.
 
-        A group of g spends about 2g sequential multiply launches to save
-        n (1 - 1/g) Fermat chains, so the total 2g + n / (g * CHAINS_PER_LAUNCH)
-        is least near g = sqrt(n / (2 * CHAINS_PER_LAUNCH)): g doubles only
-        while (2g)^2 * CHAINS_PER_LAUNCH <= n, and arrays below 32,768 values
-        are inverted directly."""
-        if a.dim() < 2:
-            return self.mont_inv(a)
-        n = a.shape[-2]
+        Folding turns n chains into n / g chains and 3n products in one
+        launch.  While n / g chains fill the card the launch is bound by the
+        products, so g doubles only while n / (2g) >= FOLD_LANES; below that a
+        chain's depth sets the time, which folding only lengthens (by 3g), and
+        the values go to the pow kernel directly."""
+        n = a.numel() // LIMBS
         g = 1
-        while g < group and n % (g * 2) == 0 and (2 * g) ** 2 * self.CHAINS_PER_LAUNCH <= n:
+        while g < group and n % (g * 2) == 0 and n // (g * 2) >= self.FOLD_LANES:
             g *= 2
         if g == 1:
             return self.mont_inv(a)
-        folded = a.reshape(a.shape[:-2] + (n // g, g, LIMBS))
-        return self.mont_batch_inv(folded, axis=-2).reshape(a.shape)
+        folded = a.reshape(g, n // g, LIMBS)
+        return self.mont_batch_inv(folded, axis=0, max_scan=g).reshape(a.shape)
 
     def mont_div(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.mont_mul(a, self.mont_inv(b))

@@ -75,12 +75,15 @@ _UNPORTED_LEVEL_FIELDS = {
 }
 
 
-# Gates per chunk of a level's batch inversion.  A chunk of g gates costs 2g
-# sequential small multiply launches (about 37 us each from Python) and one
-# Fermat chain per chunk and instance (about 11 ns each on an H100), so a
-# level of E gates over B instances takes ~ 74 us * g + E * B * 11 ns / g:
-# least near g = 25 at E = B = 2,048.  Any chunking gives the same bits.
-_DYN_INV_CHUNK = 32
+# Gates per chunk of a level's batch inversion: one `batch_inv` launch, a
+# thread a chunk of one instance (a lane).  A level of E gates over B instances
+# has E * B / g lanes, each 3(g - 1) products plus one Fermat chain of ~311.
+# Small g leaves many chains (throughput-bound: ~400 products a lane at g = 32);
+# large g leaves too few lanes to hide a lane's dependent depth of ~3g + 305
+# products (latency-bound).  On an H100 at E = B = 2,048 (`chip_smoke.py`,
+# `ms_by_chunk`): g = 32 1.03 ms, 64 0.69, 128 0.53, 256 0.63.  Any chunking
+# gives the same bits.
+_DYN_INV_CHUNK = 128
 
 
 def note_failures(fail: torch.Tensor, bad: torch.Tensor, op_idx: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,10 @@
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
                                      # loads ahead, 64 instances a block
+    python3 chip_smoke.py --fold-sweep      # also pow beside batch_inv folded
+                                     # into 2-32 rows at 2^14-2^20 values, the
+                                     # measurement behind mont_inv_grouped's
+                                     # FOLD_LANES
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -26,8 +30,9 @@ build, a failed launch or a failed comparison raises and the exit code is not
                ``solve``: flags, two full witness maps against a Python-int
                evaluator, launch counts, timed solves;
 5. ``path_dyn``  the dynamic-denominator circuit (4 x 4,096 gates, half of
-               them with a runtime denominator), same checks; then a small
-               hand-built circuit whose chosen instances must fail;
+               them with a runtime denominator), same checks, and one
+               ``batch_inv`` launch a level; then a small hand-built circuit
+               whose chosen instances must fail;
 6. ``path_dyn_v1``  the dynamic-denominator circuit at 2 x 4,096 gates with 256
                quadratic constraints repeated as assert-zero checks, solved with
                ``dot_kernel="v1"`` (first-generation multiply and dot): equal to
@@ -39,8 +44,10 @@ build, a failed launch or a failed comparison raises and the exit code is not
                forged signatures and off-curve keys, out-of-range scalars; one
                ``pt_ladder`` launch a Schnorr gadget level;
 8. ``kernels`` every kernel against its plain PyTorch version at the main
-               path's shapes (tolerance 0: integers), its time, its bound and
-               its launches on each path;
+               path's shapes (tolerance 0: integers), its time, the plain
+               version's time over the same whole shape, its bound and its
+               launches on each path; ``batch_inv`` also at four chunk sizes on
+               the dyn path's (2,048, 2,048) panel;
 9. the raw ``nvidia-smi`` name and power limit;
 10. ``{"ok": true, "device": {...}}``.
 """
@@ -157,13 +164,13 @@ def main() -> int:
         ptxas[name] = {"registers": max(regs), "spill_bytes": max(spills), "stack_bytes": max(stack)}
     emit({"build": {"seconds": built["seconds"], "built": built["built"], "ptxas": ptxas}})
 
-    def time_ms(fn, reps=7, calls=1):
-        """Median CUDA-event time of one fn() in ms, after two warm-up calls.
+    def time_ms(fn, reps=7, calls=1, warmup=2):
+        """Median CUDA-event time of one fn() in ms, after ``warmup`` calls.
         With calls = 1 the events bracket a single call, host gap between the
         event and the launch included (tens of microseconds, which is most of
         what a kernel under 0.1 ms reads); with more, that many calls are
         queued back to back between the events and the time is divided."""
-        for _ in range(2):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
@@ -271,33 +278,144 @@ def main() -> int:
         max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_mul(a, b, BN254_FR, out=out)),
         ms_queued=time_ms(lambda: fk.mont_mul(a, b, BN254_FR, out=out), calls=10),
-        plain_ms=time_ms(lambda: fk.mont_mul_plain(a[: 1 << 18], b[: 1 << 18], BN254_FR), 5) * 4,
+        plain_ms=time_ms(lambda: [fk.mont_mul_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)], BN254_FR)
+                                  for i in range(0, n_mul, 1 << 18)], 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, b, out, got, want
 
     # -- 6b. pow ----------------------------------------------------------------
-    n_pow = 1 << 16
+    # Every exponent the window schedule treats apart against the plain version
+    # on both fields (4,096 elements, five of them zero, one p - 1); timed at
+    # N = 2^16 and at the gadget paths' 4,096.
+    n_pow, n_small = 1 << 16, 4096
+    rng_e = np.random.default_rng(12)
+    errs = []
+    for params in (BN254_FR, BLS12_381_FR):
+        a = random_elements((n_small,), params, 3, zeros=5)
+        a[5] = torch.from_numpy(fk.int_to_limbs32(params.modulus - 1).copy()).to(dev)
+        for e in (0, 1, 2, 15, 16, params.modulus - 2, (1 << 256) - 1,
+                  int.from_bytes(rng_e.bytes(32), "little")):
+            errs.append(max_abs_err(fk.mont_pow(a, e, params), fk.mont_pow_plain(a, e, params)))
     a = random_elements((n_pow,), BN254_FR, 3, zeros=5)
     got = fk.mont_pow(a, P - 2, BN254_FR)
     want = fk.mont_pow_plain(a, P - 2, BN254_FR)
     torch.cuda.synchronize()
-    errs = [max_abs_err(got, want), max_abs_err(got[:5], torch.zeros_like(got[:5]))]
+    errs += [max_abs_err(got, want), max_abs_err(got[:5], torch.zeros_like(got[:5]))]
     # a * a^-1 = 1: the product of the Montgomery forms is R.
     r_one = torch.from_numpy(fk.int_to_limbs32(BN254_FR.r).copy()).to(dev)
     errs.append(max_abs_err(fk.mont_mul(a[5:], got[5:], BN254_FR), r_one.expand_as(a[5:])))
-    e_small = 0xDEADBEEF12345
-    errs.append(max_abs_err(fk.mont_pow(a, e_small, BN254_FR),
-                            fk.mont_pow_plain(a, e_small, BN254_FR)))
-    b_ms, b_by = bound(64 * n_pow, 335 * MADDS_PER_MONT_MUL * n_pow)
+    chain = fk.pow_chain_products(P - 2)
+    b_ms, b_by = bound(64 * n_pow, chain * MADDS_PER_MONT_MUL * n_pow)
+    a_small = a[:n_small].clone()
     kernels["pow"] = dict(
         name="pow", route="cuda", source="acvm_tpu_torch/csrc/pow.cu",
-        replaces="acvm_tpu/fields/pallas_mul.py:175", shape=f"N={n_pow}, e=p-2",
-        max_abs_err=max(errs),
+        replaces="acvm_tpu/fields/pallas_mul.py:175",
+        shape=f"N={n_pow}, e=p-2, {chain} products a chain", max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_pow(a, P - 2, BN254_FR)),
         ms_queued=time_ms(lambda: fk.mont_pow(a, P - 2, BN254_FR), calls=10),
+        ms_n_4096=time_ms(lambda: fk.mont_pow(a_small, P - 2, BN254_FR)),
+        ms_n_4096_queued=time_ms(lambda: fk.mont_pow(a_small, P - 2, BN254_FR), calls=10),
+        bound_ms_n_4096=bound(64 * n_small, chain * MADDS_PER_MONT_MUL * n_small)[0],
         plain_ms=time_ms(lambda: fk.mont_pow_plain(a, P - 2, BN254_FR), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del a, got, want
+    del a, a_small, got, want
+
+    # -- 6b'. batch_inv ---------------------------------------------------------
+    # Against the plain version on both fields: zeros at the first and last row
+    # of a chunk, a chunk of all zeros, columns of p - 1, G not a multiple of
+    # the chunk, G = 1 and 2, axes other than 0; the result times the input is
+    # R.  Then the dyn path's panel (2,048 gates x 2,048 instances) at the
+    # solver's chunk, timed at four chunk sizes.
+    from acvm_tpu_torch.gpu.batch_solver import _DYN_INV_CHUNK
+    errs = []
+    for params in (BN254_FR, BLS12_381_FR):
+        pm1 = torch.from_numpy(fk.int_to_limbs32(params.modulus - 1).copy()).to(dev)
+        r_p = torch.from_numpy(fk.int_to_limbs32(params.r).copy()).to(dev)
+        a = random_elements((300, 96), params, 51)   # chunks of 32: the last holds 12
+        a[0, 0] = a[31, 1] = a[32, 1] = a[299, 3] = a[288, 6] = 0
+        a[64:96, 2] = 0
+        a[:, 4] = pm1
+        a[100:140, 5] = pm1
+        for g in (32, 7, 300, 1):
+            got = fk.mont_batch_inv(a, params, 0, g)
+            errs.append(max_abs_err(got, fk.mont_batch_inv_plain(a, params, 0, g)))
+        zero = (a == 0).all(-1)
+        errs.append(max_abs_err(got[zero], torch.zeros_like(got[zero])))
+        errs.append(max_abs_err(fk.mont_mul(a[~zero], got[~zero], params),
+                                r_p.expand_as(a[~zero])))
+        for G in (1, 2):
+            errs.append(max_abs_err(fk.mont_batch_inv(a[:G], params, 0, 32),
+                                    fk.mont_batch_inv_plain(a[:G], params, 0, 32)))
+        at = a.transpose(0, 1)  # (96, 300, 8), a strided view, along axis 1
+        errs.append(max_abs_err(fk.mont_batch_inv(at, params, 1, 32),
+                                fk.mont_batch_inv_plain(at, params, 1, 32)))
+        a4 = a.reshape(300, 4, 24, 8).permute(1, 0, 2, 3)  # (4, 300, 24, 8) along axis -3
+        errs.append(max_abs_err(fk.mont_batch_inv(a4, params, -3, 32),
+                                fk.mont_batch_inv_plain(a4, params, -3, 32)))
+    assert max(errs) == 0, errs
+    G_inv = L_inv = 2048
+    a = random_elements((G_inv, L_inv), BN254_FR, 52)
+    a[0, 0] = a[G_inv - 1, 1] = a[_DYN_INV_CHUNK, 2] = 0
+    got = fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK)
+    by_chunk = {}
+    for g in sorted({32, 64, 128, 256, _DYN_INV_CHUNK}):
+        other = fk.mont_batch_inv(a, BN254_FR, 0, g)
+        errs.append(max_abs_err(other, got))
+        by_chunk[g] = time_ms(lambda g=g: fk.mont_batch_inv(a, BN254_FR, 0, g))
+    del other
+    # The plain version on the whole panel: its widened products hold ~45 GB
+    # at the end, one at a time.
+    errs.append(max_abs_err(got, fk.mont_batch_inv_plain(a, BN254_FR, 0, _DYN_INV_CHUNK)))
+    inv_plain_ms = time_ms(
+        lambda: fk.mont_batch_inv_plain(a, BN254_FR, 0, _DYN_INV_CHUNK), 3, warmup=0)
+
+    def batch_inv_products(x):
+        """Montgomery products that batch inversion along axis 0 of x needs,
+        however it is chunked: one Fermat chain for each column that holds a
+        non-zero value, and three products (prefix, inverse, running inverse)
+        for each non-zero value after its column's first."""
+        per_column = (~(x == 0).all(-1)).sum(0)
+        live = per_column > 0
+        return int(live.sum().item()) * chain + 3 * int((per_column[live] - 1).sum().item())
+
+    def batch_inv_design_products(x, g):
+        """Products the kernel does in chunks of g: a chain a chunk (zeros
+        count as R), one product a row after a chunk's first (backward), and
+        two more where that row is not zero (forward, backward)."""
+        G, L = x.shape[0], x.shape[1]
+        later = torch.ones(G, dtype=torch.bool, device=x.device)
+        later[::g] = False
+        nonzero_later = int((~(x[later] == 0).all(-1)).sum().item())
+        chunks = -(-G // g)
+        return chunks * L * chain + (G - chunks) * L + 2 * nonzero_later
+
+    needed = batch_inv_products(a)
+    b_ms, b_by = bound(64 * G_inv * L_inv, needed * MADDS_PER_MONT_MUL)
+    kernels["batch_inv"] = dict(
+        name="batch_inv", route="cuda", source="acvm_tpu_torch/csrc/batch_inv.cu",
+        replaces="acvm_tpu/fields/jnp_ops.py:259",
+        shape=f"G={G_inv}, L={L_inv}, chunk={_DYN_INV_CHUNK} (the dyn path's level)",
+        max_abs_err=max(errs), edge_cases=len(errs),
+        ms=by_chunk[_DYN_INV_CHUNK],
+        ms_queued=time_ms(lambda: fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK), calls=10),
+        ms_by_chunk=by_chunk, products_needed=needed,
+        products_by_chunk={g: batch_inv_design_products(a, g) for g in by_chunk},
+        plain_ms=inv_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, got
+    torch.cuda.empty_cache()
+    if "--fold-sweep" in sys.argv:
+        # mont_inv_grouped's choice: n values as one pow launch, or folded into
+        # g rows of n / g columns and one batch_inv launch.
+        fold = {}
+        for n in (16384, 65536, 262144, 1048576):
+            x = random_elements((n,), BN254_FR, 53)
+            row = {"pow": time_ms(lambda: fk.mont_pow(x, P - 2, BN254_FR))}
+            for g in (2, 4, 8, 16, 32):
+                xg = x.reshape(g, n // g, 8)
+                row[f"batch_inv_g{g}"] = time_ms(lambda: fk.mont_batch_inv(xg, BN254_FR, 0, g))
+            fold[n] = row
+        emit({"fold_sweep": {"ms": fold}})
+        del x, xg
 
     # -- 6c. dot ----------------------------------------------------------------
     E = B = 2048
@@ -324,7 +442,6 @@ def main() -> int:
     errs.append(max_abs_err(fk.mont_dot(None, None, m1, m2, mc, qc, sc, BN254_FR)[:step],
                             fk.mont_dot_plain(None, None, m1[:step], m2[:step], mc[:step],
                                               qc[:step], sc[:step], BN254_FR)))
-    s = slice(0, step)
     dot_bytes = 32 * E * B * (T1 + 2 * T2 + 1) + 32 * E * (T1 + T2 + 1)
     b_ms, b_by = bound(dot_bytes, (T1 + 2 * T2) * MADDS_PER_MONT_MUL * E * B)
     sb_ms, _ = bound(dot_bytes + 32 * E, (T1 + 2 * T2 + 1) * MADDS_PER_MONT_MUL * E * B)
@@ -335,8 +452,9 @@ def main() -> int:
         ms=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, None, BN254_FR)),
         ms_queued=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, None, BN254_FR), calls=10),
         ms_with_scale=time_ms(lambda: fk.mont_dot(lv, lc, m1, m2, mc, qc, sc, BN254_FR)),
-        plain_ms=time_ms(lambda: fk.mont_dot_plain(
-            lv[s], lc[s], m1[s], m2[s], mc[s], qc[s], None, BN254_FR), 5) * (E // step),
+        plain_ms=time_ms(lambda: [fk.mont_dot_plain(
+            lv[lo : lo + step], lc[lo : lo + step], m1[lo : lo + step], m2[lo : lo + step],
+            mc[lo : lo + step], qc[lo : lo + step], None, BN254_FR) for lo in range(0, E, step)], 3),
         bound_ms=b_ms, bound_ms_with_scale=sb_ms, bound_by=b_by, library_ms=None)
     del lv, m1, m2, lc, mc, qc, sc, got, want
     torch.cuda.empty_cache()
@@ -359,7 +477,8 @@ def main() -> int:
         max_abs_err=max(errs),
         ms=time_ms(lambda: fk.mont_mul_v1(a, b)),
         ms_queued=time_ms(lambda: fk.mont_mul_v1(a, b), calls=10),
-        plain_ms=time_ms(lambda: fk.mont_mul_v1_plain(a[: 1 << 18], b[: 1 << 18]), 5) * 4,
+        plain_ms=time_ms(lambda: [fk.mont_mul_v1_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)])
+                                  for i in range(0, n_mul, 1 << 18)], 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, b, got, want
 
@@ -377,7 +496,6 @@ def main() -> int:
             want = fk.mont_dot_v1_plain(vals[s], coeff[s], qc[s],
                                         None if scale is None else scale[s], BN254_FR)
             errs.append(max_abs_err(got[s], want))
-    s = slice(0, step)
     b_ms, b_by = bound(32 * E * B * (T + 1) + 32 * E * (T + 1), T * MADDS_PER_MONT_MUL * E * B)
     kernels["dot_v1"] = dict(
         name="dot_v1", route="cuda", source="acvm_tpu_torch/csrc/dot_v1.cu",
@@ -386,8 +504,9 @@ def main() -> int:
         ms=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, None, BN254_FR)),
         ms_queued=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, None, BN254_FR), calls=10),
         ms_with_scale=time_ms(lambda: fk.mont_dot_v1(vals, coeff, qc, sc, BN254_FR)),
-        plain_ms=time_ms(lambda: fk.mont_dot_v1_plain(
-            vals[s], coeff[s], qc[s], None, BN254_FR), 5) * (E // step),
+        plain_ms=time_ms(lambda: [fk.mont_dot_v1_plain(
+            vals[lo : lo + step], coeff[lo : lo + step], qc[lo : lo + step], None, BN254_FR)
+            for lo in range(0, E, step)], 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del vals, coeff, qc, sc, got, want
     torch.cuda.empty_cache()
@@ -645,7 +764,7 @@ def main() -> int:
     level_ms_queued = time_ms(lambda: fused_level_call(W, desc, BN254_FR, t1, t2), calls=10)
     got = W.index_select(0, out_rows)
     plain_level_ms = time_ms(
-        lambda: fused_level_plain(W, desc[:128], BN254_FR, t1, t2), 3) * (desc.shape[0] / 128)
+        lambda: fused_level_plain(W, desc, BN254_FR, t1, t2, gate_chunk=512), 3, warmup=0)
     # What this level's data needs: a term with a zero coefficient is padding
     # (gates are packed to the widest) and costs neither operand rows nor
     # products; an operand row shared by several gates is read once.
@@ -721,7 +840,11 @@ def main() -> int:
     torch.cuda.synchronize()
     dyn_launches = dict(build.LAUNCHES)
     assert res.ok.all() and (res.fail == FAIL_NONE).all()
-    for name in ("level", "mul", "pow", "dot"):
+    # A level inverts its denominators in one batch_inv launch; mul is left
+    # with to_mont(den) and -num * den^-1.
+    assert dyn_launches["batch_inv"] == 4 and dyn_launches["mul"] == 8, dyn_launches
+    assert dyn_launches["pow"] == 0, dyn_launches
+    for name in ("level", "dot"):
         assert dyn_launches[name] > 0, dyn_launches
     check_instances(circuit, inputs, res, (0, batch - 1))
     gates = len(circuit.opcodes)
@@ -784,6 +907,7 @@ def main() -> int:
     assert res.ok.all() and (res.fail == FAIL_NONE).all()
     assert v1_launches["dot_v1"] > 0 and v1_launches["mul_v1"] > 0, v1_launches
     assert v1_launches["dot"] == 0, v1_launches
+    assert v1_launches["batch_inv"] == 2 and v1_launches["mul"] == 4, v1_launches
     assert torch.equal(res.panel, res_v2.panel) and np.array_equal(res.fail, res_v2.fail)
     check_instances(circuit, inputs, res, (0, batch - 1))
     gates = len(circuit.opcodes)

@@ -443,8 +443,8 @@ def test_inverse_helpers_match_ints(monkeypatch):
     t = to_limbs([v * R % P for v in vals])
     want = [pow(v, -1, P) * R % P if v else 0 for v in vals]
     assert fk.limbs32_to_ints(CTX.mont_inv_grouped(t).numpy()) == want
-    # where a launch costs less than a chain the axis folds into groups: same bits
-    monkeypatch.setattr(LimbContext, "CHAINS_PER_LAUNCH", 0.5)
+    # where the chunks alone fill the card the values fold into groups: same bits
+    monkeypatch.setattr(LimbContext, "FOLD_LANES", 1)
     grouped = CTX.mont_inv_grouped(t, group=4)
     assert fk.limbs32_to_ints(grouped.numpy()) == want
     quotient = CTX.mont_div(t[3:], t[4:5])

@@ -9,6 +9,8 @@ The JAX side is jitted as ONE program per field (plus one for batch inversion),
 and the expression dot runs un-jitted, so the file compiles a handful of programs.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,14 +127,50 @@ def test_mul_broadcasts_a_single_element(field):
     assert got == field["ints"]["to_mont"]
 
 
-@pytest.mark.parametrize("exponent", [0, 0xF0, 0xDEADBEEF12345, (1 << 256) - 1])
+@pytest.mark.parametrize(
+    "exponent", [0, 1, 2, 16, 0xF0, 0xDEADBEEF12345, (1 << 256) - 1, "p-2"])
 def test_pow_matches_ints(field, exponent):
     p = field["params"].modulus
+    if exponent == "p-2":
+        exponent = p - 2
     r_inv = pow(R, -1, p)
     got = from_torch(fk.mont_pow(field["ta"], exponent, field["params"]))
     # Montgomery form in, Montgomery form out; zero bases map to zero.
     want = [pow(x * r_inv, exponent, p) * R % p if x else 0 for x in field["a"]]
     assert got == want
+
+
+@pytest.mark.parametrize(
+    "exponent", [0, 1, 2, 15, 16, "bn254 p-2", "bls12_381 p-2", (1 << 256) - 1])
+def test_pow_schedule_reproduces_exponent(exponent):
+    """The host's sliding-window schedule, replayed on exponents instead of
+    powers, gives its exponent back; windows are odd and at most 4 bits."""
+    if isinstance(exponent, str):
+        exponent = FIELDS[exponent.split()[0]][1].modulus - 2
+    first, steps, tail = fk.pow_schedule(exponent)
+    if exponent == 0:
+        assert (first, steps, tail) == (-1, [], 0) and fk.pow_chain_products(0) == 0
+        return
+    e = 2 * first + 1
+    for squarings, entry in steps:
+        assert squarings >= 1 and 0 <= entry < 8
+        e = (e << squarings) + 2 * entry + 1
+    assert e << tail == exponent
+    assert len(steps) < fk.POW_MAX_WINDOWS
+    words = fk.pow_schedule_words(exponent)
+    assert list(words[:3]) == [first, len(steps), tail]
+    assert [(int(w) >> 16, int(w) & 0xFFFF) for w in words[3 : 3 + len(steps)]] == steps
+    if exponent == tparams.BN254_FR.modulus - 2:
+        # 10 table products, 252 squarings, 49 multiplies (fixed windows: 335)
+        assert fk.pow_chain_products(exponent) == 311
+
+
+@functools.lru_cache(maxsize=None)
+def jax_batch_inv_axis0():
+    """The JAX batch inversion along axis 0 over BN254, jitted once: every
+    (3, 4) case below shares its one compile."""
+    jctx = jnp_ops.LimbContext(BN254_FR)
+    return jax.jit(lambda x: jctx.mont_batch_inv(x, axis=0))
 
 
 def test_batch_inv_matches_jax_and_ints():
@@ -142,24 +180,57 @@ def test_batch_inv_matches_jax_and_ints():
     G, B = 3, 4  # a short axis keeps the JAX scan's compile small
     vals = rand_ints(3, G * B, p)
     vals[5] = vals[6] = vals[10] = 0  # with the leading 0: one column all but zero
-    jctx = jnp_ops.LimbContext(BN254_FR)
-    want = from_jax(jax.jit(lambda x: jctx.mont_batch_inv(x, axis=0))(
-        jnp.asarray(ints_to_limbs(vals)).reshape(G, B, 16)))
+    want = from_jax(jax_batch_inv_axis0()(jnp.asarray(ints_to_limbs(vals)).reshape(G, B, 16)))
     ctx = LimbContext(tparams.BN254_FR, device="cpu")
     got = from_torch(ctx.mont_batch_inv(to_torch(vals).reshape(G, B, 8), axis=0))
     assert got == want
     assert got == [pow(x, -1, p) * R * R % p if x else 0 for x in vals]
+    # Chunks of 2: a zero opens chunk 0 of column 0 and closes it in column 2,
+    # whose ragged chunk 1 (one row) is all zero; same bits as one chunk.
+    chunked = ctx.mont_batch_inv(to_torch(vals).reshape(G, B, 8), axis=0, max_scan=2)
+    assert from_torch(chunked) == want
 
 
 @pytest.mark.parametrize(
-    "name,axis,max_scan",
-    [("bn254", 0, 256), ("bls12_381", 1, 256), ("bn254", 0, 3), ("bls12_381", -2, 4)],
+    "zeros", [(1, 5, 7), (2, 6, 3, 7, 11), (8, 9, 10, 11)],
+    ids=["chunk_edges", "all_zero_chunk", "ragged_chunk"])
+def test_batch_inv_zero_patterns_match_jax(zeros):
+    """(3, 4) along axis 0 in chunks of 2 (rows 0-1, then the ragged row 2):
+    zeros at the first and last row of a chunk (column 1 all but row 2, and
+    row 1 of column 3), a chunk of all zeros beside a column of them, a ragged
+    chunk of all zeros.  The port at chunks of 2, 1 and 3, the JAX scan (one
+    chunk) and Python ints agree."""
+    p = BN254_FR.modulus
+    G, B = 3, 4
+    vals = rand_ints(5, G * B, p)  # value 0 is zero already
+    for k in zeros:
+        vals[k] = 0
+    want = from_jax(jax_batch_inv_axis0()(jnp.asarray(ints_to_limbs(vals)).reshape(G, B, 16)))
+    assert want == [pow(x, -1, p) * R * R % p if x else 0 for x in vals]
+    ctx = LimbContext(tparams.BN254_FR, device="cpu")
+    for max_scan in (2, 1, 3):
+        got = ctx.mont_batch_inv(to_torch(vals).reshape(G, B, 8), axis=0, max_scan=max_scan)
+        assert from_torch(got) == want, max_scan
+
+
+@pytest.mark.parametrize(
+    "name,axis,max_scan,zeros",
+    [("bn254", 0, 256, ()), ("bls12_381", 1, 256, ()), ("bn254", 0, 3, ()),
+     ("bls12_381", -2, 4, ()),
+     # (7, 3) in chunks of 3: zeros at the first and last row of a chunk
+     # (column 1), chunk 1 of column 2 all zero, and the ragged last chunk
+     ("bn254", 0, 3, (1 * 3 + 1, 3 * 3 + 1, 2 * 3 + 1, 3 * 3 + 2, 4 * 3 + 2, 5 * 3 + 2)),
+     ("bls12_381", 0, 3, (6 * 3 + 0, 6 * 3 + 1, 3 * 3 + 0, 5 * 3 + 0)),
+     # (3, 7) along axis 1 in chunks of 4: a ragged chunk of 3, all zero in row 2
+     ("bn254", 1, 4, (2 * 7 + 4, 2 * 7 + 5, 2 * 7 + 6, 1 * 7 + 3, 1 * 7 + 4))],
 )
-def test_batch_inv_chunks_and_axes(name, axis, max_scan):
+def test_batch_inv_chunks_and_axes(name, axis, max_scan, zeros):
     params = FIELDS[name][1]
     p = params.modulus
     shape = {0: (7, 3), 1: (3, 7), -2: (3, 7)}[axis]
     vals = rand_ints(4, 21, p)
+    for k in zeros:
+        vals[k] = 0
     ctx = LimbContext(params, device="cpu")
     got = from_torch(ctx.mont_batch_inv(
         to_torch(vals).reshape(*shape, 8), axis=axis, max_scan=max_scan))

@@ -50,7 +50,7 @@ def test_solver_on_card_equals_solver_on_cpu(card, dyn_fraction):
     plan = plan_circuit(circuit)
     build.reset_launches()
     gpu = BatchSolver(plan).solve(inputs)
-    wanted = ("level", "mul", "pow", "dot") if dyn_fraction else ("level",)
+    wanted = ("level", "mul", "batch_inv", "dot") if dyn_fraction else ("level",)
     assert all(build.LAUNCHES[k] > 0 for k in wanted), build.LAUNCHES
     cpu = BatchSolver(plan, device="cpu").solve(inputs)
     assert torch.equal(gpu.panel.cpu(), cpu.panel)
@@ -66,9 +66,26 @@ def test_field_kernels_equal_plain_versions(card, params):
                            fk.mont_mul_plain(a, b, params, reduce))
     assert torch.equal(fk.mont_mul(a.to(card), b[5].to(card), params).cpu(),
                        fk.mont_mul_plain(a, b[5], params))
-    for exponent in (0, 12345, params.modulus - 2, (1 << 256) - 1):
+    for exponent in (0, 1, 2, 15, 16, 12345, params.modulus - 2, (1 << 256) - 1):
         assert torch.equal(fk.mont_pow(a[:70].to(card), exponent, params).cpu(),
                            fk.mont_pow_plain(a[:70], exponent, params))
+
+
+@pytest.mark.parametrize("params", [BN254_FR, BLS12_381_FR], ids=lambda p: p.name)
+def test_batch_inv_kernel_equals_plain_version(card, params):
+    """One lane a chunk of one column: zeros at a chunk's first and last row,
+    an all-zero chunk, p - 1, a ragged last chunk, G = 1 and 2, other axes."""
+    a = elements(70 * 12, params, 3).reshape(70, 12, 8)
+    a[16, 1] = a[31, 1] = a[69, 2] = 0
+    a[32:48, 3] = 0
+    a[:, 4] = a[0, 2]  # p - 1 down a column
+    for axis, x in ((0, a), (1, a.transpose(0, 1)), (-2, a.permute(1, 0, 2))):
+        for max_scan in (16, 7, 70, 1):
+            got = fk.mont_batch_inv(x.to(card), params, axis, max_scan)
+            assert torch.equal(got.cpu(), fk.mont_batch_inv_plain(x, params, axis, max_scan))
+    for G in (1, 2):
+        assert torch.equal(fk.mont_batch_inv(a[:G].to(card), params, 0, 16).cpu(),
+                           fk.mont_batch_inv_plain(a[:G], params, 0, 16))
 
 
 @pytest.mark.parametrize("t1,t2,with_scale", [(1, 0, False), (0, 1, True), (3, 2, True), (19, 0, False)])
