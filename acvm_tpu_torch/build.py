@@ -24,7 +24,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv")
+KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
+           "divmod")
 PROBES = ("imad_rate", "mont_probe")
 HEADERS = ("field.cuh", "ec.cuh", "pow.cuh")
 NVCC_FLAGS = [
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "pt_ladder": ("acvm_pt_ladder", [_P, _LL, _LL, _P, _P, _LL, _LL, _LL, _P, _P]),
     # a, out, rows G, columns L, rows a chunk, schedule words, field, stream.
     "batch_inv": ("acvm_batch_inv", [_P, _P, _LL, _LL, _I, _P, _P, _P]),
+    # a, b, q, r, elements, bits of a to read, stream.
+    "divmod": ("acvm_divmod", [_P, _P, _P, _P, _LL, _I, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain

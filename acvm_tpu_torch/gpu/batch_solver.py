@@ -16,13 +16,18 @@ gather their operands and run the expression-dot, multiply and power kernels;
 the Grumpkin gadgets (fixed-base scalar multiplication, Pedersen commitments,
 Schnorr verification) gather their scalars and bytes and run the MSM tree and
 the variable-base ladder over the fused point-addition kernel
-(:mod:`acvm_tpu_torch.gpu.ec`).  PyTorch runs eagerly, so a solve is a Python
-loop over the plan's levels.
+(:mod:`acvm_tpu_torch.gpu.ec`).  Range checks, AND/XOR and the radix digits
+of a power-of-two ToLeRadix are masks and shifts over the gathered limbs;
+the Quotient directive divides with the ``divmod`` kernel
+(:func:`acvm_tpu_torch.gpu.intops.long_divmod`); recursive-aggregation outputs
+are zeroed.  PyTorch runs eagerly, so a solve is a Python loop over the plan's
+levels.
 
-Anything else a plan can hold — range and logic gates, directives, hashes,
-ECDSA, memory blocks, Brillig, host stages — and every ingest form or scaling
-option not listed in :meth:`BatchSolver.solve` raises ``NotImplementedError``
-naming what is missing, at construction where it can be known then.
+Anything else a plan can hold — hashes, ECDSA, memory blocks, Brillig, host
+stages (among them a ToLeRadix of another radix and PermutationSort) — and
+every ingest form or scaling option not listed in :meth:`BatchSolver.solve`
+raises ``NotImplementedError`` naming what is missing, at construction where
+it can be known then.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..acir.witness import Witness, WitnessMap
 from ..convert import limbs32_to_limbs16
@@ -46,10 +52,11 @@ from ..fields.kernels import (
     mont_dot,
     mont_dot_v1,
     mont_mul_v1,
+    wrap_i32,
 )
 from ..fields.params import BN254_FR
 from ..fields.torch_ops import LimbContext, geq
-from . import ec
+from . import ec, intops
 from .fused_level import fused_level_call, pack_level_desc
 from .planner import ExprPlan, Level, Plan
 
@@ -62,13 +69,8 @@ FAIL_NONE = np.int32(2**31 - 1)
 
 # Level fields this slice does not run yet, with what each one waits for.
 _UNPORTED_LEVEL_FIELDS = {
-    "range_checks": "range checks",
-    "logic": "AND/XOR gates",
-    "quotient": "quotient directives",
-    "to_le_radix": "to-le-radix directives",
     "hashes": "hash gadgets",
     "ecdsa": "ECDSA verification",
-    "zero_out": "recursive-aggregation outputs",
     "memory": "memory blocks",
     "brillig": "Brillig blocks",
     "host": "host stages",
@@ -127,6 +129,17 @@ def pack_exprs(exprs: List[ExprPlan]) -> Dict[str, np.ndarray]:
         mul_coeff=ints_to_limbs32(mul_c.reshape(-1)).reshape(E, m, LIMBS),
         qc=ints_to_limbs32(e.qc for e in exprs).reshape(E, LIMBS),
     )
+
+
+def _range_zero_mask(num_bits: int) -> np.ndarray:
+    """Bits that must be zero for a value < 2^num_bits, as (8,) int32 limb
+    masks (uint32 bit patterns: 0xFFFFFFFF is -1)."""
+    return int_to_limbs32(((1 << 256) - 1) ^ ((1 << min(num_bits, 256)) - 1))
+
+
+def _allow_mask(num_bits: int) -> np.ndarray:
+    """Bits below 2^num_bits, as (8,) int32 limb masks."""
+    return ~_range_zero_mask(num_bits)
 
 
 def _pack_to_device(pack: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -234,6 +247,59 @@ def run_arith_check(ctx, W, ok, fail, buf, dot_kernel="v2"):
     bad = ~ctx.is_zero(val)
     fail = note_failures(fail, bad, buf["op_idx"])
     return W, ok & ~bad.any(dim=0), fail
+
+
+def run_range(ctx, W, ok, fail, buf):
+    vals = W.index_select(0, buf["w_idx"])  # (G, B, 8)
+    bad = ((vals & buf["zero_mask"][:, None, :]) != 0).any(dim=-1)  # (G, B)
+    fail = note_failures(fail, bad, buf["op_idx"])
+    return W, ok & ~bad.any(dim=0), fail
+
+
+def run_logic(ctx, W, ok, buf, is_xor):
+    a = W.index_select(0, buf["lhs"])
+    b = W.index_select(0, buf["rhs"])
+    res = ((a ^ b) if is_xor else (a & b)) & buf["allow_mask"][:, None, :]
+    if buf["reduce"]:
+        # XOR of two values below 2^num_bits reaches p where 2^num_bits > p;
+        # the sequential engine reduces it (FieldElement), so reduce once.
+        res = torch.where(geq(res, ctx.p_limbs)[..., None], intops.int_sub(res, ctx.p_limbs), res)
+    W.index_copy_(0, buf["out"], res)
+    return W, ok
+
+
+def run_quotient(ctx, W, ok, buf, dot_kernel="v2"):
+    a = eval_exprs(ctx, W, buf["a"], dot_kernel=dot_kernel)  # (G, B, 8)
+    b = eval_exprs(ctx, W, buf["b"], dot_kernel=dot_kernel)
+    q, r = intops.long_divmod(a, b, num_bits=256)  # b = 0 gives q = r = 0
+    active = ~ctx.is_zero(eval_exprs(ctx, W, buf["pred"], dot_kernel=dot_kernel))[..., None]
+    q = torch.where(active, q, torch.zeros_like(q))
+    r = torch.where(active, r, torch.zeros_like(r))
+    W.index_copy_(0, buf["q_idx"], q)
+    W.index_copy_(0, buf["r_idx"], r)
+    return W, ok
+
+
+def run_to_le_radix(ctx, W, ok, fail, buf, dot_kernel="v2"):
+    vals = eval_exprs(ctx, W, buf["value"], dot_kernel=dot_kernel)  # (G, B, 8)
+    # Capacity check: the value must fit the digits it is given
+    # (directives/mod.rs:67-71).  The digits are written either way.
+    bad = ((vals & buf["overflow_mask"][:, None, :]) != 0).any(dim=-1)  # (G, B)
+    fail = note_failures(fail, bad, buf["op_idx"])
+    ok = ok & ~bad.any(dim=0)
+    # Digit d is bits [off, off + k) of the 64-bit word made of limbs d_limb and
+    # d_limb + 1 (k <= 32, off <= 31), in int64 from the unsigned limbs; two
+    # zero limbs past the top stand for the bits at or past 2^256.  Only the
+    # word's bits below 63 are read, so its high limb keeps 31 bits and the
+    # word stays positive.
+    u = F.pad(vals.to(torch.int64) & 0xFFFFFFFF, (0, 2))  # (G, B, 10)
+    lo = u[buf["d_gate"], :, buf["d_limb"]]  # (D, B)
+    hi = u[buf["d_gate"], :, buf["d_limb"] + 1] & 0x7FFFFFFF
+    digits = ((lo | (hi << 32)) >> buf["d_bitoff"][:, None]) & buf["d_mask"][:, None]
+    out = torch.zeros(digits.shape + (LIMBS,), dtype=torch.int32, device=W.device)
+    out[..., 0] = wrap_i32(digits)
+    W.index_copy_(0, buf["out_idx"], out)
+    return W, ok, fail
 
 
 def run_ec_fixed_base(ctx, W, ok, fail, buf):
@@ -354,6 +420,9 @@ class BatchSolver:
         def idx_tensor(values, dtype):
             return torch.tensor(list(values), dtype=dtype, device=dev)
 
+        def limb_rows(rows):  # (8,) int32 masks -> a (G, 8) tensor
+            return torch.from_numpy(np.stack(list(rows))).to(dev)
+
         static_gates = [g for g in level.arith_solve if g.neg_inv_den_r is not None]
         dyn_gates = [g for g in level.arith_solve if g.neg_inv_den_r is None]
         if static_gates:
@@ -413,6 +482,66 @@ class BatchSolver:
                     (g.opcode_index for g in level.arith_check), torch.int32
                 ),
             )
+        if level.range_checks:
+            gates = level.range_checks
+            packed["kinds"].append("range")
+            packed["range"] = dict(
+                w_idx=idx_tensor((g.witness for g in gates), torch.int64),
+                zero_mask=limb_rows(_range_zero_mask(g.num_bits) for g in gates),
+                op_idx=idx_tensor((g.opcode_index for g in gates), torch.int32),
+            )
+        p_bits = self.plan.params.modulus.bit_length()
+        for is_xor, name in ((False, "and"), (True, "xor")):
+            gates = [g for g in level.logic if g.is_xor == is_xor]
+            if gates:
+                packed["kinds"].append(name)
+                packed[name] = dict(
+                    lhs=idx_tensor((g.lhs for g in gates), torch.int64),
+                    rhs=idx_tensor((g.rhs for g in gates), torch.int64),
+                    out=idx_tensor((g.output for g in gates), torch.int64),
+                    allow_mask=limb_rows(_allow_mask(g.num_bits) for g in gates),
+                    reduce=is_xor and max(g.num_bits for g in gates) >= p_bits,
+                )
+        if level.quotient:
+            gates = level.quotient
+            packed["kinds"].append("quotient")
+            one = ExprPlan([], [], [], [], 1)  # a missing predicate is 1
+            packed["quotient"] = dict(
+                a=_pack_to_device(pack_exprs([g.a for g in gates]), dev),
+                b=_pack_to_device(pack_exprs([g.b for g in gates]), dev),
+                pred=_pack_to_device(pack_exprs([g.predicate or one for g in gates]), dev),
+                q_idx=idx_tensor((g.q for g in gates), torch.int64),
+                r_idx=idx_tensor((g.r for g in gates), torch.int64),
+            )
+        if level.to_le_radix:
+            gates = level.to_le_radix
+            packed["kinds"].append("to_le_radix")
+            d_gate, d_limb, d_bitoff, d_mask, out_idx, overflow = [], [], [], [], [], []
+            for gi, g in enumerate(gates):
+                bits = g.radix.bit_length() - 1
+                if bits > 32:
+                    raise NotImplementedError(
+                        f"BatchSolver: to-le-radix with radix 2^{bits}: digits of "
+                        "more than 32 bits are not ported (ACIR's radix is a u32)"
+                    )
+                for di, w in enumerate(g.outputs):
+                    shift = di * bits
+                    d_gate.append(gi)
+                    d_limb.append(min(shift // 32, LIMBS))  # LIMBS: a zero limb
+                    d_bitoff.append(shift % 32)
+                    d_mask.append(g.radix - 1)
+                    out_idx.append(w)
+                overflow.append(_range_zero_mask(bits * len(g.outputs)))
+            packed["to_le_radix"] = dict(
+                value=_pack_to_device(pack_exprs([g.a for g in gates]), dev),
+                op_idx=idx_tensor((g.opcode_index for g in gates), torch.int32),
+                d_gate=idx_tensor(d_gate, torch.int64),
+                d_limb=idx_tensor(d_limb, torch.int64),
+                d_bitoff=idx_tensor(d_bitoff, torch.int64),
+                d_mask=idx_tensor(d_mask, torch.int64),
+                out_idx=idx_tensor(out_idx, torch.int64),
+                overflow_mask=limb_rows(overflow),
+            )
         if level.ec_fixed_base or level.ec_pedersen or level.schnorr:
             if self.plan.params != BN254_FR:
                 raise NotImplementedError(
@@ -460,6 +589,9 @@ class BatchSolver:
                 )
                 for gates in groups.values()
             ]
+        if level.zero_out:
+            packed["kinds"].append("zero_out")
+            packed["zero_out"] = idx_tensor(level.zero_out, torch.int64)
         return packed
 
     def _pedersen_tables(self, domain: int, count: int) -> torch.Tensor:
@@ -508,6 +640,14 @@ class BatchSolver:
                 W, ok, fail = run_arith_solve_dyn(ctx, W, ok, fail, packed[kind], self.dot_kernel)
             elif kind == "arith_check":
                 W, ok, fail = run_arith_check(ctx, W, ok, fail, packed[kind], self.dot_kernel)
+            elif kind == "range":
+                W, ok, fail = run_range(ctx, W, ok, fail, packed[kind])
+            elif kind in ("and", "xor"):
+                W, ok = run_logic(ctx, W, ok, packed[kind], kind == "xor")
+            elif kind == "quotient":
+                W, ok = run_quotient(ctx, W, ok, packed[kind], self.dot_kernel)
+            elif kind == "to_le_radix":
+                W, ok, fail = run_to_le_radix(ctx, W, ok, fail, packed[kind], self.dot_kernel)
             elif kind == "ec_fixed_base":
                 W, ok, fail = run_ec_fixed_base(ctx, W, ok, fail, packed[kind])
             elif kind == "ec_pedersen":
@@ -516,6 +656,8 @@ class BatchSolver:
             elif kind == "schnorr":
                 for group_buf in packed[kind]:
                     W, ok = run_schnorr(ctx, W, ok, group_buf)
+            elif kind == "zero_out":
+                W.index_fill_(0, packed[kind], 0)
             else:
                 raise AssertionError(kind)
         return W, ok, fail

@@ -5,7 +5,9 @@ All ops are elementwise over leading batch dims with a trailing axis of 8
 ``int32`` limbs (uint32 bit patterns), on either device.  They are plain
 tensor ops (the JAX package has no kernel for them either): each splits its
 operands into 16-bit half-limbs held in int64, where sums, borrows and
-products have headroom, and joins the result back.
+products have headroom, and joins the result back.  The one exception is
+:func:`long_divmod`, a scan of up to 256 dependent steps, which is the
+hand-written ``divmod`` kernel on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..fields.kernels import HALF, M16, carry_half, join_half, split_half, sub_half
+from .. import build
+from ..fields.kernels import HALF, LIMBS, M16, carry_half, join_half, split_half, sub_half
 from ..fields.torch_ops import geq
 
 BITS = 16  # bits per half-limb
@@ -123,14 +126,19 @@ def shr_dynamic(a: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return join_half((gathered >> bit) | ((carry << (BITS - bit)) & M16))
 
 
-def long_divmod(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
-    """Euclidean (q, r) of full-width limb integers via bit-serial long
-    division.  b == 0 yields (0, 0), matching the reference Quotient directive.
+# Calls of the plain division on CUDA tensors (the comparisons of
+# ``chip_smoke.py``); a solve on the card leaves it unchanged.
+PLAIN_ON_CARD = {"long_divmod": 0}
 
-    ``num_bits`` bounds the dividend's bit width; smaller static bounds
-    shorten the loop.
-    """
+
+def long_divmod_plain(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
+    """Plain version of :func:`long_divmod`: bit-serial restoring division,
+    one step of tensor ops for each of the ``num_bits`` bits of a, from the
+    top.  Doubling the remainder never leaves 256 bits: before the last step
+    it is at most a >> 1."""
     a, b = torch.broadcast_tensors(a, b)
+    if a.is_cuda:
+        PLAIN_ON_CARD["long_divmod"] += 1
     ha = split_half(a)
     b_zero = is_zero(b)
     q = torch.zeros_like(ha)
@@ -147,3 +155,31 @@ def long_divmod(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
     zero = torch.zeros_like(r)
     q32 = join_half(q)
     return torch.where(b_zero[..., None], zero, q32), torch.where(b_zero[..., None], zero, r)
+
+
+def long_divmod(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
+    """Euclidean (q, r) of full-width limb integers (broadcasts); only the
+    bits of a below ``num_bits`` are read.  b == 0 yields (0, 0), matching the
+    reference Quotient directive.
+
+    CUDA tensors: one ``divmod`` launch (``csrc/divmod.cu``: a thread an
+    element, restoring division in registers from the dividend's highest set
+    bit) or an error.  CPU tensors: :func:`long_divmod_plain`.  Both give the
+    same bits.
+    """
+    for t, name in ((a, "a"), (b, "b")):
+        if t.dtype != torch.int32 or t.shape[-1] != LIMBS:
+            raise TypeError(f"long_divmod {name}: expected (..., {LIMBS}) int32 limbs, "
+                            f"got {tuple(t.shape)} {t.dtype}")
+    if not 0 <= num_bits <= 256:
+        raise ValueError("long_divmod: num_bits must lie in [0, 256]")
+    if not a.is_cuda:
+        return long_divmod_plain(a, b, num_bits)
+    a, b = (t.contiguous() for t in torch.broadcast_tensors(a, b))
+    q = torch.empty_like(a)
+    r = torch.empty_like(a)
+    n = a.numel() // LIMBS
+    if n:
+        build.launch("divmod", a.data_ptr(), b.data_ptr(), q.data_ptr(), r.data_ptr(), n,
+                     num_bits, torch.cuda.current_stream(a.device).cuda_stream)
+    return q, r

@@ -11,6 +11,7 @@ the quadratic path).
 from __future__ import annotations
 
 import random
+from types import SimpleNamespace
 from typing import Dict, List
 
 from ..acir import Circuit, Expression, Witness
@@ -115,6 +116,157 @@ def random_inputs(
     return [
         {w: rng.randrange(p) for w in witnesses} for _ in range(batch)
     ]
+
+
+# The classes the builders below take by default; another package whose ACIR
+# classes have the same names passes its own namespace as ``lib``.
+PORT_CLASSES = SimpleNamespace(Circuit=Circuit, Expression=Expression, Witness=Witness,
+                               FieldElement=FieldElement, opcodes=ops)
+
+
+def build_u32_circuit(
+    num_inputs: int = 128,
+    num_rounds: int = 8,
+    units_per_round: int = 1024,
+    seed: int = 1234,
+    lib=None,
+):
+    """The shape of compiled Noir ``u32`` code: rounds of units, each a
+    multiply-add, its wrap to 32 bits by a Quotient directive, the range checks
+    Noir emits, bitwise AND and XOR, and a byte decomposition.
+
+    The first ``num_inputs`` opcodes range-check the inputs to 32 bits.  Each
+    unit reads x and y, drawn by the seeded RNG from the previous round's
+    outputs z (round 0 reads the inputs), and emits 12 opcodes:
+
+    * ``s = x*y + y + k`` (k a seeded u32 constant);
+    * ``Quotient(s, 2^32)`` writing q and r, and the check ``s - 2^32 q - r = 0``;
+    * ``Range(r, 32)``, ``Range(q, 33)``;
+    * ``a = AND(r, x, 32)``, ``z = XOR(a, y, 32)``;
+    * ``ToLeRadix(z, 256)`` into 4 byte witnesses and ``Range(byte, 8)`` on each.
+
+    ``lib`` holds the classes to build with (attributes ``Circuit``,
+    ``Expression``, ``Witness``, ``FieldElement`` and ``opcodes``); by default
+    this package's, so that a test can build the same circuit from another
+    package whose classes have the same names.  The defaults give 98,432
+    opcodes over 73,856 witnesses.
+    """
+    lib = lib or PORT_CLASSES
+    o, fe, W = lib.opcodes, lib.FieldElement, lib.Witness
+    rng = random.Random(seed)
+    opcodes = []
+    next_witness = num_inputs + 1
+
+    def fresh():
+        nonlocal next_witness
+        next_witness += 1
+        return W(next_witness - 1)
+
+    def range_check(w, bits):
+        return o.OpcodeBlackBoxFuncCall(o.BBRange(o.FunctionInput(w, bits)))
+
+    def lin(*terms, q_c=0):
+        return lib.Expression(linear_combinations=[(fe(c), w) for c, w in terms], q_c=fe(q_c))
+
+    inputs = [W(i + 1) for i in range(num_inputs)]
+    opcodes.extend(range_check(w, 32) for w in inputs)
+    sources = inputs
+    for _ in range(num_rounds):
+        outputs = []
+        for _ in range(units_per_round):
+            x = sources[rng.randrange(len(sources))]
+            y = sources[rng.randrange(len(sources))]
+            k = rng.randrange(1 << 32)
+            s, q, r, a, z = fresh(), fresh(), fresh(), fresh(), fresh()
+            digits = [fresh() for _ in range(4)]
+            opcodes.append(o.OpcodeArithmetic(lib.Expression(
+                mul_terms=[(fe(1), min(x, y), max(x, y))],
+                linear_combinations=[(fe(1), y), (-fe(1), s)],
+                q_c=fe(k),
+            )))
+            opcodes.append(o.OpcodeDirective(o.DirQuotient(o.QuotientDirective(
+                a=lin((1, s)), b=lin(q_c=1 << 32), q=q, r=r, predicate=None))))
+            opcodes.append(o.OpcodeArithmetic(lin((1, s), (-(1 << 32), q), (-1, r))))
+            opcodes.append(range_check(r, 32))
+            opcodes.append(range_check(q, 33))
+            opcodes.append(o.OpcodeBlackBoxFuncCall(
+                o.BBAnd(o.FunctionInput(r, 32), o.FunctionInput(x, 32), a)))
+            opcodes.append(o.OpcodeBlackBoxFuncCall(
+                o.BBXor(o.FunctionInput(a, 32), o.FunctionInput(y, 32), z)))
+            opcodes.append(o.OpcodeDirective(o.DirToLeRadix(lin((1, z)), digits, 256)))
+            opcodes.extend(range_check(d, 8) for d in digits)
+            outputs.append(z)
+        sources = outputs
+    return lib.Circuit(
+        current_witness_index=next_witness - 1,
+        opcodes=opcodes,
+        private_parameters=set(inputs),
+    )
+
+
+def u32_inputs(circuit, batch: int, seed: int = 99) -> List[Dict[int, int]]:
+    """Seeded u32 values for every input of :func:`build_u32_circuit`."""
+    rng = random.Random(seed)
+    witnesses = sorted(int(w) for w in circuit.circuit_arguments())
+    return [{w: rng.randrange(1 << 32) for w in witnesses} for _ in range(batch)]
+
+
+def build_quotient_circuit(lib=None):
+    """Two Quotient directives over private inputs w1, w2, w3: w1 / w2 into
+    (w4, w5) with no predicate, and (w1 w2 + 3 w1 + 7) / (w2 + 1) into
+    (w6, w7) under the predicate w3.  ``lib`` as in :func:`build_u32_circuit`."""
+    lib = lib or PORT_CLASSES
+    o, fe, w = lib.opcodes, lib.FieldElement, lib.Witness
+
+    def lin(*terms, q_c=0):
+        return lib.Expression(linear_combinations=[(fe(c), w(i)) for c, i in terms], q_c=fe(q_c))
+
+    compound = lib.Expression(mul_terms=[(fe(1), w(1), w(2))],
+                              linear_combinations=[(fe(3), w(1))], q_c=fe(7))
+    return lib.Circuit(
+        current_witness_index=7,
+        opcodes=[
+            o.OpcodeDirective(o.DirQuotient(o.QuotientDirective(
+                a=lin((1, 1)), b=lin((1, 2)), q=w(4), r=w(5), predicate=None))),
+            o.OpcodeDirective(o.DirQuotient(o.QuotientDirective(
+                a=compound, b=lin((1, 2), q_c=1), q=w(6), r=w(7), predicate=lin((1, 3))))),
+        ],
+        private_parameters={w(1), w(2), w(3)},
+    )
+
+
+def quotient_edge_inputs(modulus: int) -> List[Dict[int, int]]:
+    """Inputs (w1, w2, w3) of :func:`build_quotient_circuit` at its edges:
+    b = 0, predicate 0, a < b, a = p - 1, the divisor 2^32, b + 1 = p."""
+    cases = [
+        (modulus - 1, 2, 1), (5, 0, 1), (3, 7, 0), (modulus - 1, modulus - 1, 1),
+        (12345678901234567890, 1 << 32, 5), (1 << 200, 3, modulus - 1), (0, 9, 1),
+        (7, modulus - 1, 1),
+    ]
+    return [{1: a, 2: b, 3: c} for a, b, c in cases]
+
+
+def divmod_edge_operands(modulus: int, seed: int = 5):
+    """Dividends and divisors (two lists of ints < 2^256) at the edges of a
+    256-bit division: a < b, a = b, b = 0, b = 1, a = p - 1, a = 2^256 - 1,
+    b = 2^255 and above it, the Quotient's divisor 2^32, and for each k in
+    1..256 a dividend of exactly k significant bits over a divisor of
+    k // 2 + 1 bits."""
+    rng = random.Random(seed)
+    top = (1 << 256) - 1
+    x = rng.randrange(1 << 200)
+    pairs = [
+        (5, 7), (x, x << 40), (x, x), (modulus - 1, modulus - 1), (x, 0), (0, 0), (x, 1),
+        (top, 1), (modulus - 1, 2), (modulus - 1, 1 << 32), (modulus - 1, 3), (top, 1 << 255),
+        (top, 3), (top, top), (x, 1 << 255), (top, (1 << 255) + 1), (top - 1, top),
+        (rng.randrange(1 << 255, 1 << 256), rng.randrange(1 << 255, 1 << 256)),
+        ((1 << 65) - 1, 1 << 32), (0, 9),
+    ]
+    for k in range(1, 257):
+        a = rng.randrange(1 << (k - 1), 1 << k)
+        d = k // 2 + 1
+        pairs.append((a, rng.randrange(1 << (d - 1), 1 << d)))
+    return [a for a, _ in pairs], [b for _, b in pairs]
 
 
 def build_gadget_circuit(

@@ -43,13 +43,21 @@ build, a failed launch or a failed comparison raises and the exit code is not
                messages); outputs of two instances against the host curve code,
                forged signatures and off-curve keys, out-of-range scalars; one
                ``pt_ladder`` launch a Schnorr gadget level;
-8. ``kernels`` every kernel against its plain PyTorch version at the main
+8. ``path_int``  the u32 circuit (8 rounds x 1,024 units: multiply-add,
+               Quotient by 2^32, its check, Range, AND, XOR, ToLeRadix into
+               bytes; 98,432 opcodes) over 1,024 instances, one of them failing
+               an input's Range: flags, first-failure indices and three full
+               witness maps against the evaluator, one ``divmod`` launch a
+               Quotient level and no plain division on the card, ``divmod``
+               against its plain version on a Quotient level and an edge set,
+               timed solves;
+9. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel;
-9. the raw ``nvidia-smi`` name and power limit;
-10. ``{"ok": true, "device": {...}}``.
+10. the raw ``nvidia-smi`` name and power limit;
+11. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -73,12 +81,53 @@ def emit(obj) -> None:
 
 
 def evaluate(circuit, inputs, p):
-    """Sequential Python-int solve of an arithmetic-only circuit: walk the
-    opcodes in order and solve the one unknown of each.  Returns the witness
+    """Sequential Python-int solve: walk the opcodes in order.  An arithmetic
+    gate solves its one unknown or checks; Range, AND, XOR, Quotient and
+    ToLeRadix follow the sequential engine's rules (a Range fails above its
+    bits, AND/XOR mask both operands to their bits, a zero divisor or
+    predicate gives q = r = 0, a radix value that does not fit its digits
+    fails), and every later opcode is still evaluated, as the batched levels
+    do (a ToLeRadix that fails writes its low digits).  Returns the witness
     dict and the index of the first opcode that cannot be satisfied (None)."""
+    from acvm_tpu_torch.acir import opcodes as ops
+
     w = dict(inputs)
     failed = None
+
+    def value(e):  # an expression over known witnesses
+        v = e.q_c.value + sum(c.value * w[int(x)] for c, x in e.linear_combinations)
+        return (v + sum(c.value * w[int(a)] * w[int(b)] for c, a, b in e.mul_terms)) % p
+
     for index, op in enumerate(circuit.opcodes):
+        bad = False
+        if isinstance(op, ops.OpcodeBlackBoxFuncCall):
+            call = op.call
+            if isinstance(call, ops.BBRange):
+                bad = w[int(call.input.witness)].bit_length() > call.input.num_bits
+            elif isinstance(call, (ops.BBAnd, ops.BBXor)):
+                m = (1 << call.lhs.num_bits) - 1
+                x, y = w[int(call.lhs.witness)] & m, w[int(call.rhs.witness)] & m
+                w[int(call.output)] = (x & y if isinstance(call, ops.BBAnd) else x ^ y) % p
+            else:
+                raise NotImplementedError(type(call).__name__)
+        elif isinstance(op, ops.OpcodeDirective):
+            d = op.directive
+            if isinstance(d, ops.DirQuotient):
+                qd = d.quotient
+                a, b = value(qd.a), value(qd.b)
+                pred = 1 if qd.predicate is None else value(qd.predicate)
+                w[int(qd.q)], w[int(qd.r)] = divmod(a, b) if pred and b else (0, 0)
+            elif isinstance(d, ops.DirToLeRadix):
+                v = value(d.a)
+                bad = v >= d.radix ** len(d.b)
+                for i, x in enumerate(d.b):
+                    w[int(x)] = v // d.radix ** i % d.radix
+            else:
+                raise NotImplementedError(type(d).__name__)
+        if bad and failed is None:
+            failed = index
+        if not isinstance(op, ops.OpcodeArithmetic):
+            continue
         e = op.expr
         num, den, unknown = e.q_c.value, 0, None
         for c, x in e.linear_combinations:
@@ -127,9 +176,11 @@ def main() -> int:
     from acvm_tpu_torch.blackbox import grumpkin as host_gk
     from acvm_tpu_torch.gpu import ec, ec_fused
     from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import intops
     from acvm_tpu_torch.utils import (
-        build_gadget_circuit, build_wide_arith_circuit, columnar_instance,
-        gadget_inputs_columnar, random_inputs, with_repeated_constraints,
+        build_gadget_circuit, build_u32_circuit, build_wide_arith_circuit, columnar_instance,
+        divmod_edge_operands, gadget_inputs_columnar, random_inputs, u32_inputs,
+        with_repeated_constraints,
     )
     from acvm_tpu_torch.utils.ec_points import exceptional_panel
 
@@ -1036,9 +1087,108 @@ def main() -> int:
                       "forged_signatures": {"batch": 128, "false_at": {"gadget 0": [3, 100], "gadget 1": [7]}, "ok": True},
                       "invalid_scalars": {"batch": 64, "fail": {"5": 1, "9": 2}, "outputs_zeroed": True}}})
 
-    # -- 8. kernels, 9. card, 10. verdict -------------------------------------------
+    # -- 8. path_int ------------------------------------------------------------------
+    # The u32 circuit (8 rounds x 1,024 units, 98,432 opcodes) over 1,024
+    # instances; input witness 6 of instance 3 is 2^32 + 5, which fails its
+    # Range opcode (index 5).  The Quotient levels divide with the divmod
+    # kernel, once a level, and the plain division never runs on the card.
+    int_B, rounds, bad_b, bad_w = 1024, 8, 3, 6
+    circuit = build_u32_circuit(num_rounds=rounds, units_per_round=1024, seed=1234)
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    inputs = u32_inputs(circuit, int_B)
+    inputs[bad_b][bad_w] = (1 << 32) + 5
+    build.reset_launches()
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    res = solver.solve(inputs)
+    torch.cuda.synchronize()
+    int_launches = dict(build.LAUNCHES)
+    plain_on_card = intops.PLAIN_ON_CARD["long_divmod"]
+    quotient_levels = [lv["quotient"] for seg in solver.segments for lv in seg.levels
+                       if "quotient" in lv["kinds"]]
+    assert len(quotient_levels) == rounds and int_launches["divmod"] == rounds, int_launches
+    assert plain_on_card == 0, plain_on_card
+    for name in ("level", "dot"):
+        assert int_launches[name] > 0, int_launches
+    want_fail = [int(FAIL_NONE)] * int_B
+    want_fail[bad_b] = bad_w - 1
+    assert res.fail.tolist() == want_fail and res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+    for b in (0, bad_b, int_B - 1):
+        want, failed = evaluate(circuit, inputs[b], P)
+        assert failed == (bad_w - 1 if b == bad_b else None), (b, failed)
+        got = res.instance_ints(b)
+        assert len(want) == circuit.num_vars() - 1
+        bad = [k for k, v in want.items() if got[k] != v]
+        assert not bad, f"u32 instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
+    opcodes = len(circuit.opcodes)
+
+    # divmod against its plain version: a quotient level's operands (1,024
+    # gates x 1,024 instances), then the edge set at 256 and 64 bits, against
+    # Python ints too.
+    from acvm_tpu_torch.gpu.batch_solver import eval_exprs
+
+    qa = eval_exprs(solver.ctx, res.panel, quotient_levels[0]["a"])
+    qb = eval_exprs(solver.ctx, res.panel, quotient_levels[0]["b"])
+    build.reset_launches()
+    got_q, got_r = intops.long_divmod(qa, qb)
+    want_q, want_r = intops.long_divmod_plain(qa, qb)
+    torch.cuda.synchronize()
+    errs = [max_abs_err(got_q, want_q), max_abs_err(got_r, want_r)]
+    ea, eb = divmod_edge_operands(P)
+    ta = torch.from_numpy(fk.ints_to_limbs32(ea).copy()).to(dev)
+    tb = torch.from_numpy(fk.ints_to_limbs32(eb).copy()).to(dev)
+    for bits in (256, 64):
+        q, r = intops.long_divmod(ta, tb, num_bits=bits)
+        pq, pr = intops.long_divmod_plain(ta, tb, num_bits=bits)
+        errs += [max_abs_err(q, pq), max_abs_err(r, pr)]
+        m = (1 << bits) - 1
+        ints = [divmod(x & m, y) if y else (0, 0) for x, y in zip(ea, eb)]
+        assert list(zip(fk.limbs32_to_ints(q.cpu().numpy()), fk.limbs32_to_ints(r.cpu().numpy()))) == ints
+    assert build.LAUNCHES["divmod"] == 3 and max(errs) == 0, (build.LAUNCHES["divmod"], errs)
+    # What the data needs: one restoring step for each significant bit of a
+    # dividend over a non-zero divisor.  The remainder stays below b, so a step
+    # spans only the w limbs of b: w to double the remainder, w to subtract,
+    # w to select, one to set the quotient bit (3w + 1 int32 operations).
+    # 128 bytes an element (a, b in; q, r out).
+    n_div = qa.numel() // 8
+    pairs = [(x.bit_length(), y.bit_length()) for x, y in zip(
+        fk.limbs32_to_ints(qa.cpu().numpy()), fk.limbs32_to_ints(qb.cpu().numpy())) if y]
+    steps = sum(na for na, _ in pairs)
+    step_ops = sum(na * (3 * -(-nb // 32) + 1) for na, nb in pairs)
+    b_ms, b_by = bound(128 * n_div, step_ops)
+    kernels["divmod"] = dict(
+        name="divmod", route="cuda", source="acvm_tpu_torch/csrc/divmod.cu",
+        replaces="acvm_tpu/tpu/intops.py:134",
+        shape=f"G={qa.shape[0]}, B={qa.shape[1]} (a quotient level of path_int), num_bits=256",
+        steps_per_element=steps / n_div, ops_per_element=step_ops / n_div, edge_cases=len(ea), max_abs_err=max(errs),
+        ms=time_ms(lambda: intops.long_divmod(qa, qb)),
+        ms_queued=time_ms(lambda: intops.long_divmod(qa, qb), calls=10),
+        plain_ms=time_ms(lambda: intops.long_divmod_plain(qa, qb), 3, warmup=0),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del qa, qb, got_q, got_r, want_q, want_r, res
+
+    state = solver.initial_state(inputs)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), opcodes * int_B)
+    rate_full, secs_full = timed_rate(lambda: solver.solve(inputs), opcodes * int_B, reps=3)
+    if want_profile:
+        emit({"profile_int": profile(device_solve_of(solver, state, torch), secs)})
+    emit({"path_int": {
+        "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": int_B,
+        "rounds": rounds, "units_per_round": 1024, "levels": len(solver.plan.levels),
+        "quotient_levels": len(quotient_levels), "ok": True,
+        "checked_instances": [0, bad_b, int_B - 1], "failing_instance": {"instance": bad_b, "fail": bad_w - 1},
+        "launches": int_launches, "plain_divmod_on_card": plain_on_card,
+        "plan_and_pack_seconds": plan_seconds,
+        "int_solves_per_sec": rate, "solve_seconds": secs,
+        "int_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+        "panel_bytes": solver.panel_bytes(int_B)}})
+    del state, solver
+    torch.cuda.empty_cache()
+
+    # -- 9. kernels, 10. card, 11. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
-             **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}}
+             **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]

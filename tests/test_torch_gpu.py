@@ -14,12 +14,17 @@ import torch
 from acvm_tpu_torch import build
 from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
-from acvm_tpu_torch.gpu import BatchSolver, plan_circuit
+from acvm_tpu_torch.gpu import BatchSolver, intops, plan_circuit
 from acvm_tpu_torch.utils import (
     build_gadget_circuit,
+    build_quotient_circuit,
+    build_u32_circuit,
     build_wide_arith_circuit,
+    divmod_edge_operands,
     gadget_inputs_columnar,
+    quotient_edge_inputs,
     random_inputs,
+    u32_inputs,
     with_repeated_constraints,
 )
 from acvm_tpu_torch.utils.ec_points import exceptional_panel, window_entry_panel
@@ -254,3 +259,44 @@ def test_dot_kernel_v1_route_on_card_equals_v2(card):
     assert build.LAUNCHES["dot_v1"] > 0 and build.LAUNCHES["mul_v1"] > 0
     assert build.LAUNCHES["dot"] == 0, build.LAUNCHES
     assert torch.equal(v1.panel, v2.panel) and np.array_equal(v1.fail, v2.fail)
+
+
+@pytest.mark.parametrize("num_bits", [256, 64])
+def test_divmod_kernel_equals_plain_version_and_ints(card, num_bits):
+    a, b = divmod_edge_operands(BN254_FR.modulus)
+    ta = torch.from_numpy(fk.ints_to_limbs32(a).copy()).to(card)
+    tb = torch.from_numpy(fk.ints_to_limbs32(b).copy()).to(card)
+    build.reset_launches()
+    q, r = intops.long_divmod(ta, tb, num_bits=num_bits)
+    assert build.LAUNCHES["divmod"] == 1
+    pq, pr = intops.long_divmod_plain(ta, tb, num_bits=num_bits)
+    assert torch.equal(q, pq) and torch.equal(r, pr)
+    m = (1 << num_bits) - 1
+    want = [divmod(x & m, y) if y else (0, 0) for x, y in zip(a, b)]
+    assert list(zip(fk.limbs32_to_ints(q.cpu().numpy()), fk.limbs32_to_ints(r.cpu().numpy()))) == want
+    # a broadcast divisor, as a Quotient level by a constant gives it
+    q2, r2 = intops.long_divmod(ta.reshape(-1, 1, 8), tb[:1])
+    assert torch.equal(q2, intops.long_divmod_plain(ta.reshape(-1, 1, 8), tb[:1])[0])
+
+
+def test_integer_solver_on_card_equals_solver_on_cpu(card):
+    circuit = build_u32_circuit(num_inputs=16, num_rounds=2, units_per_round=64)
+    inputs = u32_inputs(circuit, 100)
+    inputs[7][3] = (1 << 32) + 5  # fails its Range, opcode 2
+    plan = plan_circuit(circuit)
+    build.reset_launches()
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    gpu = BatchSolver(plan).solve(inputs)
+    assert build.LAUNCHES["divmod"] == 2 and intops.PLAIN_ON_CARD["long_divmod"] == 0
+    cpu = BatchSolver(plan, device="cpu").solve(inputs)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel)
+    assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    assert int(gpu.fail[7]) == 2 and gpu.ok.sum() == 99
+    # Quotient under a predicate, over compound expressions, at its edges
+    plan = plan_circuit(build_quotient_circuit())
+    inputs = quotient_edge_inputs(BN254_FR.modulus)
+    build.reset_launches()
+    gpu = BatchSolver(plan).solve(inputs)
+    assert build.LAUNCHES["divmod"] == 1 and intops.PLAIN_ON_CARD["long_divmod"] == 0
+    cpu = BatchSolver(plan, device="cpu").solve(inputs)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel) and gpu.ok.all() and cpu.ok.all()

@@ -301,13 +301,13 @@ def test_unsupported_opcode_kind_raises():
     circuit = Circuit(
         current_witness_index=2,
         opcodes=[
-            ops.OpcodeBlackBoxFuncCall(ops.BBRange(ops.FunctionInput(Witness(1), 8))),
+            ops.OpcodeMemoryInit(block_id=ops.BlockId(0), init=[Witness(1)]),
             ops.OpcodeArithmetic(Expression(
                 linear_combinations=[(FieldElement(1), Witness(1)), (-FieldElement(1), Witness(2))])),
         ],
         private_parameters={Witness(1)},
     )
-    with pytest.raises(NotImplementedError, match="range checks"):
+    with pytest.raises(NotImplementedError, match=r"memory blocks \(Level.memory\)"):
         BatchSolver(plan_circuit(circuit), device="cpu")
 
 
