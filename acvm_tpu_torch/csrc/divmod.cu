@@ -4,40 +4,102 @@
 //
 // Replaces the JAX package's `tpu/intops.py::long_divmod`, a `fori_loop` of
 // num_bits restoring-division steps over the whole panel that XLA runs as one
-// loop on the TPU; the port's eager copy of it is some 20 tensor ops a step,
-// 4,000-5,000 launches for a quotient level.  Here it is one launch.
+// loop on the TPU.  The port's plain version keeps that loop (some 20 tensor
+// ops a bit); this kernel does word-level long division instead, one thread an
+// element, in registers from load to store.
 //
-// One thread owns one element: a, b, the remainder and the quotient stay in
-// registers for the whole division.  A step doubles the remainder and brings
-// in the next bit of a (an add.cc chain; the remainder is at most a >> 1
-// before the last step, so nothing leaves the top), subtracts b (a sub.cc
-// chain), keeps the difference where it did not borrow, and shifts that
-// verdict into the quotient.  A thread starts at its dividend's highest set
-// bit: the steps above it leave remainder and quotient zero, so the bits are
-// the same and the Quotient directive's dividends below 2^65 take 65 steps,
-// not 256.
+// The algorithm is Knuth's Algorithm D (TAOCP vol. 2, 4.3.1) in base 2^32, as
+// Hacker's Delight's `divmnu` writes it.  With m and n the lengths of a and b
+// in 32-bit words: a shorter than b gives (0, a); b is shifted left until its
+// top bit is set (s = clz of its top word, a by the same s into a ninth
+// word), then each of the m - n + 1 quotient digits is estimated from the top
+// two words of the running remainder over b's top word, corrected by b's
+// second word (at most twice), multiplied back and subtracted over n + 1
+// words, and added back in the rare case the subtraction borrowed (about
+// 2 / 2^32 of random digits); n = 1 is one 2-by-1 division for each of a's
+// m words.  An equal length a < b needs no case of its own: its one digit
+// comes out 0.  Shifts
+// are funnel shifts (`shf`), so s = 0 needs no case either (C's x >> 32 is
+// undefined).
+//
+// Registers, not local memory: every array index is static.  The digit loop
+// is a template on n (one body for each n = 2..8, picked once per thread) and
+// runs over the fixed positions j = 8 - n .. 0, skipping those above m - n,
+// so u[j + i] names a register.  The card has no integer divider: a 2-by-1
+// division is C's 64-bit `/`, which nvcc makes a short software routine, one
+// call a digit.  A reciprocal of the divisor's top word made once a thread
+// (Moller and Granlund's 2-by-1 division) takes fewer instructions a digit
+// but measured slower at both timed shapes (PERF.md, row 10), and is not used.
 //
 // Bound: 128 bytes an element (a, b in; q, r out) against the operations the
-// data needs: a step for each bit of the dividend, and a step spans only the
-// w limbs of the divisor (the remainder stays below it): 3w + 1 int32
-// operations to double, subtract, select and set the quotient bit.  At the
-// Quotient's 65-bit dividends over 2^32 that is 7 a step, so the bytes bound
-// it.  This design runs all 8 limbs a step (~35 dependent instructions), so
-// it stays compute-shaped and well short of that bound (PERF.md, row 10); a
-// step cut to the divisor's limbs is what a faster version would do.  Every
-// step stays in registers, with no memory access between loads and stores.
+// data needs: per digit n multiply-adds and n + 1 subtractions for q^ b, and
+// 3 operations for the estimate (the least a 2-by-1 division takes: one full
+// and one low product by a reciprocal), 2n + 4 in all, plus the m + n + n
+// words shifted.  The Quotient's dividends (below 2^64 but for a few) over
+// 2^32 are one digit, 14 operations; 256-bit dividends over 128-bit divisors
+// 5 digits, 76: the bytes bound both (PERF.md, row 10).
 #include "field.cuh"
 
-__device__ __forceinline__ void divmod_step(uint32_t rem[ACVM_LIMBS], uint32_t quo[ACVM_LIMBS],
-                                            const uint32_t b[ACVM_LIMBS], uint32_t bit) {
-    add_limbs(rem, rem, rem);
-    rem[0] |= bit;
-    uint32_t d[ACVM_LIMBS];
-    const bool ge = sub_limbs(d, rem, b) == 0;  // 2 rem + bit >= b
+// (hi 2^32 + lo) / d for hi < d: the quotient word, and the remainder in r.
+__device__ __forceinline__ uint32_t div_2by1(uint32_t hi, uint32_t lo, uint32_t d, uint32_t& r) {
+    const uint32_t q = (uint32_t)((((uint64_t)hi << 32) | lo) / d);
+    r = lo - q * d;
+    return q;
+}
+
+// Algorithm D for a divisor v of N >= 2 words, normalised: u (a << s, 9
+// words, m of them before the shift) becomes the remainder << s, q the
+// quotient.
+template <int N>
+__device__ __forceinline__ void long_division(uint32_t u[ACVM_LIMBS + 1], const uint32_t v[ACVM_LIMBS],
+                                              int m, uint32_t q[ACVM_LIMBS]) {
+    const uint32_t d1 = v[N - 1], d0 = v[N - 2];
 #pragma unroll
-    for (int j = 0; j < ACVM_LIMBS; ++j) rem[j] = ge ? d[j] : rem[j];
-    add_limbs(quo, quo, quo);
-    quo[0] |= (uint32_t)ge;
+    for (int j = ACVM_LIMBS - N; j >= 0; --j) {
+        if (j > m - N) continue;  // the remainder's window is above a: digit 0
+        const uint32_t u2 = u[j + N], u1 = u[j + N - 1], u0 = u[j + N - 2];
+        // The estimate, u2 <= d1 always: u2 = d1 would give 2^32 or more.
+        uint32_t qhat, rhat;
+        bool rhat_wide;  // rhat >= 2^32: the test below cannot hold
+        if (u2 == d1) {
+            qhat = 0xFFFFFFFFu;
+            rhat = u1 + d1;
+            rhat_wide = rhat < d1;
+        } else {
+            qhat = div_2by1(u2, u1, d1, rhat);
+            rhat_wide = false;
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {  // qhat (d1 2^32 + d0) > u2 2^64 + u1 2^32 + u0
+            if (rhat_wide || (uint64_t)qhat * d0 <= (((uint64_t)rhat << 32) | u0)) break;
+            --qhat;
+            rhat += d1;
+            rhat_wide = rhat < d1;
+        }
+        // u[j .. j + N] -= qhat v: the product's high word and the borrow in one carry word.
+        uint32_t k = 0;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const uint64_t p = (uint64_t)qhat * v[i] + k;
+            const uint32_t w = u[j + i], lo = (uint32_t)p;
+            u[j + i] = w - lo;
+            k = (uint32_t)(p >> 32) + (w < lo ? 1u : 0u);
+        }
+        const uint32_t top = u[j + N];
+        u[j + N] = top - k;
+        if (top < k) {  // qhat was one too large: add v back
+            --qhat;
+            uint32_t c = 0;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                const uint64_t t = (uint64_t)u[j + i] + v[i] + c;
+                u[j + i] = (uint32_t)t;
+                c = (uint32_t)(t >> 32);
+            }
+            u[j + N] += c;
+        }
+        q[j] = qhat;
+    }
 }
 
 __global__ void divmod_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
@@ -46,27 +108,66 @@ __global__ void divmod_kernel(const uint32_t* __restrict__ a, const uint32_t* __
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     uint32_t x[ACVM_LIMBS], y[ACVM_LIMBS];
-    uint32_t rem[ACVM_LIMBS] = {0, 0, 0, 0, 0, 0, 0, 0};
     uint32_t quo[ACVM_LIMBS] = {0, 0, 0, 0, 0, 0, 0, 0};
     load_fe(x, a + i * ACVM_LIMBS);
     load_fe(y, b + i * ACVM_LIMBS);
+    int m = 0, len = 0;                       // words of a and of b
+    uint32_t ytop = 0;                        // b's top word
 #pragma unroll
-    for (int j = 0; j < ACVM_LIMBS; ++j) {  // the bits of a below num_bits
-        const int keep = num_bits - 32 * j;
+    for (int j = 0; j < ACVM_LIMBS; ++j) {
+        const int keep = num_bits - 32 * j;  // the bits of a below num_bits
         x[j] = keep >= 32 ? x[j] : (keep <= 0 ? 0u : x[j] & ((1u << keep) - 1u));
+        m = x[j] ? j + 1 : m;
+        len = y[j] ? j + 1 : len;
+        ytop = y[j] ? y[j] : ytop;
     }
-    if (!is_zero(y)) {
-        bool started = false;
+    if (len == 0 || m < len) {  // b = 0: (0, 0); a shorter than b: (0, a)
 #pragma unroll
-        for (int j = ACVM_LIMBS - 1; j >= 0; --j) {  // static limb index: x stays in registers
-            const uint32_t word = x[j];
-            int bit = started ? 31 : (word ? 31 - __clz(word) : -1);
-            started = started || word != 0;
-            for (; bit >= 0; --bit) divmod_step(rem, quo, y, (word >> bit) & 1u);
+        for (int j = 0; j < ACVM_LIMBS; ++j) x[j] = len ? x[j] : 0u;
+        store_fe(q + i * ACVM_LIMBS, quo);
+        store_fe(r + i * ACVM_LIMBS, x);
+        return;
+    }
+    const uint32_t s = __clz(ytop);
+    uint32_t u[ACVM_LIMBS + 1], v[ACVM_LIMBS];
+    u[ACVM_LIMBS] = __funnelshift_l(x[ACVM_LIMBS - 1], 0u, s);
+#pragma unroll
+    for (int j = ACVM_LIMBS - 1; j > 0; --j) {
+        u[j] = __funnelshift_l(x[j - 1], x[j], s);
+        v[j] = __funnelshift_l(y[j - 1], y[j], s);
+    }
+    u[0] = x[0] << s;
+    v[0] = y[0] << s;
+    if (len == 1) {  // one 2-by-1 division a word of a, from the top
+        // u[m] < 2^s <= v[0]: the remainder starts there, and its digit is 0.
+        uint32_t rem = m == ACVM_LIMBS ? u[ACVM_LIMBS] : 0u;
+#pragma unroll
+        for (int j = ACVM_LIMBS - 1; j >= 0; --j) {
+            if (j > m) continue;
+            if (j == m) {
+                rem = u[j];
+                continue;
+            }
+            quo[j] = div_2by1(rem, u[j], v[0], rem);
+        }
+#pragma unroll
+        for (int j = 1; j <= ACVM_LIMBS; ++j) u[j] = 0;
+        u[0] = rem;
+    } else {
+        switch (len) {
+            case 2: long_division<2>(u, v, m, quo); break;
+            case 3: long_division<3>(u, v, m, quo); break;
+            case 4: long_division<4>(u, v, m, quo); break;
+            case 5: long_division<5>(u, v, m, quo); break;
+            case 6: long_division<6>(u, v, m, quo); break;
+            case 7: long_division<7>(u, v, m, quo); break;
+            default: long_division<8>(u, v, m, quo); break;
         }
     }
+#pragma unroll
+    for (int j = 0; j < ACVM_LIMBS; ++j) x[j] = __funnelshift_r(u[j], u[j + 1], s);  // r = u >> s
     store_fe(q + i * ACVM_LIMBS, quo);
-    store_fe(r + i * ACVM_LIMBS, rem);
+    store_fe(r + i * ACVM_LIMBS, x);
 }
 
 extern "C" int acvm_divmod(const void* a, const void* b, void* q, void* r, long long n,

@@ -163,9 +163,8 @@ def long_divmod(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
     reference Quotient directive.
 
     CUDA tensors: one ``divmod`` launch (``csrc/divmod.cu``: a thread an
-    element, restoring division in registers from the dividend's highest set
-    bit) or an error.  CPU tensors: :func:`long_divmod_plain`.  Both give the
-    same bits.
+    element, word-level long division in base 2^32 in registers) or an error.
+    CPU tensors: :func:`long_divmod_plain`.  Both give the same bits.
     """
     for t, name in ((a, "a"), (b, "b")):
         if t.dtype != torch.int32 or t.shape[-1] != LIMBS:

@@ -246,12 +246,36 @@ def quotient_edge_inputs(modulus: int) -> List[Dict[int, int]]:
     return [{1: a, 2: b, 3: c} for a, b, c in cases]
 
 
+# Pairs (a, b) that reach the rare branches of word-level long division
+# (Knuth's Algorithm D in base 2^32), found once by searching dividends and
+# divisors of 2-5 words drawn from {0, 1, 2^31 - 1, 2^31, 2^32 - 1}: the
+# digit estimate at the limit 2^32 - 1, the estimate corrected once and
+# twice (over by one and by two), and the multiply-subtract that borrows and
+# adds the divisor back.
+DIVMOD_RARE_BRANCH_PAIRS = (
+    (1 << 64, 0x1_00000000_00000001),  # add back, a = b - 1
+    (1 << 96, 0x1_00000000_00000001),  # add back, a one word longer
+    (0x7FFFFFFF_80000000_00000000_00000000, 0x80000000_00000000_00000001),  # add back
+    (0x7FFFFFFF_00000000_00000000, 0x80000000_FFFFFFFF),  # corrected twice
+    (0xFFFFFFFF_00000000_00000000, 0x1_00000001_7FFFFFFF),  # corrected twice
+    (0x7FFFFFFF_00000000_00000000_00000000, 0x80000000_FFFFFFFF_00000000),  # corrected twice
+    (1 << 64, 0x1_00000001),  # estimate at its limit
+    (1 << 96, 0x1_00000001_00000000),  # estimate at its limit
+    (1 << 32, 0x1_00000001),  # corrected once, a = b - 1
+    (1 << 128, 0x1_00000001_00000000),  # corrected once
+)
+
+
 def divmod_edge_operands(modulus: int, seed: int = 5):
     """Dividends and divisors (two lists of ints < 2^256) at the edges of a
     256-bit division: a < b, a = b, b = 0, b = 1, a = p - 1, a = 2^256 - 1,
     b = 2^255 and above it, the Quotient's divisor 2^32, and for each k in
     1..256 a dividend of exactly k significant bits over a divisor of
-    k // 2 + 1 bits."""
+    k // 2 + 1 bits.  Then the edges of word-level division:
+    :data:`DIVMOD_RARE_BRANCH_PAIRS`; divisors whose top word needs a shift of
+    0 and of 31 bits to normalise, at 1, 2 and 8 words; a one below and one
+    above b; and :func:`divmod_word_grid`, three pairs for every pair of word
+    lengths."""
     rng = random.Random(seed)
     top = (1 << 256) - 1
     x = rng.randrange(1 << 200)
@@ -266,7 +290,29 @@ def divmod_edge_operands(modulus: int, seed: int = 5):
         a = rng.randrange(1 << (k - 1), 1 << k)
         d = k // 2 + 1
         pairs.append((a, rng.randrange(1 << (d - 1), 1 << d)))
-    return [a for a, _ in pairs], [b for _, b in pairs]
+    pairs += DIVMOD_RARE_BRANCH_PAIRS
+    for words in (1, 2, 8):  # divisors of `words` words, top word shifted by 0 and by 31
+        low = rng.randrange(1 << (32 * words - 32))
+        for b in (low | 0xFFFFFFFF << (32 * words - 32), low | 1 << (32 * words - 32)):
+            pairs += [(top, b), (rng.randrange(b, 1 << 256), b), ((b << 3 | 5) & top, b)]
+    for b in (1 << 32, (1 << 128) + 5, rng.randrange(1 << 200), modulus - 1):
+        pairs += [(b - 1, b), (b + 1, b)]
+    grid_a, grid_b = divmod_word_grid(3, seed)
+    return [a for a, _ in pairs] + grid_a, [b for _, b in pairs] + grid_b
+
+
+def divmod_word_grid(per_pair: int, seed: int = 6):
+    """For every pair of word lengths (m, n) in 1..8, ``per_pair`` random
+    dividends of exactly m 32-bit words over divisors of exactly n: two lists
+    of 64 x ``per_pair`` ints."""
+    rng = random.Random(seed)
+    a, b = [], []
+    for m in range(1, 9):
+        for n in range(1, 9):
+            for _ in range(per_pair):
+                a.append(rng.randrange(1 << (32 * m - 32), 1 << (32 * m)))
+                b.append(rng.randrange(1 << (32 * n - 32), 1 << (32 * n)))
+    return a, b
 
 
 def build_gadget_circuit(

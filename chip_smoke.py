@@ -49,8 +49,9 @@ build, a failed launch or a failed comparison raises and the exit code is not
                an input's Range: flags, first-failure indices and three full
                witness maps against the evaluator, one ``divmod`` launch a
                Quotient level and no plain division on the card, ``divmod``
-               against its plain version on a Quotient level and an edge set,
-               timed solves;
+               against its plain version on a Quotient level, an edge set at
+               six widths, a grid of word lengths and 2^20 256-bit dividends
+               over 128-bit divisors, timed solves;
 9. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
@@ -179,7 +180,7 @@ def main() -> int:
     from acvm_tpu_torch.gpu import intops
     from acvm_tpu_torch.utils import (
         build_gadget_circuit, build_u32_circuit, build_wide_arith_circuit, columnar_instance,
-        divmod_edge_operands, gadget_inputs_columnar, random_inputs, u32_inputs,
+        divmod_edge_operands, divmod_word_grid, gadget_inputs_columnar, random_inputs, u32_inputs,
         with_repeated_constraints,
     )
     from acvm_tpu_torch.utils.ec_points import exceptional_panel
@@ -758,8 +759,9 @@ def main() -> int:
         return work / statistics.median(times), statistics.median(times)
 
     def profile(run, wall_seconds):
-        """One run() under torch.profiler: device time by kernel (top 8) and the
-        share of the timed wall clock the device was busy."""
+        """One run() under torch.profiler: device time by kernel (the top 8, and
+        every kernel of the port's own, whatever its rank) and the share of the
+        timed wall clock the device was busy."""
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -774,9 +776,14 @@ def main() -> int:
         return {"device_busy_ms": busy_ms, "wall_ms": wall_seconds * 1e3,
                 "device_busy_share": busy_ms / (wall_seconds * 1e3),
                 "kernel_launches": sum(r[2] for r in rows),
-                "top": [{"kernel": k[:60], "ms": ms, "calls": n} for k, ms, n in rows[:8]]}
+                "top": [{"kernel": k[:60], "ms": ms, "calls": n} for k, ms, n in rows[:8]],
+                "port_kernels": [{"kernel": k[:60], "ms": ms, "calls": n} for k, ms, n in rows
+                                 if port_kernel.search(k)]}
 
     want_profile = "--profile" in sys.argv
+    # The port's own kernels, by their symbols in the sources of build.KERNELS.
+    port_kernel = re.compile(r"\b(%s)\b" % "|".join(sorted({sym for name in build.KERNELS for sym in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)", build.source_path(name).read_text())})))
 
     # -- 4. path_static -----------------------------------------------------------
     batch = 2048
@@ -1123,9 +1130,12 @@ def main() -> int:
         assert not bad, f"u32 instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
     opcodes = len(circuit.opcodes)
 
-    # divmod against its plain version: a quotient level's operands (1,024
-    # gates x 1,024 instances), then the edge set at 256 and 64 bits, against
-    # Python ints too.
+    # divmod against its plain version, tolerance 0: a quotient level's
+    # operands (1,024 gates x 1,024 instances); the edge set at the Quotient's
+    # and Brillig's widths, against Python ints too; the word-length grid, 1,024
+    # pairs for each pair of word lengths (m, n) in 1..8; and the second timed
+    # shape, 2^20 random 256-bit dividends over random 128-bit divisors, as the
+    # Brillig VM's 256-bit division can give them.
     from acvm_tpu_torch.gpu.batch_solver import eval_exprs
 
     qa = eval_exprs(solver.ctx, res.panel, quotient_levels[0]["a"])
@@ -1138,35 +1148,69 @@ def main() -> int:
     ea, eb = divmod_edge_operands(P)
     ta = torch.from_numpy(fk.ints_to_limbs32(ea).copy()).to(dev)
     tb = torch.from_numpy(fk.ints_to_limbs32(eb).copy()).to(dev)
-    for bits in (256, 64):
+    widths = (256, 254, 128, 64, 32, 8)
+    for bits in widths:
         q, r = intops.long_divmod(ta, tb, num_bits=bits)
         pq, pr = intops.long_divmod_plain(ta, tb, num_bits=bits)
         errs += [max_abs_err(q, pq), max_abs_err(r, pr)]
         m = (1 << bits) - 1
         ints = [divmod(x & m, y) if y else (0, 0) for x, y in zip(ea, eb)]
         assert list(zip(fk.limbs32_to_ints(q.cpu().numpy()), fk.limbs32_to_ints(r.cpu().numpy()))) == ints
-    assert build.LAUNCHES["divmod"] == 3 and max(errs) == 0, (build.LAUNCHES["divmod"], errs)
-    # What the data needs: one restoring step for each significant bit of a
-    # dividend over a non-zero divisor.  The remainder stays below b, so a step
-    # spans only the w limbs of b: w to double the remainder, w to subtract,
-    # w to select, one to set the quotient bit (3w + 1 int32 operations).
-    # 128 bytes an element (a, b in; q, r out).
+    grid = [torch.from_numpy(fk.ints_to_limbs32(x).copy()).to(dev) for x in divmod_word_grid(1024)]
+    for got, want in zip(intops.long_divmod(*grid), intops.long_divmod_plain(*grid)):
+        errs.append(max_abs_err(got, want))
+    rng = np.random.default_rng(7)
+    wide = rng.integers(0, 1 << 32, size=(2, 1 << 20, 8), dtype=np.uint64).astype(np.uint32)
+    wide[1, :, 4:] = 0
+    wa, wb = torch.from_numpy(wide.view(np.int32)).to(dev)
+    for got, want in zip(intops.long_divmod(wa, wb), intops.long_divmod_plain(wa, wb)):
+        errs.append(max_abs_err(got, want))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["divmod"] == 3 + len(widths) and max(errs) == 0, (build.LAUNCHES["divmod"], errs)
+
+    def division_work(a, b):
+        """What word-level division of each element needs (csrc/divmod.cu):
+        with m, n the words of a and b, nothing where b = 0 or m < n; else
+        m - n + 1 digits (m where n = 1), each n multiply-adds and n + 1
+        subtractions for q^ b and 3 operations for the estimate, the least a
+        2-by-1 division takes (2n + 4), and m + 2n words shifted to normalise
+        and back.
+        Returns (digits, int32 operations) summed over the elements."""
+        words = np.arange(1, 9)
+        m = ((a.cpu().numpy().reshape(-1, 8) != 0) * words).max(1)
+        n = ((b.cpu().numpy().reshape(-1, 8) != 0) * words).max(1)
+        live = (n > 0) & (m >= n)
+        digits = np.where(live, np.where(n == 1, m, m - n + 1), 0)
+        ops = np.where(live, digits * (2 * n + 4) + m + 2 * n, 0)
+        return int(digits.sum()), int(ops.sum())
+
+    # 128 bytes an element (a, b in; q, r out) against the operations above.
     n_div = qa.numel() // 8
-    pairs = [(x.bit_length(), y.bit_length()) for x, y in zip(
-        fk.limbs32_to_ints(qa.cpu().numpy()), fk.limbs32_to_ints(qb.cpu().numpy())) if y]
-    steps = sum(na for na, _ in pairs)
-    step_ops = sum(na * (3 * -(-nb // 32) + 1) for na, nb in pairs)
-    b_ms, b_by = bound(128 * n_div, step_ops)
+    digits, div_ops = division_work(qa, qb)
+    b_ms, b_by = bound(128 * n_div, div_ops)
+    wide_digits, wide_ops = division_work(wa, wb)
+    wide_bound, wide_by = bound(128 * (1 << 20), wide_ops)
     kernels["divmod"] = dict(
         name="divmod", route="cuda", source="acvm_tpu_torch/csrc/divmod.cu",
         replaces="acvm_tpu/tpu/intops.py:134",
         shape=f"G={qa.shape[0]}, B={qa.shape[1]} (a quotient level of path_int), num_bits=256",
-        steps_per_element=steps / n_div, ops_per_element=step_ops / n_div, edge_cases=len(ea), max_abs_err=max(errs),
+        digits_per_element=digits / n_div, ops_per_element=div_ops / n_div,
+        edge_cases=len(ea), edge_widths=list(widths), grid_cases=grid[0].shape[0],
+        max_abs_err=max(errs),
         ms=time_ms(lambda: intops.long_divmod(qa, qb)),
         ms_queued=time_ms(lambda: intops.long_divmod(qa, qb), calls=10),
         plain_ms=time_ms(lambda: intops.long_divmod_plain(qa, qb), 3, warmup=0),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del qa, qb, got_q, got_r, want_q, want_r, res
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        # The same 128 bytes an element through one copy (torch.cat of a and
+        # b): what the card's memory gives a kernel that only moves them.
+        copy_ms_queued=time_ms(lambda: torch.cat((qa, qb)), calls=10),
+        brillig_shape=dict(
+            shape="N=2^20, random 256-bit a over random 128-bit b, num_bits=256",
+            digits_per_element=wide_digits / (1 << 20), ops_per_element=wide_ops / (1 << 20),
+            ms=time_ms(lambda: intops.long_divmod(wa, wb)),
+            ms_queued=time_ms(lambda: intops.long_divmod(wa, wb), calls=10),
+            bound_ms=wide_bound, bound_by=wide_by))
+    del qa, qb, got_q, got_r, want_q, want_r, wa, wb, res
 
     state = solver.initial_state(inputs)
     rate, secs = timed_rate(device_solve_of(solver, state, torch), opcodes * int_B)

@@ -21,6 +21,7 @@ from acvm_tpu_torch.utils import (
     build_u32_circuit,
     build_wide_arith_circuit,
     divmod_edge_operands,
+    divmod_word_grid,
     gadget_inputs_columnar,
     quotient_edge_inputs,
     random_inputs,
@@ -261,9 +262,11 @@ def test_dot_kernel_v1_route_on_card_equals_v2(card):
     assert torch.equal(v1.panel, v2.panel) and np.array_equal(v1.fail, v2.fail)
 
 
-@pytest.mark.parametrize("num_bits", [256, 64])
+@pytest.mark.parametrize("num_bits", [256, 254, 128, 64, 32, 8])
 def test_divmod_kernel_equals_plain_version_and_ints(card, num_bits):
-    a, b = divmod_edge_operands(BN254_FR.modulus)
+    ea, eb = divmod_edge_operands(BN254_FR.modulus)
+    ga, gb = divmod_word_grid(16)
+    a, b = ea + ga, eb + gb
     ta = torch.from_numpy(fk.ints_to_limbs32(a).copy()).to(card)
     tb = torch.from_numpy(fk.ints_to_limbs32(b).copy()).to(card)
     build.reset_launches()

@@ -14,6 +14,7 @@ the edges of the 32-bit limbs.
 import random
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,9 +25,11 @@ from acvm_tpu.blackbox import StubBlackBoxSolver
 from acvm_tpu.fields import FieldElement as JFieldElement
 from acvm_tpu.pwg import ACVM, ACVMStatus
 from acvm_tpu.tpu import BatchSolver as JBatchSolver, plan_circuit as jplan_circuit
+from acvm_tpu.tpu import intops as jintops
 
 from acvm_tpu_torch.acir import Circuit, Expression, Witness
 from acvm_tpu_torch.acir import opcodes as ops
+from acvm_tpu_torch.convert import limbs16_to_limbs32, limbs32_to_limbs16
 from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.field import FieldElement
 from acvm_tpu_torch.fields.params import BN254_FR
@@ -310,3 +313,94 @@ def test_long_divmod_plain_on_the_kernel_edge_set():
         intops.long_divmod(ta, tb, num_bits=257)
     with pytest.raises(TypeError, match="int32"):
         intops.long_divmod(ta.to(torch.int64), tb)
+
+
+M32 = (1 << 32) - 1
+
+
+def divmod_words(a, b):
+    """``csrc/divmod.cu`` step for step in Python ints: (q, r) and the names
+    of the branches the division took."""
+    x = [a >> 32 * i & M32 for i in range(8)]
+    y = [b >> 32 * i & M32 for i in range(8)]
+    m = max((i + 1 for i in range(8) if x[i]), default=0)
+    n = max((i + 1 for i in range(8) if y[i]), default=0)
+    if n == 0:
+        return 0, 0, {"b = 0"}
+    if m < n:
+        return 0, a, {"a shorter than b"}
+    s = 32 - y[n - 1].bit_length()
+    hit = {f"n = {n}", f"m = n + {m - n}", f"shift {s}", (m, n)}
+    u = [(a << s) >> 32 * i & M32 for i in range(9)]
+    v = [(b << s) >> 32 * i & M32 for i in range(8)]
+    d1 = v[n - 1]
+    q = [0] * 9
+    if n == 1:
+        rem = u[m]  # below 2^s <= d1: its digit is 0
+        assert rem < d1
+        for j in range(m - 1, -1, -1):
+            q[j], rem = divmod(rem << 32 | u[j], d1)
+        u = [rem] + [0] * 8
+    for j in range(m - n, -1, -1) if n > 1 else ():
+        u2, u1, u0 = u[j + n], u[j + n - 1], u[j + n - 2]
+        if u2 == d1:
+            qhat, rhat = M32, u1 + d1
+            hit.add("estimate at its limit")
+        else:
+            qhat, rhat = divmod(u2 << 32 | u1, d1)
+        corrected = 0
+        while rhat <= M32 and qhat * v[n - 2] > (rhat << 32 | u0):
+            qhat, rhat, corrected = qhat - 1, rhat + d1, corrected + 1
+        assert corrected <= 2
+        hit.add(f"corrected {corrected}")
+        k = 0
+        for i in range(n):
+            p = qhat * v[i] + k
+            k = (p >> 32) + (u[j + i] < p & M32)
+            u[j + i] = (u[j + i] - p) & M32
+        top, u[j + n] = u[j + n], (u[j + n] - k) & M32
+        if top < k:
+            hit.add("add back")
+            qhat -= 1
+            t = sum(u[j + i] << 32 * i for i in range(n + 1)) + sum(w << 32 * i for i, w in enumerate(v[:n]))
+            u[j: j + n + 1] = [t >> 32 * i & M32 for i in range(n + 1)]
+        q[j] = qhat
+    r = sum(((u[i] | u[i + 1] << 32) >> s & M32) << 32 * i for i in range(8))
+    return sum(w << 32 * i for i, w in enumerate(q[:8])), r, hit
+
+
+DIVMOD_WIDTHS = (256, 254, 128, 64, 32, 8)  # the Quotient's and Brillig's
+
+
+def test_divmod_model_on_the_edge_set_reaches_every_branch():
+    hit = set()
+    for x, y in zip(*divmod_edge_operands(P)):
+        q, r, branches = divmod_words(x, y)
+        assert (q, r) == (divmod(x, y) if y else (0, 0)), (x, y)
+        hit |= branches
+        if y > 1 and x in (y - 1, y + 1):
+            hit.add(f"a = b {x - y:+d}")
+    assert {"corrected 1", "corrected 2", "add back", "estimate at its limit", "shift 0",
+            "shift 31", "n = 1", "n = 8", "m = n + 0", "m = n + 1", "b = 0", "a shorter than b",
+            "a = b -1", "a = b +1"} <= hit
+    assert {(m, n) for m in range(1, 9) for n in range(1, m + 1)} <= hit
+
+
+def test_long_divmod_at_quotient_and_brillig_widths_matches_ints_and_jax():
+    a, b = divmod_edge_operands(P)
+    ta = torch.from_numpy(fk.ints_to_limbs32(a).copy())
+    tb = torch.from_numpy(fk.ints_to_limbs32(b).copy())
+    # The JAX function in one compiled call: its loop reads only the bits of a
+    # below num_bits, so at 256 bits over dividends masked to each width it is
+    # the division at that width.
+    masked = [[x & (1 << bits) - 1 for x in a] for bits in DIVMOD_WIDTHS]
+    jq, jr = jintops.long_divmod(jnp.asarray(limbs32_to_limbs16(fk.ints_to_limbs32(sum(masked, [])))),
+                                 jnp.asarray(limbs32_to_limbs16(fk.ints_to_limbs32(b * len(masked)))))
+    jq = limbs16_to_limbs32(np.asarray(jq)).reshape(len(masked), len(a), 8)
+    jr = limbs16_to_limbs32(np.asarray(jr)).reshape(len(masked), len(a), 8)
+    for w, (bits, am) in enumerate(zip(DIVMOD_WIDTHS, masked)):
+        q, r = intops.long_divmod(ta, tb, num_bits=bits)
+        want = [divmod(x, y) if y else (0, 0) for x, y in zip(am, b)]
+        assert list(zip(fk.limbs32_to_ints(q.numpy()), fk.limbs32_to_ints(r.numpy()))) == want, bits
+        assert [divmod_words(x, y)[:2] for x, y in zip(am, b)] == want, bits
+        assert np.array_equal(q.numpy(), jq[w]) and np.array_equal(r.numpy(), jr[w]), bits
