@@ -6,8 +6,10 @@ kernel written by hand in CUDA C++ for NVIDIA Hopper (``csrc/``).  It imports
 ``torch`` and ``numpy`` only.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``, where each kernel's plain PyTorch version runs.
 
-This slice solves arithmetic circuits: ``plan_circuit(circuit)`` ->
-``BatchSolver(plan)`` -> ``solver.solve(inputs)``.
+It solves arithmetic gates, the integer and directive opcodes, the Grumpkin
+gadgets, straight-line Brillig blocks and memory blocks:
+``plan_circuit(circuit)`` -> ``BatchSolver(plan)`` -> ``solver.solve(inputs)``
+(``acvm_tpu_torch.gpu``).
 """
 
 __version__ = "0.1.0"

@@ -4,11 +4,13 @@ The JAX package holds a field element as 16 x 16-bit limbs in uint32 and its
 witness panel either batch-major ``(B, NW, 16)`` or witness-major
 ``(NW, 16, S, 128)`` with ``B = S * 128``; its panels may carry one scratch
 column past the real witnesses.  Its elliptic-curve points are three
-``(B, N, 16)`` coordinate arrays and its window tables ``(W, 16, 3, 16)``; here a
-point panel is ``(N, 3, B, 8)`` and a table ``(W, 16, 3, 8)``.  This package holds 8 x 32-bit limbs as int32
-(uint32 bit patterns) and one witness-major panel ``(NW, B, 8)``.  The values
-are the same numbers either way (Montgomery radix 2^256 on both sides), so
-every function here is a pure relayout; nothing is rescaled.
+``(B, N, 16)`` coordinate arrays, its window tables ``(W, 16, 3, 16)`` and its
+memory blocks ``(B, size, 16)``; here a point panel is ``(N, 3, B, 8)``, a
+table ``(W, 16, 3, 8)`` and a memory block ``(size, B, 8)``.  This package
+holds 8 x 32-bit limbs as int32 (uint32 bit patterns) and one witness-major
+panel ``(NW, B, 8)``.  The values are the same numbers either way (Montgomery
+radix 2^256 on both sides), so every function here is a pure relayout;
+nothing is rescaled.
 
 All functions take and return numpy arrays: hand the result to
 ``torch.from_numpy`` or ``jnp.asarray`` as needed.
@@ -94,6 +96,20 @@ def panel_to_jax(
             rows.transpose(0, 2, 1).reshape(NW, L16, B // 128, 128)
         )
     raise ValueError(f"unknown layout {layout!r}")
+
+
+def memory_from_jax(mem) -> Dict[int, np.ndarray]:
+    """The JAX package's memory blocks ``{str(block_id): (B, size, 16)}`` ->
+    ``{block_id: (size, B, 8) int32}``, this package's slab a block."""
+    return {int(k): np.ascontiguousarray(limbs16_to_limbs32(np.asarray(v)).transpose(1, 0, 2))
+            for k, v in mem.items()}
+
+
+def memory_to_jax(mem) -> Dict[str, np.ndarray]:
+    """``{block_id: (size, B, 8)}`` -> the JAX package's ``{str(block_id):
+    (B, size, 16) uint32}``."""
+    return {str(k): np.ascontiguousarray(limbs32_to_limbs16(np.asarray(v)).transpose(1, 0, 2))
+            for k, v in mem.items()}
 
 
 # ---------------------------------------------------------------------------

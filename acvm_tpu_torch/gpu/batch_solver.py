@@ -20,18 +20,24 @@ the variable-base ladder over the fused point-addition kernel
 of a power-of-two ToLeRadix are masks and shifts over the gathered limbs;
 the Quotient directive divides with the ``divmod`` kernel
 (:func:`acvm_tpu_torch.gpu.intops.long_divmod`); recursive-aggregation outputs
-are zeroed.  PyTorch runs eagerly, so a solve is a Python loop over the plan's
-levels.
+are zeroed.  Straight-line Brillig blocks run as batched limb operations
+(:mod:`acvm_tpu_torch.gpu.brillig_trace`), one trace for every group of a
+level's blocks that share their bytecode.  Memory blocks (``MemoryInit`` /
+``MemoryOp``) are state beside the panel: a ``(size, B, 8)`` slab a block,
+the slabs of one size stacked as ``(K, size, B, 8)``, so a level's opcodes on
+several blocks of one size gather and scatter together.  PyTorch runs
+eagerly, so a solve is a Python loop over the plan's levels.
 
-Anything else a plan can hold — hashes, ECDSA, memory blocks, Brillig, host
-stages (among them a ToLeRadix of another radix and PermutationSort) — and
-every ingest form or scaling option not listed in :meth:`BatchSolver.solve`
-raises ``NotImplementedError`` naming what is missing, at construction where
-it can be known then.
+Anything else a plan can hold — hashes, ECDSA, host stages (among them a
+ToLeRadix of another radix, PermutationSort and Brillig blocks with jumps,
+memory or foreign calls) — and every ingest form or scaling option not listed
+in :meth:`BatchSolver.solve` raises ``NotImplementedError`` naming what is
+missing, at construction where it can be known then.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -57,8 +63,9 @@ from ..fields.kernels import (
 from ..fields.params import BN254_FR
 from ..fields.torch_ops import LimbContext, geq
 from . import ec, intops
+from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
 from .fused_level import fused_level_call, pack_level_desc
-from .planner import ExprPlan, Level, Plan
+from .planner import ExprPlan, Level, MemoryInitStage, Plan
 
 # Per-instance first-failure sentinel: "no failure yet".  The batch path's
 # analogue of the reference's located errors (acvm/src/pwg/mod.rs:282-299):
@@ -71,8 +78,6 @@ FAIL_NONE = np.int32(2**31 - 1)
 _UNPORTED_LEVEL_FIELDS = {
     "hashes": "hash gadgets",
     "ecdsa": "ECDSA verification",
-    "memory": "memory blocks",
-    "brillig": "Brillig blocks",
     "host": "host stages",
 }
 
@@ -361,6 +366,77 @@ def run_schnorr(ctx, W, ok, buf):
     return W, ok
 
 
+def run_memory_init(W, blocks, buf):
+    """MemoryInit: the block's first entries from the init witnesses."""
+    blocks[buf["k"], : buf["init_idx"].shape[0]] = W.index_select(0, buf["init_idx"])
+
+
+def run_memory_ops(ctx, W, ok, fail, blocks, buf, dot_kernel="v2"):
+    """G memory opcodes on G distinct blocks of one size at once, over the
+    batch (memory_op.rs:47-123 semantics, as ``pwg.ACVM`` solves them).
+
+    ``blocks`` is the ``(K, size, B, 8)`` stack of that size; ``buf["k"]``
+    picks each opcode's block.  The index is limb 0 of its value; a value of
+    2^64 or more fails the instance whatever the predicate (``try_to_u64``),
+    one past the block fails it where the predicate holds.  Each instance acts
+    as a read where the operation selector is zero and as a write elsewhere.
+    An inactive read gives 0 and an inactive write is skipped.  A read with no
+    witness to assign (``read_w`` None: the value was already known) fails,
+    as does an active write whose value is the unknown witness (``value``
+    None)."""
+    size = buf["size"]
+    B = W.shape[1]
+    idx_val = eval_exprs(ctx, W, buf["index"], dot_kernel=dot_kernel)  # (G, B, 8)
+    too_big = (idx_val[..., 2:] != 0).any(dim=-1)
+    idx = idx_val[..., 0].to(torch.int64) & 0xFFFFFFFF
+    in_bounds = (idx_val[..., 1] == 0) & ~too_big & (idx < size)
+    active = ~ctx.is_zero(eval_exprs(ctx, W, buf["pred"], dot_kernel=dot_kernel))  # (G, B)
+    if buf["sel"] is None:
+        is_read = torch.full_like(active, buf["is_read"])
+    else:
+        is_read = ctx.is_zero(eval_exprs(ctx, W, buf["sel"], dot_kernel=dot_kernel))
+    bad = too_big | (~in_bounds & active)
+    at = (buf["k"][:, None], torch.where(in_bounds, idx, 0),
+          torch.arange(B, device=W.device))
+    cur = blocks[at]  # (G, B, 8)
+
+    if buf["read_w"] is None:
+        bad = bad | is_read
+    else:
+        read = torch.where((active & in_bounds)[..., None], cur, torch.zeros_like(cur))
+        if buf["sel"] is not None:
+            read = torch.where(is_read[..., None], read, W.index_select(0, buf["read_w"]))
+        W.index_copy_(0, buf["read_w"], read)
+
+    if buf["may_write"]:
+        if buf["value"] is None:
+            wval = torch.zeros_like(cur)
+            bad = bad | (~is_read & active)
+        else:
+            wval = eval_exprs(ctx, W, buf["value"], dot_kernel=dot_kernel)
+        blocks[at] = torch.where((~is_read & active & in_bounds)[..., None], wval, cur)
+    fail = note_failures(fail, bad, buf["op_idx"])
+    return W, ok & ~bad.any(dim=0), fail
+
+
+def run_brillig(ctx, W, ok, buf, dot_kernel="v2"):
+    """G straight-line Brillig blocks of one bytecode, traced once over
+    ``(G, B, 8)`` registers.  Where the predicate is zero the outputs are
+    zero (pwg/brillig.rs)."""
+    inputs = [eval_exprs(ctx, W, pack, dot_kernel=dot_kernel) for pack in buf["inputs"]]
+    outputs = trace_brillig(ctx, buf["program"], inputs)
+    G, B = buf["out_idx"][0].shape[0], W.shape[1]
+    active = None
+    if buf["pred"] is not None:
+        active = ~ctx.is_zero(eval_exprs(ctx, W, buf["pred"], dot_kernel=dot_kernel))
+    for val, out_idx in zip(outputs, buf["out_idx"]):
+        val = val.expand(G, B, LIMBS)
+        if active is not None:
+            val = torch.where(active[..., None], val, torch.zeros_like(val))
+        W.index_copy_(0, out_idx, val)
+    return W, ok
+
+
 # ---------------------------------------------------------------------------
 # Solver
 # ---------------------------------------------------------------------------
@@ -375,7 +451,12 @@ class BatchSolver:
     """``dot_kernel`` picks the expression-evaluation route of the
     dynamic-denominator and assert-zero levels: ``"v2"`` (the fused dot, the
     default) or ``"v1"`` (the first-generation multiply and dot, BN254 only).
-    Both give the same bits."""
+    Both give the same bits.
+
+    ``group_stages`` (the default) runs a level's Brillig blocks of one
+    bytecode as one trace and its memory opcodes on blocks of one size as one
+    gather and scatter; ``False`` runs each block and each opcode alone, as
+    the JAX package does: the same bits in more launches."""
 
     def __init__(
         self,
@@ -383,6 +464,7 @@ class BatchSolver:
         mesh=None,
         device="cuda",
         dot_kernel: str = "v2",
+        group_stages: bool = True,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -398,12 +480,20 @@ class BatchSolver:
         self.plan = plan
         self.device = torch.device(device)
         self.dot_kernel = dot_kernel
+        self.group_stages = group_stages
         self.ctx = LimbContext(plan.params, self.device)  # raises without a card
         # (domain, index) -> the Pedersen generator each device table was
         # built from, and whether a Schnorr gate was packed: solve() checks
         # both against what the host code would use now.
         self._generators: Dict[tuple, tuple] = {}
         self._has_schnorr = False
+        # Memory block id -> (size, slot): the slab of the block is
+        # mem[size][slot] in a state (W, ok, fail, mem).
+        self.memory_slots: Dict[int, tuple] = {}
+        self._memory_counts: Counter = Counter()  # size -> blocks of that size
+        for block_id, size in sorted(plan.memory_block_sizes.items()):
+            self.memory_slots[block_id] = (size, self._memory_counts[size])
+            self._memory_counts[size] += 1
         self.segments = self._build_segments()
 
     # -- packing ------------------------------------------------------------
@@ -592,7 +682,93 @@ class BatchSolver:
         if level.zero_out:
             packed["kinds"].append("zero_out")
             packed["zero_out"] = idx_tensor(level.zero_out, torch.int64)
+        if level.memory:
+            packed["kinds"].append("memory")
+            packed["memory"] = self._pack_memory(level.memory)
+        if level.brillig:
+            packed["kinds"].append("brillig")
+            packed["brillig"] = self._pack_brillig(level.brillig)
         return packed
+
+    def _pack_memory(self, stages) -> List[dict]:
+        """A level's memory stages: each MemoryInit alone, the opcodes in
+        groups that share a block size, whether they have a witness to read
+        into and whether they have a value to write.  The planner puts at most
+        one opcode a block in a level (`mem_level`), so a group's opcodes
+        touch distinct blocks and may run in any order."""
+        dev = self.device
+        one = ExprPlan([], [], [], [], 1)  # a missing predicate is 1
+        packs, groups = [], {}
+        for st in stages:
+            size, k = self.memory_slots[st.block_id]
+            if isinstance(st, MemoryInitStage):
+                packs.append(dict(kind="init", size=size, k=k, init_idx=torch.tensor(
+                    st.init, dtype=torch.int64, device=dev)))
+                continue
+            key = (size, st.read_into is None, st.write_value is None)
+            groups.setdefault(key if self.group_stages else key + (st.opcode_index,), []).append(st)
+        for (size, no_read, no_value, *_), ops_ in groups.items():
+            static = {op.is_read for op in ops_ if op.op_sel is None}
+            runtime = any(op.op_sel is not None for op in ops_)
+            sel = None
+            if runtime or len(static) > 1:
+                # 0 reads, anything else writes; a static opcode's selector is
+                # the constant its operation was.
+                sel = _pack_to_device(pack_exprs([
+                    op.op_sel if op.op_sel is not None else ExprPlan([], [], [], [], int(not op.is_read))
+                    for op in ops_]), dev)
+            packs.append(dict(
+                kind="op", size=size,
+                k=torch.tensor([self.memory_slots[op.block_id][1] for op in ops_],
+                               dtype=torch.int64, device=dev),
+                index=_pack_to_device(pack_exprs([op.index for op in ops_]), dev),
+                pred=_pack_to_device(pack_exprs([op.predicate or one for op in ops_]), dev),
+                sel=sel, is_read=sel is None and static == {True},
+                read_w=None if no_read else torch.tensor(
+                    [op.read_into for op in ops_], dtype=torch.int64, device=dev),
+                value=None if no_value else _pack_to_device(
+                    pack_exprs([op.write_value for op in ops_]), dev),
+                may_write=runtime or False in static,
+                op_idx=torch.tensor([op.opcode_index for op in ops_], dtype=torch.int32, device=dev),
+            ))
+        return packs
+
+    def _pack_brillig(self, stages) -> List[dict]:
+        """A level's Brillig blocks, grouped by bytecode, input kinds, output
+        registers and the presence of a predicate: each group is traced once
+        (its Const values are the bytecode's, the same for every block)."""
+        dev = self.device
+        groups: Dict[tuple, list] = {}
+        for st in stages:
+            if st.output_array or any(kind != "single" for kind, _ in st.inputs):
+                raise NotImplementedError(
+                    f"BatchSolver: the Brillig block at opcode {st.opcode_index} has "
+                    "array inputs or outputs, which need the VM's memory; host "
+                    "stages are not ported"
+                )
+            key = (tuple(st.bytecode), len(st.inputs),
+                   tuple(reg for reg, _ in st.output_simple), st.predicate is not None)
+            groups.setdefault(key if self.group_stages else key + (st.opcode_index,), []).append(st)
+        packs = []
+        for (bytecode, n_inputs, out_regs, has_pred, *_), members in groups.items():
+            try:
+                program = resolve_brillig(self.ctx, bytecode, n_inputs, out_regs)
+            except BrilligTraceError as err:
+                raise NotImplementedError(
+                    f"BatchSolver: the Brillig block at opcode {members[0].opcode_index} "
+                    f"cannot be traced ({err}); host stages are not ported"
+                ) from None
+            packs.append(dict(
+                program=program,
+                inputs=[_pack_to_device(pack_exprs([st.inputs[j][1] for st in members]), dev)
+                        for j in range(n_inputs)],
+                pred=_pack_to_device(pack_exprs([st.predicate for st in members]), dev)
+                if has_pred else None,
+                out_idx=[torch.tensor([st.output_simple[o][1] for st in members],
+                                      dtype=torch.int64, device=dev)
+                         for o in range(len(out_regs))],
+            ))
+        return packs
 
     def _pedersen_tables(self, domain: int, count: int) -> torch.Tensor:
         """(count, W, 16, 3, 8) window tables of generators 0..count-1 of a
@@ -631,7 +807,7 @@ class BatchSolver:
         return [_Segment(levels=levels)] if levels else []
 
     # -- device execution ---------------------------------------------------
-    def _run_level(self, W, ok, fail, packed):
+    def _run_level(self, W, ok, fail, mem, packed):
         ctx = self.ctx
         for kind in packed["kinds"]:
             if kind == "arith_static":
@@ -658,25 +834,37 @@ class BatchSolver:
                     W, ok = run_schnorr(ctx, W, ok, group_buf)
             elif kind == "zero_out":
                 W.index_fill_(0, packed[kind], 0)
+            elif kind == "memory":
+                for buf in packed[kind]:
+                    if buf["kind"] == "init":
+                        run_memory_init(W, mem[buf["size"]], buf)
+                    else:
+                        W, ok, fail = run_memory_ops(ctx, W, ok, fail, mem[buf["size"]], buf,
+                                                     self.dot_kernel)
+            elif kind == "brillig":
+                for buf in packed[kind]:
+                    W, ok = run_brillig(ctx, W, ok, buf, self.dot_kernel)
             else:
                 raise AssertionError(kind)
         return W, ok, fail
 
     def run_segments(self, state):
-        """Run every level over a device state ``(W, ok, fail)``; the panel is
-        updated in place.  Nothing here waits for the device."""
-        W, ok, fail = state
+        """Run every level over a device state ``(W, ok, fail, mem)``; the
+        panel and the memory blocks are updated in place.  Nothing here waits
+        for the device."""
+        W, ok, fail, mem = state
         for segment in self.segments:
             for packed in segment.levels:
-                W, ok, fail = self._run_level(W, ok, fail, packed)
-        return W, ok, fail
+                W, ok, fail = self._run_level(W, ok, fail, mem, packed)
+        return W, ok, fail, mem
 
     # -- public API ----------------------------------------------------------
     def initial_state(self, input_values):
-        """Build (W, ok, fail) from per-instance {witness_index: int} dicts or
-        the host columnar form {witness_index: (B,) array}.  ``fail`` starts at
-        the FAIL_NONE sentinel and tracks the first failing opcode index per
-        instance."""
+        """Build (W, ok, fail, mem) from per-instance {witness_index: int}
+        dicts or the host columnar form {witness_index: (B,) array}.  ``fail``
+        starts at the FAIL_NONE sentinel and tracks the first failing opcode
+        index per instance; ``mem`` maps a block size to the zeroed
+        ``(K, size, B, 8)`` stack of the K memory blocks of that size."""
         B, kwargs = self._pack_host(input_values)
         return self._finish_initial_state(B, **kwargs)
 
@@ -737,7 +925,10 @@ class BatchSolver:
         return B, dict(W=W)
 
     def panel_bytes(self, B: int) -> int:
-        return self.plan.num_witnesses * B * LIMBS * 4
+        """Device bytes of a batch's state: the witness panel and the memory
+        blocks."""
+        rows = self.plan.num_witnesses + sum(max(size, 1) * k for size, k in self._memory_counts.items())
+        return rows * B * LIMBS * 4
 
     def _finish_initial_state(self, B: int, W=None, cols=None, vals=None):
         """Assemble the device state.  Sparse (cols, vals) input columns are
@@ -749,9 +940,10 @@ class BatchSolver:
             free, _ = torch.cuda.mem_get_info(dev)
             if self.panel_bytes(B) > free:
                 raise NotImplementedError(
-                    f"BatchSolver: a batch of {B} needs a {self.panel_bytes(B)} "
-                    f"byte witness panel and {free} bytes of device memory are "
-                    "free; streaming a batch through several passes is not ported"
+                    f"BatchSolver: a batch of {B} needs {self.panel_bytes(B)} bytes "
+                    f"of witness panel and memory blocks and {free} bytes of device "
+                    "memory are free; streaming a batch through several passes is "
+                    "not ported"
                 )
         if W is not None:
             Wd = torch.from_numpy(W.view(np.int32)).to(dev)
@@ -764,7 +956,10 @@ class BatchSolver:
                 )
         ok = torch.ones((B,), dtype=torch.bool, device=dev)
         fail = torch.full((B,), int(FAIL_NONE), dtype=torch.int32, device=dev)
-        return Wd, ok, fail
+        # A block of size 0 keeps one row, so that its gathers have a target.
+        mem = {size: torch.zeros((k, max(size, 1), B, LIMBS), dtype=torch.int32, device=dev)
+               for size, k in self._memory_counts.items()}
+        return Wd, ok, fail, mem
 
     @staticmethod
     def _batch_len(input_values) -> int:
@@ -782,11 +977,11 @@ class BatchSolver:
         Pedersen generators or the Schnorr hook changed since construction."""
         self._check_generators()
         state = self.initial_state(input_values)
-        W, ok, fail = self.run_segments(state)
+        W, ok, fail, mem = self.run_segments(state)
         # ok/fail are tiny (B,) tensors: materialize them now so the solve is
         # synced (and errors surface here); the big W panel stays on device
         # until a caller actually reads witnesses (lazy BatchResult.W).
-        return BatchResult(self, W, ok.cpu().numpy(), fail.cpu().numpy())
+        return BatchResult(self, W, ok.cpu().numpy(), fail.cpu().numpy(), mem)
 
 
 class BatchResult:
@@ -794,18 +989,27 @@ class BatchResult:
     ``.W`` materializes a host copy lazily, so callers that only check flags
     (or read a few witnesses) never pay a full-panel device->host transfer."""
 
-    def __init__(self, solver: BatchSolver, W, ok, fail=None):
+    def __init__(self, solver: BatchSolver, W, ok, fail=None, mem=None):
         self.solver = solver
         self._W = W  # (NW, B, 8) int32 tensor
         self._W_host: Optional[np.ndarray] = None
         self._ok = ok
         # First failing opcode index per instance (FAIL_NONE when satisfied).
         self._fail = fail
+        self._mem = mem or {}
 
     def release(self) -> None:
-        """Free the witness panel (device and host copies)."""
+        """Free the witness panel (device and host copies) and the memory
+        blocks."""
         self._W = None
         self._W_host = None
+        self._mem = {}
+
+    def memory_blocks(self) -> Dict[int, torch.Tensor]:
+        """Each memory block's final state: block id -> its ``(size, B, 8)``
+        slab on the solver's device."""
+        return {block_id: self._mem[size][k, :size]
+                for block_id, (size, k) in self.solver.memory_slots.items()}
 
     @property
     def panel(self) -> torch.Tensor:

@@ -837,7 +837,9 @@ class _Planner:
                 reads.extend(int(w) for _, w in e.linear_combinations)
                 reads.extend(int(w) for _, wl, wr in e.mul_terms for w in (wl, wr))
         if b.predicate is not None:
-            reads.extend(int(w) for _, w in b.predicate.linear_combinations)
+            # Every witness of the predicate, its product terms too: the stage
+            # must run after each of them is solved.
+            reads.extend(_expr_witnesses(b.predicate))
         for out in b.outputs:
             if isinstance(out, ops.BrilligOutputSimple):
                 writes.append(int(out.witness))

@@ -14,6 +14,8 @@ import random
 from types import SimpleNamespace
 from typing import Dict, List
 
+from .. import brillig as br
+from .. import stdlib
 from ..acir import Circuit, Expression, Witness
 from ..acir import opcodes as ops
 from ..fields.field import FieldElement
@@ -121,7 +123,8 @@ def random_inputs(
 # The classes the builders below take by default; another package whose ACIR
 # classes have the same names passes its own namespace as ``lib``.
 PORT_CLASSES = SimpleNamespace(Circuit=Circuit, Expression=Expression, Witness=Witness,
-                               FieldElement=FieldElement, opcodes=ops)
+                               FieldElement=FieldElement, opcodes=ops, brillig=br,
+                               stdlib=stdlib)
 
 
 def build_u32_circuit(
@@ -244,6 +247,278 @@ def quotient_edge_inputs(modulus: int) -> List[Dict[int, int]]:
         (7, modulus - 1, 1),
     ]
     return [{1: a, 2: b, 3: c} for a, b, c in cases]
+
+
+def build_sha256_circuit(num_bytes: int = 32, lib=None):
+    """The compiler's SHA-256 fallback (reference stdlib/src/blackbox_fallbacks/
+    sha256.rs, expanded in place of a ``SHA256`` black box the backend does
+    not support) over ``num_bytes`` input bytes w1..w_n, its 32 output bytes
+    in the next 32 witnesses.  Straight-line Brillig hints (u32 add, sub,
+    mul, constants), range checks, AND/XOR, Quotient and ToLeRadix: at 32
+    bytes, 28,980 opcodes over 15,793 witnesses.  ``lib`` as in
+    :func:`build_u32_circuit`, with ``stdlib`` (the package whose ``sha256``
+    builds the fallback) beside the classes."""
+    lib = lib or PORT_CLASSES
+    W = lib.Witness
+    inputs = [W(i + 1) for i in range(num_bytes)]
+    outputs = [W(num_bytes + 1 + i) for i in range(32)]
+    num_witness, opcodes = lib.stdlib.sha256(
+        [(lib.Expression.from_witness(w), 8) for w in inputs], outputs, num_bytes + 33)
+    return lib.Circuit(
+        current_witness_index=num_witness - 1,
+        opcodes=opcodes,
+        private_parameters=set(inputs),
+    )
+
+
+def sha256_inputs(batch: int, seed: int = 11, num_bytes: int = 32):
+    """Seeded messages for :func:`build_sha256_circuit`, columnar: witness i + 1
+    holds byte i of every message, as a (batch,) uint8 array."""
+    import numpy as np
+
+    msgs = np.random.default_rng(seed).integers(0, 256, size=(num_bytes, batch), dtype=np.uint8)
+    return {i + 1: msgs[i] for i in range(num_bytes)}
+
+
+def build_array_circuit(
+    num_blocks: int = 8,
+    block_size: int = 1024,
+    rounds: int = 32,
+    final_reads: int = 4,
+    num_seeds: int = 32,
+    lib=None,
+):
+    """Noir arrays read and written at runtime indices: ``num_blocks`` memory
+    blocks of ``block_size`` entries.
+
+    * Inputs: ``num_seeds`` seeds s_0.. (w1..), then the index of every access
+      and the edge opcodes' flags, each a fresh input where it is used.
+    * Entry j of block k is a_kj = s_(j mod num_seeds) + (k + 1) j: one static
+      solve gate each, all in one level; then ``MemoryInit`` of each block.
+    * ``rounds`` rounds a block, each ``x = A_k[i]``, ``y = x s_r + r`` and
+      ``A_k[j] = y`` (s_r = s_(r mod num_seeds)), i and j runtime inputs.
+    * ``final_reads`` reads a block at runtime indices.
+    * Three edge opcodes: a read of block 0 under a predicate witness; a read
+      of block 1 under a runtime operation selector (0 reads, anything else
+      would write the still unknown value and fail); a write to block 2 of an
+      already known witness under a runtime selector (where it is 0 the
+      opcode reads into a known witness and fails, as ``pwg.ACVM`` does).
+
+    Returns the circuit; :func:`array_inputs` fills its inputs.  ``lib`` as in
+    :func:`build_u32_circuit`.  The defaults give 9,003 opcodes over 9,320
+    witnesses."""
+    lib = lib or PORT_CLASSES
+    o, fe, W = lib.opcodes, lib.FieldElement, lib.Witness
+    next_witness = 1
+    inputs = []
+
+    def fresh(is_input=False):
+        nonlocal next_witness
+        next_witness += 1
+        w = W(next_witness - 1)
+        if is_input:
+            inputs.append(w)
+        return w
+
+    def expr(w):
+        return lib.Expression.from_witness(w)
+
+    def mem_op(k, operation, index, value, predicate=None):
+        return o.OpcodeMemoryOp(o.BlockId(k), o.MemOp(operation, index, value), predicate)
+
+    zero, one = lib.Expression.zero(), lib.Expression.from_field(fe(1))
+    seeds = [fresh(True) for _ in range(num_seeds)]
+    opcodes = []
+    blocks = []
+    for k in range(num_blocks):
+        entries = [fresh() for _ in range(block_size)]
+        for j, a in enumerate(entries):
+            opcodes.append(o.OpcodeArithmetic(lib.Expression(
+                linear_combinations=[(fe(1), seeds[j % num_seeds]), (-fe(1), a)],
+                q_c=fe((k + 1) * j))))
+        blocks.append(entries)
+    opcodes.extend(o.OpcodeMemoryInit(o.BlockId(k), entries) for k, entries in enumerate(blocks))
+    for r in range(rounds):
+        s_r = seeds[r % num_seeds]
+        for k in range(num_blocks):
+            x, y = fresh(), fresh()
+            opcodes.append(mem_op(k, zero, expr(fresh(True)), expr(x)))
+            opcodes.append(o.OpcodeArithmetic(lib.Expression(
+                mul_terms=[(fe(1), min(x, s_r), max(x, s_r))],
+                linear_combinations=[(-fe(1), y)], q_c=fe(r))))
+            opcodes.append(mem_op(k, one, expr(fresh(True)), expr(y)))
+    for k in range(num_blocks):
+        for _ in range(final_reads):
+            opcodes.append(mem_op(k, zero, expr(fresh(True)), expr(fresh())))
+    pred = fresh(True)
+    opcodes.append(mem_op(0, zero, expr(fresh(True)), expr(fresh()), predicate=expr(pred)))
+    sel = fresh(True)
+    opcodes.append(mem_op(1 % num_blocks, expr(sel), expr(fresh(True)), expr(fresh())))
+    sel = fresh(True)
+    opcodes.append(mem_op(2 % num_blocks, expr(sel), expr(fresh(True)), expr(seeds[0])))
+    return lib.Circuit(
+        current_witness_index=next_witness - 1,
+        opcodes=opcodes,
+        private_parameters=set(inputs),
+    )
+
+
+def build_uint_ops_circuit(width: int = 32, lib=None):
+    """Every operation of the stdlib's ``UIntGadget`` (reference
+    stdlib/src/blackbox_fallbacks/uint.rs) once, over the inputs x = w1 and
+    y = w2 of ``width`` bits: add, sub, mul, and, xor, or, not, rol by 7, ror by
+    11, left shift by 5, right shift by 9, x >= y, x < y and the Euclidean
+    division x / y (a Quotient, its range checks and constraints; y = 0 fails
+    the instance).  Each is a Brillig hint and the constraints that check it.
+    Returns ``(circuit, outputs)``, the output witness of each operation by
+    name.  ``lib`` as in :func:`build_sha256_circuit`."""
+    lib = lib or PORT_CLASSES
+    W, UInt = lib.Witness, lib.stdlib.UIntGadget
+    x, y = UInt(W(1), width), UInt(W(2), width)
+    num_witness = 3
+    opcodes, outputs = [], {}
+    binary = ("add", "sub", "mul", "and_", "xor", "or_", "more_than_eq_comparison",
+              "less_than_comparison")
+    for name in binary:
+        out, ops_, num_witness = getattr(x, name)(y, num_witness)
+        opcodes += ops_
+        outputs[name] = out.inner
+    for name, arg in (("rol", 7), ("ror", 11), ("leftshift", 5), ("rightshift", 9)):
+        out, ops_, num_witness = getattr(x, name)(arg, num_witness)
+        opcodes += ops_
+        outputs[name] = out.inner
+    out, ops_, num_witness = x.not_(num_witness)
+    opcodes += ops_
+    outputs["not_"] = out.inner
+    q, r, ops_, num_witness = UInt.euclidean_division(x, y, num_witness)
+    opcodes += ops_
+    outputs["div_q"], outputs["div_r"] = q.inner, r.inner
+    circuit = lib.Circuit(current_witness_index=num_witness - 1, opcodes=opcodes,
+                          private_parameters={W(1), W(2)})
+    return circuit, outputs
+
+
+def array_inputs(circuit, batch: int, seed: int = 13, fail_instance=None):
+    """Columnar inputs of :func:`build_array_circuit`: every index below its
+    block's size, the predicate witness 0 or 1 at random, the reading
+    selector 0, the writing selector a random nonzero u32, and random field
+    elements for the seeds (every other input).  With ``fail_instance`` set,
+    that instance's index of the middle memory opcode is its block's size: it
+    fails at that opcode and no other instance fails.  Returns ``(columns,
+    fail_opcode)`` (None without ``fail_instance``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    size, mem_ops, cols = {}, [], {}
+
+    def col(e):
+        return int(e.linear_combinations[0][1])
+
+    for index, op in enumerate(circuit.opcodes):  # either package's classes
+        if type(op).__name__ == "OpcodeMemoryOp":
+            mem_ops.append((index, op))
+            cols[col(op.op.index)] = rng.integers(0, size[op.block_id.id], size=batch,
+                                                  dtype=np.uint64)
+            if op.predicate is not None:
+                cols[col(op.predicate)] = rng.integers(0, 2, size=batch, dtype=np.uint64)
+        elif type(op).__name__ == "OpcodeMemoryInit":
+            size[op.block_id.id] = len(op.init)
+    reading, writing = [op.op.operation for _, op in mem_ops[-2:]]
+    cols[col(reading)] = np.zeros(batch, np.uint64)
+    cols[col(writing)] = rng.integers(1, 1 << 32, size=batch, dtype=np.uint64)
+    pyrng = random.Random(seed)
+    for w in sorted(int(w) for w in circuit.private_parameters if int(w) not in cols):
+        cols[w] = np.array([pyrng.randrange(BN254_FR.modulus) for _ in range(batch)], dtype=object)
+    if fail_instance is None:
+        return cols, None
+    index, op = mem_ops[len(mem_ops) // 2]
+    cols[col(op.op.index)][fail_instance] = size[op.block_id.id]
+    return cols, index
+
+
+# The binary ops of a Brillig block and the bit sizes the ops circuit runs
+# them at; the VM shifts only up to 128 bits (brillig_vm/vm.py:159).
+BRILLIG_BIT_SIZES = (1, 8, 32, 64, 127, 128, 254, 256)
+
+
+def build_brillig_ops_circuit(lib=None):
+    """One straight-line Brillig block for each binary op: the 5 field ops,
+    and the 13 int ops at each of :data:`BRILLIG_BIT_SIZES` (the shifts at
+    128 bits and below, by the constant bit_size // 2), each over the inputs
+    w1, w2 into one fresh witness.  Then two blocks of several steps: one
+    under the predicate w3 (a 32-bit add and a field product), and one that
+    reads a compound input (w1 + 2 w2), renames registers with ``Mov`` and
+    ``Const`` and chains a 64-bit product, a field add and a 128-bit
+    subtraction.  ``lib`` as in :func:`build_u32_circuit`, with ``brillig``
+    (the package's Brillig opcodes) beside the classes."""
+    lib = lib or PORT_CLASSES
+    o, fe, W, b = lib.opcodes, lib.FieldElement, lib.Witness, lib.brillig
+    R = b.RegisterIndex
+    a_w, b_w, pred = W(1), W(2), W(3)
+    next_witness = 4
+    opcodes = []
+
+    def block(code, n_out=1, inputs=None, predicate=None):
+        nonlocal next_witness
+        outs = [W(next_witness + i) for i in range(n_out)]
+        next_witness += n_out
+        ins = inputs or [lib.Expression.from_witness(a_w), lib.Expression.from_witness(b_w)]
+        opcodes.append(o.OpcodeBrillig(o.Brillig(
+            inputs=[o.BrilligInputSingle(e) for e in ins],
+            outputs=[o.BrilligOutputSimple(w) for w in outs],
+            foreign_call_results=[], bytecode=list(code) + [b.OpStop()], predicate=predicate)))
+
+    for op in b.BinaryFieldOp:
+        block([b.OpBinaryFieldOp(R(0), op, R(0), R(1))])
+    for bits in BRILLIG_BIT_SIZES:
+        for op in b.BinaryIntOp:
+            if op in (b.BinaryIntOp.Shl, b.BinaryIntOp.Shr):
+                if bits > 128:
+                    continue
+                block([b.OpConst(R(1), b.Value(fe(bits // 2))),
+                       b.OpBinaryIntOp(R(0), op, bits, R(0), R(1))])
+            else:
+                block([b.OpBinaryIntOp(R(0), op, bits, R(0), R(1))])
+    block([b.OpBinaryIntOp(R(2), b.BinaryIntOp.Add, 32, R(0), R(1)),
+           b.OpBinaryFieldOp(R(1), b.BinaryFieldOp.Mul, R(0), R(1)),
+           b.OpMov(R(0), R(2))], n_out=2, predicate=lib.Expression.from_witness(pred))
+    compound = lib.Expression(linear_combinations=[(fe(1), a_w), (fe(2), b_w)])
+    block([b.OpMov(R(2), R(0)),
+           b.OpConst(R(3), b.Value(fe((1 << 64) - 3))),
+           b.OpBinaryIntOp(R(0), b.BinaryIntOp.Mul, 64, R(2), R(3)),
+           b.OpBinaryFieldOp(R(1), b.BinaryFieldOp.Add, R(0), R(1)),
+           b.OpBinaryIntOp(R(2), b.BinaryIntOp.Sub, 128, R(0), R(1))],
+          n_out=3, inputs=[compound, lib.Expression.from_witness(b_w)])
+    return lib.Circuit(
+        current_witness_index=next_witness - 1,
+        opcodes=opcodes,
+        private_parameters={a_w, b_w, pred},
+    )
+
+
+def brillig_ops_inputs(batch: int, modulus: int = BN254_FR.modulus, seed: int = 17):
+    """Columnar (w1, w2, w3) for :func:`build_brillig_ops_circuit`: pairs of
+    the n edge values 0, 1, 2, p - 1, p - 2 and, for each bit size k, 2^k - 1,
+    2^(k-1), 2^k and a random k-bit value (those below p), then random field
+    elements; w3 (the predicate) 0 or 1 at random.  Instance i = q n + r
+    pairs edge r with edge 3r + q (mod n): every edge is a left operand in
+    each n instances, n instances from q = 0 pair it with three right
+    operands, and the first n^2 instances hold every pair once."""
+    import numpy as np
+
+    rng = random.Random(seed)
+    edges = {0, 1, 2, modulus - 1, modulus - 2}
+    for k in BRILLIG_BIT_SIZES:
+        edges.update({(1 << k) - 1, 1 << (k - 1), 1 << k, rng.randrange(1 << k)})
+    edges = sorted(v for v in edges if v < modulus)
+    n = len(edges)
+    pairs = [(edges[i % n], edges[(3 * (i % n) + i // n) % n]) for i in range(min(batch, n * n))]
+    pairs += [(rng.randrange(modulus), rng.randrange(modulus)) for _ in range(batch - len(pairs))]
+    return {
+        1: np.array([x for x, _ in pairs], dtype=object),
+        2: np.array([y for _, y in pairs], dtype=object),
+        3: np.array([rng.randrange(2) for _ in range(batch)], dtype=np.uint64),
+    }
 
 
 # Pairs (a, b) that reach the rare branches of word-level long division

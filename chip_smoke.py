@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --ptxas    # also print ptxas' register/spill report
     python3 chip_smoke.py --profile  # also one profiled solve per path: device
-                                     # time by kernel, device busy share
+                                     # time by kernel, device busy share (and
+                                     # the SHA-256 path traced block by block)
     python3 chip_smoke.py --level-variants  # also the level kernel built with
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
@@ -52,17 +53,32 @@ build, a failed launch or a failed comparison raises and the exit code is not
                against its plain version on a Quotient level, an edge set at
                six widths, a grid of word lengths and 2^20 256-bit dividends
                over 128-bit divisors, timed solves;
-9. ``kernels`` every kernel against its plain PyTorch version at the main
+9. ``path_sha``  the compiler's SHA-256 fallback (28,980 opcodes, 8,297 of them
+               straight-line Brillig hints) over 4,096 random 32-byte messages:
+               flags, two digests against hashlib and their full witness maps
+               against the evaluator, one ``divmod`` launch a Quotient level
+               (748) and no plain division on the card, timed solves;
+10. ``path_mem``  runtime-indexed arrays (8 memory blocks of 1,024 entries, 32
+               rounds of read, multiply-add and write each, the predicate and
+               runtime-selector edges; 9,003 opcodes) over 1,024 instances, one
+               of them failing at an index one past its block: flags,
+               first-failure indices, three full witness maps against the
+               evaluator, timed solves;
+11. ``brillig_ops``  one Brillig block for each field op and each int op at
+               1-256 bits over 2,048 instances of edge values, every witness
+               against the evaluator;
+12. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel;
-10. the raw ``nvidia-smi`` name and power limit;
-11. ``{"ok": true, "device": {...}}``.
+13. the raw ``nvidia-smi`` name and power limit;
+14. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -81,18 +97,57 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def brillig_int_op(op, a, b, bits, p):
+    """A Brillig int op on field values (brillig_vm/src/arithmetic.rs): mod
+    2^bits, the result stored as a field element (so reduced mod p);
+    SignedDiv reads each register as it is in two's complement and truncates
+    toward zero; UnsignedDiv by zero gives 0 (the VM raises there)."""
+    from acvm_tpu_torch import brillig as br
+
+    mod, O = 1 << bits, br.BinaryIntOp
+    if op == O.SignedDiv:
+        sa, sb = (x if x < mod >> 1 else x - mod for x in (a, b))
+        r = abs(sa) // abs(sb) if sb else 0
+        r = -r if (sa < 0) != (sb < 0) else r
+    elif op == O.UnsignedDiv:
+        r = (a % mod) // (b % mod) if b % mod else 0
+    elif op == O.Shl:
+        r = a << b if b < bits else 0
+    else:
+        r = {O.Add: a + b, O.Sub: a - b, O.Mul: a * b, O.Equals: int(a % mod == b % mod),
+             O.LessThan: int(a % mod < b % mod), O.LessThanEquals: int(a % mod <= b % mod),
+             O.And: a & b, O.Or: a | b, O.Xor: a ^ b, O.Shr: a >> b}[op]
+    return r % mod % p
+
+
+def brillig_field_op(op, a, b, p):
+    from acvm_tpu_torch import brillig as br
+
+    O = br.BinaryFieldOp
+    if op == O.Div:
+        return a * pow(b, -1, p) % p if b else 0
+    return {O.Add: a + b, O.Sub: a - b, O.Mul: a * b, O.Equals: int(a == b)}[op] % p
+
+
 def evaluate(circuit, inputs, p):
     """Sequential Python-int solve: walk the opcodes in order.  An arithmetic
     gate solves its one unknown or checks; Range, AND, XOR, Quotient and
     ToLeRadix follow the sequential engine's rules (a Range fails above its
     bits, AND/XOR mask both operands to their bits, a zero divisor or
     predicate gives q = r = 0, a radix value that does not fit its digits
-    fails), and every later opcode is still evaluated, as the batched levels
-    do (a ToLeRadix that fails writes its low digits).  Returns the witness
-    dict and the index of the first opcode that cannot be satisfied (None)."""
+    fails); a straight-line Brillig block runs its registers with the VM's
+    rules (zero outputs under a zero predicate); a memory opcode reads or
+    writes its block (index 2^64 or more fails, one past the block fails where
+    the predicate holds, an inactive read gives 0, a read into a known
+    witness fails).  Every later opcode is still evaluated, as the batched
+    levels do (a ToLeRadix that fails writes its low digits, a read that fails
+    gives 0).  Returns the witness dict and the index of the first opcode that
+    cannot be satisfied (None)."""
+    from acvm_tpu_torch import brillig as br
     from acvm_tpu_torch.acir import opcodes as ops
 
     w = dict(inputs)
+    mem = {}
     failed = None
 
     def value(e):  # an expression over known witnesses
@@ -101,6 +156,53 @@ def evaluate(circuit, inputs, p):
 
     for index, op in enumerate(circuit.opcodes):
         bad = False
+        if isinstance(op, ops.OpcodeBrillig):
+            block = op.brillig
+            regs = {i: value(inp.expr) for i, inp in enumerate(block.inputs)}
+            for code in block.bytecode:
+                if isinstance(code, br.OpStop):
+                    break
+                if isinstance(code, br.OpConst):
+                    regs[code.destination] = code.value.inner.value % p
+                elif isinstance(code, br.OpMov):
+                    regs[code.destination] = regs.get(code.source, 0)
+                elif isinstance(code, br.OpBinaryFieldOp):
+                    regs[code.destination] = brillig_field_op(
+                        code.op, regs.get(code.lhs, 0), regs.get(code.rhs, 0), p)
+                elif isinstance(code, br.OpBinaryIntOp):
+                    regs[code.destination] = brillig_int_op(
+                        code.op, regs.get(code.lhs, 0), regs.get(code.rhs, 0), code.bit_size, p)
+                else:
+                    raise NotImplementedError(type(code).__name__)
+            active = block.predicate is None or value(block.predicate)
+            for i, out in enumerate(block.outputs):
+                w[int(out.witness)] = regs.get(i, 0) if active else 0
+            continue
+        if isinstance(op, ops.OpcodeMemoryInit):
+            mem[op.block_id.id] = [w[int(x)] for x in op.init]
+            continue
+        if isinstance(op, ops.OpcodeMemoryOp):
+            block, m = mem[op.block_id.id], op.op
+            idx = value(m.index)
+            active = op.predicate is None or value(op.predicate) != 0
+            in_bounds = idx < len(block)
+            bad = idx >= 1 << 64 or (active and not in_bounds)
+            lin = m.value.linear_combinations
+            target = lin[0][1] if (len(lin) == 1 and lin[0][0].value == 1 and not m.value.mul_terms
+                                   and not m.value.q_c.value) else None
+            if value(m.operation) == 0:
+                if target is None or int(target) in w:
+                    bad = True  # a read must assign a witness
+                else:
+                    w[int(target)] = block[idx] if active and in_bounds else 0
+            elif active:
+                known = target is None or int(target) in w
+                bad = bad or not known
+                if in_bounds:
+                    block[idx] = value(m.value) if known else 0
+            if bad and failed is None:
+                failed = index
+            continue
         if isinstance(op, ops.OpcodeBlackBoxFuncCall):
             call = op.call
             if isinstance(call, ops.BBRange):
@@ -179,9 +281,10 @@ def main() -> int:
     from acvm_tpu_torch.fields.torch_ops import LimbContext
     from acvm_tpu_torch.gpu import intops
     from acvm_tpu_torch.utils import (
-        build_gadget_circuit, build_u32_circuit, build_wide_arith_circuit, columnar_instance,
-        divmod_edge_operands, divmod_word_grid, gadget_inputs_columnar, random_inputs, u32_inputs,
-        with_repeated_constraints,
+        array_inputs, brillig_ops_inputs, build_array_circuit, build_brillig_ops_circuit,
+        build_gadget_circuit, build_sha256_circuit, build_u32_circuit, build_wide_arith_circuit,
+        columnar_instance, divmod_edge_operands, divmod_word_grid, gadget_inputs_columnar,
+        random_inputs, sha256_inputs, u32_inputs, with_repeated_constraints,
     )
     from acvm_tpu_torch.utils.ec_points import exceptional_panel
 
@@ -748,6 +851,31 @@ def main() -> int:
             assert not bad, f"instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
             assert len(want) == circuit.num_vars() - 1  # every witness but index 0
 
+    def dot_check(W, pack, params):
+        """mont_dot against its plain version on the operands eval_exprs
+        gathers from the panel W for a packed expression panel."""
+        E, B = pack["qc"].shape[0], W.shape[1]
+        n, m = pack["lin_idx"].shape[1], pack["mul_idx"].shape[1]
+
+        def take(idx, t):
+            return W.index_select(0, idx.reshape(-1)).reshape(E, t, B, 8) if t else None
+
+        args = (take(pack["lin_idx"], n), pack["lin_coeff"] if n else None,
+                take(pack["mul_idx"][:, :, 0], m), take(pack["mul_idx"][:, :, 1], m),
+                pack["mul_coeff"] if m else None, pack["qc"], None, params)
+        err = max_abs_err(fk.mont_dot(*args), fk.mont_dot_plain(*args))
+        return dict(shape=f"E={E}, T1={n}, T2={m}, B={B}", max_abs_err=err)
+
+    def level_check(W, buf, params):
+        """The level kernel against its plain version on a solved panel: the
+        level's gates read only earlier witnesses, so both solve them again."""
+        t1, t2 = buf["t1"], buf["t2"]
+        got = fused_level_call(W.clone(), buf["desc"], params, t1, t2)
+        want = fused_level_plain(W.clone(), buf["desc"], params, t1, t2, gate_chunk=512)
+        err = max_abs_err(got, want)
+        return dict(shape=f"E={buf['desc'].shape[0]}, T1={t1}, T2={t2}, NW={W.shape[0]}, B={W.shape[1]}",
+                    max_abs_err=err)
+
     def timed_rate(fn, work, reps=5):
         """work / median wall seconds of fn(), which must end synchronized."""
         fn()
@@ -1230,9 +1358,198 @@ def main() -> int:
     del state, solver
     torch.cuda.empty_cache()
 
-    # -- 9. kernels, 10. card, 11. verdict -------------------------------------------
+    # -- 9. path_sha ------------------------------------------------------------------
+    # The compiler's SHA-256 fallback (28,980 opcodes: 8,297 straight-line
+    # Brillig hints, range checks, AND/XOR, Quotient, ToLeRadix) over 4,096
+    # random 32-byte messages, columnar.  Outputs of two instances against
+    # hashlib, their full witness maps against the evaluator; one divmod launch
+    # a Quotient level and no plain division on the card.
+    sha_B = 4096
+    circuit = build_sha256_circuit(32)
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    cols = sha256_inputs(sha_B)
+    build.reset_launches()
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    res = solver.solve(cols)
+    torch.cuda.synchronize()
+    sha_launches = dict(build.LAUNCHES)
+    plain_on_card = intops.PLAIN_ON_CARD["long_divmod"]
+    levels = [lv for seg in solver.segments for lv in seg.levels]
+    quotient_levels = sum("quotient" in lv["kinds"] for lv in levels)
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    assert sha_launches["divmod"] == quotient_levels == 748 and plain_on_card == 0, sha_launches
+    for name in ("dot", "mul", "level"):
+        assert sha_launches[name] > 0, sha_launches
+    for b in (0, sha_B - 1):
+        inst, got = columnar_instance(cols, b), res.instance_ints(b)
+        digest = bytes(got[33 + i] for i in range(32))
+        assert digest == hashlib.sha256(bytes(inst[i + 1] for i in range(32))).digest(), b
+        want, failed = evaluate(circuit, inst, P)
+        assert failed is None and len(want) == circuit.num_vars() - 1, (b, failed)
+        bad = [k for k, v in want.items() if got[k] != v]
+        assert not bad, f"sha instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
+    blocks = sum(len(lv.brillig) for lv in solver.plan.levels)
+    groups = sum(len(lv.get("brillig", [])) for lv in levels)
+
+    # Each kernel of the path against its plain version, tolerance 0, at this
+    # path's own shapes (B = 4,096, a few blocks a group): the operands of the
+    # widest Brillig input panel that reads witnesses (a constant-only panel
+    # launches nothing), of the largest Quotient level, of the field Mul of
+    # the largest group that has one (and its to_mont), and the largest
+    # static level, all taken again from the solved panel.
+    from acvm_tpu_torch import brillig as br
+    from acvm_tpu_torch.gpu.brillig_trace import BrilligProgram, trace_brillig
+
+    ctx, params = solver.ctx, solver.ctx.params
+    brillig_bufs = [buf for lv in levels for buf in lv.get("brillig", [])]
+    widest = max((pack for buf in brillig_bufs for pack in buf["inputs"]
+                  if pack["lin_idx"].shape[1] or pack["mul_idx"].shape[1]),
+                 key=lambda pack: pack["qc"].shape[0])
+    sha_checks = {"dot": dot_check(res.panel, widest, params)}
+    quot = max((lv["quotient"] for lv in levels if "quotient" in lv["kinds"]),
+               key=lambda q: q["q_idx"].shape[0])
+    qa, qb = eval_exprs(ctx, res.panel, quot["a"]), eval_exprs(ctx, res.panel, quot["b"])
+    errs = [max_abs_err(x, y) for x, y in zip(intops.long_divmod(qa, qb), intops.long_divmod_plain(qa, qb))]
+    sha_checks["divmod"] = dict(shape=f"G={qa.shape[0]}, B={qa.shape[1]}, num_bits=256", max_abs_err=max(errs))
+    mul_at = [(buf, i) for buf in brillig_bufs for i, st in enumerate(buf["program"].steps)
+              if st.bit_size is None and st.op == br.BinaryFieldOp.Mul]
+    buf, i = max(mul_at, key=lambda t: t[0]["out_idx"][0].shape[0])
+    step = buf["program"].steps[i]
+    a, b = trace_brillig(ctx, BrilligProgram(buf["program"].steps[:i], [step.lhs, step.rhs]),
+                         [eval_exprs(ctx, res.panel, pack) for pack in buf["inputs"]])
+    am = ctx.to_mont(a)
+    errs = [max_abs_err(am, fk.mont_mul_plain(a, ctx.r2_limbs, params)),
+            max_abs_err(fk.mont_mul(am, b, params), fk.mont_mul_plain(am, b, params))]
+    sha_checks["mul"] = dict(shape=f"G={a.shape[0]}, B={a.shape[1]}, b {tuple(b.shape)}",
+                             max_abs_err=max(errs))
+    static = max((lv["arith_static"] for lv in levels if "arith_static" in lv["kinds"]),
+                 key=lambda s_: s_["desc"].shape[0])
+    sha_checks["level"] = level_check(res.panel, static, params)
+    torch.cuda.synchronize()
+    assert all(c["max_abs_err"] == 0 for c in sha_checks.values()), sha_checks
+    del qa, qb, a, b, am
+
+    state = solver.initial_state(cols)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), sha_B, reps=3)
+    rate_full, secs_full = timed_rate(lambda: solver.solve(cols), sha_B, reps=3)
+    if want_profile:
+        emit({"profile_sha": profile(device_solve_of(solver, state, torch), secs)})
+        # The same solve with one trace a Brillig block, not one a group: what
+        # the grouping saves.
+        one_a_block = BatchSolver(solver.plan, group_stages=False)
+        _, block_secs = timed_rate(device_solve_of(one_a_block, state, torch), sha_B, reps=1)
+        emit({"profile_sha_one_trace_a_block": profile(device_solve_of(one_a_block, state, torch),
+                                                       block_secs)})
+        del one_a_block
+    emit({"path_sha": {
+        "opcodes": len(circuit.opcodes), "witnesses": circuit.num_vars() - 1, "batch": sha_B,
+        "levels": len(levels), "quotient_levels": quotient_levels, "brillig_blocks": blocks,
+        "brillig_groups": groups, "ok": True, "checked_instances": [0, sha_B - 1],
+        "kernels_against_plain": sha_checks,
+        "launches": sha_launches, "launches_all_port_kernels": sum(sha_launches.values()),
+        "plain_divmod_on_card": plain_on_card, "plan_and_pack_seconds": plan_seconds,
+        "sha256_solves_per_sec": rate, "solve_seconds": secs,
+        "sha256_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+        "panel_bytes": solver.panel_bytes(sha_B)}})
+    del state, res, solver
+    torch.cuda.empty_cache()
+
+    # -- 10. path_mem -----------------------------------------------------------------
+    # Noir arrays at runtime indices: 8 blocks of 1,024 entries, 32 rounds of
+    # read, multiply-add and write a block, 4 final reads a block, a read under a
+    # predicate, a read and a write under runtime selectors; 1,024 instances,
+    # one of them with an index one past its block at the middle memory opcode.
+    mem_B, mem_bad = 1024, 5
+    circuit = build_array_circuit()
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    cols, fail_op = array_inputs(circuit, mem_B, fail_instance=mem_bad)
+    build.reset_launches()
+    res = solver.solve(cols)
+    torch.cuda.synchronize()
+    mem_launches = dict(build.LAUNCHES)
+    want_fail = [int(FAIL_NONE)] * mem_B
+    want_fail[mem_bad] = fail_op
+    assert res.fail.tolist() == want_fail and res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+    for name in ("level", "dot"):
+        assert mem_launches[name] > 0, mem_launches
+    for b in (0, mem_bad, mem_B - 1):
+        want, failed = evaluate(circuit, columnar_instance(cols, b), P)
+        assert failed == (fail_op if b == mem_bad else None), (b, failed)
+        got = res.instance_ints(b)
+        assert len(want) == circuit.num_vars() - 1
+        bad = [k for k, v in want.items() if got[k] != v]
+        assert not bad, f"array instance {b}: {len(bad)} witnesses differ, first {bad[:3]}"
+    opcodes = len(circuit.opcodes)
+    levels = [lv for seg in solver.segments for lv in seg.levels]
+
+    # Each kernel of the path against its plain version, tolerance 0, at this
+    # path's shapes: the init level (8,192 static gates) and the index panel
+    # of the largest memory group, taken again from the solved panel.
+    params = solver.ctx.params
+    init = max((lv["arith_static"] for lv in levels if "arith_static" in lv["kinds"]),
+               key=lambda s_: s_["desc"].shape[0])
+    group = max((buf for lv in levels for buf in lv.get("memory", []) if buf["kind"] == "op"),
+                key=lambda buf: buf["k"].shape[0])
+    mem_checks = {"level": level_check(res.panel, init, params),
+                  "dot": dot_check(res.panel, group["index"], params)}
+    torch.cuda.synchronize()
+    assert all(c["max_abs_err"] == 0 for c in mem_checks.values()), mem_checks
+
+    state = solver.initial_state(cols)
+    rate, secs = timed_rate(device_solve_of(solver, state, torch), opcodes * mem_B)
+    rate_full, secs_full = timed_rate(lambda: solver.solve(cols), opcodes * mem_B, reps=3)
+    if want_profile:
+        emit({"profile_mem": profile(device_solve_of(solver, state, torch), secs)})
+    emit({"path_mem": {
+        "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": mem_B,
+        "blocks": len(solver.memory_slots), "block_size": 1024, "levels": len(levels),
+        "memory_groups": sum(len(lv.get("memory", [])) for lv in levels),
+        "memory_opcodes": sum(len(lv.memory) for lv in solver.plan.levels),
+        "ok": True, "checked_instances": [0, mem_bad, mem_B - 1],
+        "failing_instance": {"instance": mem_bad, "fail": fail_op},
+        "kernels_against_plain": mem_checks,
+        "launches": mem_launches, "launches_all_port_kernels": sum(mem_launches.values()),
+        "plan_and_pack_seconds": plan_seconds,
+        "mem_solves_per_sec": rate, "solve_seconds": secs,
+        "mem_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+        "panel_bytes": solver.panel_bytes(mem_B)}})
+    del state, res, solver
+    torch.cuda.empty_cache()
+
+    # -- 11. brillig_ops --------------------------------------------------------------
+    # One straight-line block for each Brillig op (5 field, 13 int at 1-256
+    # bits) over 2,048 instances of edge values, every witness of every
+    # instance against the evaluator.  Field Div reaches pow, the divisions and
+    # the reduction of 254- and 256-bit results reach divmod.
+    ops_B = 2048
+    circuit = build_brillig_ops_circuit()
+    cols = brillig_ops_inputs(ops_B)
+    build.reset_launches()
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    res = BatchSolver(plan_circuit(circuit)).solve(cols)
+    torch.cuda.synchronize()
+    ops_launches = dict(build.LAUNCHES)
+    assert res.ok.all() and intops.PLAIN_ON_CARD["long_divmod"] == 0
+    assert ops_launches["pow"] > 0 and ops_launches["divmod"] > 0 and ops_launches["mul"] > 0
+    nw = circuit.num_vars()
+    ints = fk.limbs32_to_ints(res.panel.cpu().numpy())  # witness-major
+    for b in range(ops_B):
+        want, failed = evaluate(circuit, columnar_instance(cols, b), P)
+        assert failed is None and len(want) == nw - 1
+        bad = [k for k, v in want.items() if ints[k * ops_B + b] != v]
+        assert not bad, f"brillig ops instance {b}: witnesses {bad[:3]} differ"
+    emit({"brillig_ops": {"blocks": len(circuit.opcodes), "batch": ops_B, "ok": True,
+                          "checked_instances": ops_B, "launches": ops_launches}})
+    del res
+
+    # -- 12. kernels, 13. card, 14. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
-             **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches}
+             **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
+             "sha": sha_launches, "mem": mem_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]

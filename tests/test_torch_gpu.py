@@ -7,6 +7,8 @@ import nothing of JAX:
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,15 +18,22 @@ from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
 from acvm_tpu_torch.gpu import BatchSolver, intops, plan_circuit
 from acvm_tpu_torch.utils import (
+    array_inputs,
+    brillig_ops_inputs,
+    build_array_circuit,
+    build_brillig_ops_circuit,
     build_gadget_circuit,
     build_quotient_circuit,
+    build_sha256_circuit,
     build_u32_circuit,
+    build_uint_ops_circuit,
     build_wide_arith_circuit,
     divmod_edge_operands,
     divmod_word_grid,
     gadget_inputs_columnar,
     quotient_edge_inputs,
     random_inputs,
+    sha256_inputs,
     u32_inputs,
     with_repeated_constraints,
 )
@@ -303,3 +312,38 @@ def test_integer_solver_on_card_equals_solver_on_cpu(card):
     assert build.LAUNCHES["divmod"] == 1 and intops.PLAIN_ON_CARD["long_divmod"] == 0
     cpu = BatchSolver(plan, device="cpu").solve(inputs)
     assert torch.equal(gpu.panel.cpu(), cpu.panel) and gpu.ok.all() and cpu.ok.all()
+
+
+def test_brillig_and_memory_solver_on_card_equals_solver_on_cpu(card):
+    """Straight-line Brillig blocks (every op on edge values, the stdlib's
+    UIntGadget) and memory blocks (the array circuit with a failing
+    instance): panel, flags and memory blocks equal to the CPU solve."""
+    array = build_array_circuit(num_blocks=3, block_size=16, rounds=4, final_reads=2, num_seeds=4)
+    uint, _ = build_uint_ops_circuit()
+    cases = [(build_brillig_ops_circuit(), brillig_ops_inputs(256)),
+             (array, array_inputs(array, 100, fail_instance=7)[0]),
+             (uint, [{1: x, 2: y} for x, y in ((5, 3), (0xFFFFFFFF, 2), (7, 0), (0, 1))])]
+    build.reset_launches()
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    for circuit, inputs in cases:
+        plan = plan_circuit(circuit)
+        gpu = BatchSolver(plan).solve(inputs)
+        cpu = BatchSolver(plan, device="cpu").solve(inputs)
+        assert torch.equal(gpu.panel.cpu(), cpu.panel)
+        assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+        blocks = cpu.memory_blocks()
+        assert all(torch.equal(v.cpu(), blocks[k]) for k, v in gpu.memory_blocks().items())
+    assert intops.PLAIN_ON_CARD["long_divmod"] == 0
+    assert all(build.LAUNCHES[k] > 0 for k in ("dot", "divmod", "pow", "mul", "level")), build.LAUNCHES
+
+
+def test_sha256_fallback_on_card_equals_hashlib(card):
+    circuit, B = build_sha256_circuit(32), 64
+    cols = sha256_inputs(B)
+    intops.PLAIN_ON_CARD["long_divmod"] = 0
+    res = BatchSolver(plan_circuit(circuit)).solve(cols)
+    assert res.ok.all() and intops.PLAIN_ON_CARD["long_divmod"] == 0
+    digests = [res.witness_ints(33 + i) for i in range(32)]
+    for b in range(B):
+        message = bytes(int(cols[i + 1][b]) for i in range(32))
+        assert bytes(d[b] for d in digests) == hashlib.sha256(message).digest(), b

@@ -27,6 +27,7 @@ from acvm_tpu.pwg import ACVM, ACVMStatus
 from acvm_tpu.tpu import BatchSolver as JBatchSolver, plan_circuit as jplan_circuit
 from acvm_tpu.tpu import intops as jintops
 
+from acvm_tpu_torch import brillig as br
 from acvm_tpu_torch.acir import Circuit, Expression, Witness
 from acvm_tpu_torch.acir import opcodes as ops
 from acvm_tpu_torch.convert import limbs16_to_limbs32, limbs32_to_limbs16
@@ -222,19 +223,26 @@ def unported_opcode(kind):
     if kind == "ecdsa":
         return ops.OpcodeBlackBoxFuncCall(ops.BBEcdsaSecp256k1(
             [fi(1, 8)] * 32, [fi(1, 8)] * 32, [fi(1, 8)] * 64, [fi(1, 8)] * 32, Witness(2)))
-    if kind == "memory":
-        return ops.OpcodeMemoryInit(block_id=ops.BlockId(0), init=[Witness(1)])
+    # Brillig blocks the planner cannot trace go to a host stage: a jump, or a
+    # foreign call.
+    if kind == "brillig_jump":
+        bytecode = [br.OpJump(1), br.OpStop()]
+    else:
+        bytecode = [br.OpForeignCall("oracle", (br.RomRegister(br.RegisterIndex(0)),), ()),
+                    br.OpStop()]
     return ops.OpcodeBrillig(ops.Brillig(
         inputs=[], outputs=[ops.BrilligOutputSimple(Witness(2))], foreign_call_results=[],
-        bytecode=[], predicate=None))
+        bytecode=bytecode, predicate=None))
 
 
 @pytest.mark.parametrize("kind,what", [("hashes", "hash gadgets"), ("ecdsa", "ECDSA verification"),
-                                       ("memory", "memory blocks"), ("brillig", "Brillig blocks")])
+                                       ("brillig_jump", "host stages"),
+                                       ("brillig_foreign_call", "host stages")])
 def test_other_unported_kinds_still_raise(kind, what):
     circuit = Circuit(current_witness_index=40, opcodes=[unported_opcode(kind)],
                       private_parameters={Witness(1)})
-    with pytest.raises(NotImplementedError, match=rf"^BatchSolver: {what} \(Level.{kind}\) are not ported"):
+    field = "host" if kind.startswith("brillig") else kind
+    with pytest.raises(NotImplementedError, match=rf"^BatchSolver: {what} \(Level.{field}\) are not ported"):
         BatchSolver(plan_circuit(circuit), device="cpu")
 
 
@@ -292,9 +300,9 @@ def test_zero_out_writes_zeros():
         private_parameters={Witness(1)},
     )
     solver = BatchSolver(plan_circuit(circuit), device="cpu")
-    W, ok, fail = solver.initial_state([{1: 11}, {1: P - 1}])
+    W, ok, fail, mem = solver.initial_state([{1: 11}, {1: P - 1}])
     W[2:4] = 123  # junk where the outputs go: the level must overwrite it
-    W, ok, fail = solver.run_segments((W, ok, fail))
+    W, ok, fail, mem = solver.run_segments((W, ok, fail, mem))
     assert fk.limbs32_to_ints(W[2:4].numpy()) == [0] * 4
     assert fk.limbs32_to_ints(W[4].numpy()) == [11, P - 1] and ok.all()
 

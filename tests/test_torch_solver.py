@@ -19,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from acvm_tpu import acir as jacir
 from acvm_tpu.acir import Witness as JWitness, WitnessMap as JWitnessMap
+from acvm_tpu.acir import opcodes as jops
 from acvm_tpu.blackbox import StubBlackBoxSolver
 from acvm_tpu.fields import FieldElement as JFieldElement
 from acvm_tpu.pwg import ACVM, ACVMStatus
 from acvm_tpu.tpu import BatchSolver as JBatchSolver, plan_circuit as jplan_circuit
 from acvm_tpu.utils import build_wide_arith_circuit as jbuild, random_inputs as jrandom_inputs
 
+from acvm_tpu_torch import brillig as br
 from acvm_tpu_torch import convert
 from acvm_tpu_torch.acir import Circuit, Expression, Witness
 from acvm_tpu_torch.acir import opcodes as ops
@@ -33,7 +36,7 @@ from acvm_tpu_torch.fields.field import FieldElement
 from acvm_tpu_torch.fields.params import BN254_FR
 from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
 from acvm_tpu_torch.utils import (
-    build_wide_arith_circuit, random_inputs, with_repeated_constraints,
+    PORT_CLASSES, build_wide_arith_circuit, random_inputs, with_repeated_constraints,
 )
 
 P = BN254_FR.modulus
@@ -298,17 +301,49 @@ def test_check_and_dyn_failures(check_result, instance):
 
 
 def test_unsupported_opcode_kind_raises():
+    """A straight-line Brillig block with an array output: the VM would read
+    it from its memory, which the trace does not hold."""
     circuit = Circuit(
-        current_witness_index=2,
-        opcodes=[
-            ops.OpcodeMemoryInit(block_id=ops.BlockId(0), init=[Witness(1)]),
-            ops.OpcodeArithmetic(Expression(
-                linear_combinations=[(FieldElement(1), Witness(1)), (-FieldElement(1), Witness(2))])),
-        ],
+        current_witness_index=3,
+        opcodes=[ops.OpcodeBrillig(ops.Brillig(
+            inputs=[ops.BrilligInputSingle(Expression.from_witness(Witness(1)))],
+            outputs=[ops.BrilligOutputArray([Witness(2), Witness(3)])], foreign_call_results=[],
+            bytecode=[br.OpStop()], predicate=None))],
         private_parameters={Witness(1)},
     )
-    with pytest.raises(NotImplementedError, match=r"memory blocks \(Level.memory\)"):
+    with pytest.raises(NotImplementedError, match=r"opcode 0 has array inputs or outputs"):
         BatchSolver(plan_circuit(circuit), device="cpu")
+
+
+def memory_circuit(lib):
+    """The circuit the port refused before memory blocks: MemoryInit of [w1],
+    a read of entry 0 into w3, then w2 = w1 + w3."""
+    o, W, f = lib.opcodes, lib.Witness, lib.FieldElement
+    return lib.Circuit(
+        current_witness_index=3,
+        opcodes=[
+            o.OpcodeMemoryInit(block_id=o.BlockId(0), init=[W(1)]),
+            o.OpcodeMemoryOp(o.BlockId(0), o.MemOp.read_at_mem_index(lib.Expression.zero(), W(3)),
+                             None),
+            o.OpcodeArithmetic(lib.Expression(linear_combinations=[
+                (f(1), W(1)), (f(1), W(3)), (-f(1), W(2))])),
+        ],
+        private_parameters={W(1)},
+    )
+
+
+def test_memory_circuit_solves_as_sequential_engine():
+    jlib = type(PORT_CLASSES)(Circuit=jacir.Circuit, Expression=jacir.Expression,
+                              Witness=JWitness, FieldElement=JFieldElement, opcodes=jops)
+    values = [0, 7, P - 1]
+    res = BatchSolver(plan_circuit(memory_circuit(PORT_CLASSES)), device="cpu").solve(
+        [{1: v} for v in values])
+    assert res.ok.all() and (res.fail == FAIL_NONE).all()
+    for b, v in enumerate(values):
+        status, acvm = sequential(memory_circuit(jlib), {1: v})
+        assert status == ACVMStatus.SOLVED
+        assert res.instance_ints(b)[1:] == [int(acvm.finalize().get(JWitness(w))) for w in (1, 2, 3)]
+        assert res.witness_ints(2)[b] == 2 * v % P
 
 
 def test_unported_options_raise(case):
