@@ -220,10 +220,9 @@ def pedersen_compress(inputs: List[FieldElement], domain_separator: int = 0) -> 
 
 # Optional externally-supplied challenge function (r_x, (pub_x, pub_y),
 # message) -> int.  Lets deployments that know barretenberg's exact challenge
-# construction get bit-exact Schnorr through the host code; a Python hook
-# cannot run inside the device pipeline, so while one is set the planner
-# refuses SchnorrVerify gates (their host stage is not part of this package
-# yet).
+# construction get bit-exact Schnorr through the host code; when set, the
+# planner routes SchnorrVerify gates to host stages (a Python hook cannot run
+# inside the device pipeline).
 _SCHNORR_CHALLENGE_HOOK = None
 
 

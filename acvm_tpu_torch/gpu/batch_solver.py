@@ -28,24 +28,36 @@ the slabs of one size stacked as ``(K, size, B, 8)``, so a level's opcodes on
 several blocks of one size gather and scatter together.  PyTorch runs
 eagerly, so a solve is a Python loop over the plan's levels.
 
-Anything else a plan can hold — hashes, ECDSA, host stages (among them a
-ToLeRadix of another radix, PermutationSort and Brillig blocks with jumps,
-memory or foreign calls) — and every ingest form or scaling option not listed
-in :meth:`BatchSolver.solve` raises ``NotImplementedError`` naming what is
-missing, at construction where it can be known then.
+The plan's levels form *segments*: a level with host stages closes one.  The
+host stages (a ToLeRadix of another radix, PermutationSort, Brillig blocks the
+trace does not run, foreign calls, hooked Schnorr, hash gadgets the device
+does not run) read their witnesses off the panel in one gather and one copy,
+run on the host (batched over the instances as object arrays where
+:mod:`acvm_tpu_torch.gpu.host_batch` has a route, else instance by instance
+through the sequential solvers of :mod:`acvm_tpu_torch.pwg`) and write back
+in one scatter.  A branchy Brillig block that the JAX package runs on its
+device VM raises ``NotImplementedError``: that VM is not ported yet.
+
+Anything else a plan can hold — hashes and ECDSA planned for the device — and
+every scaling option not listed in :meth:`BatchSolver.solve` raises
+``NotImplementedError`` naming what is missing, at construction where it can
+be known then.
 """
 
 from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import brillig as br
+from ..acir import opcodes as ops
 from ..acir.witness import Witness, WitnessMap
+from ..blackbox import BlackBoxFunctionSolver, GrumpkinSolver
 from ..convert import limbs32_to_limbs16
 from ..fields.field import FieldElement
 from ..blackbox.ec import grumpkin
@@ -62,10 +74,15 @@ from ..fields.kernels import (
 )
 from ..fields.params import BN254_FR
 from ..fields.torch_ops import LimbContext, geq
-from . import ec, intops
+from ..pwg import blackbox as bb_dispatch
+from ..pwg.brillig_solver import BrilligSolver
+from ..pwg.directives import solve_directives
+from ..pwg.errors import OpcodeResolutionError
+from ..utils.profiling import SolveStats, Timer
+from . import ec, host_batch, intops
 from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
 from .fused_level import fused_level_call, pack_level_desc
-from .planner import ExprPlan, Level, MemoryInitStage, Plan
+from .planner import ExprPlan, HostStage, Level, MemoryInitStage, Plan
 
 # Per-instance first-failure sentinel: "no failure yet".  The batch path's
 # analogue of the reference's located errors (acvm/src/pwg/mod.rs:282-299):
@@ -74,11 +91,12 @@ from .planner import ExprPlan, Level, MemoryInitStage, Plan
 # assert message.
 FAIL_NONE = np.int32(2**31 - 1)
 
-# Level fields this slice does not run yet, with what each one waits for.
+# Level fields this package does not run on the device yet: what each holds,
+# and the route that solves it today.
 _UNPORTED_LEVEL_FIELDS = {
-    "hashes": "hash gadgets",
-    "ecdsa": "ECDSA verification",
-    "host": "host stages",
+    "hashes": ("hash gadgets", "; plan with a config whose device_hash_kernels "
+               "is False to run them as host stages"),
+    "ecdsa": ("ECDSA verification", ""),
 }
 
 
@@ -156,6 +174,85 @@ def _pack_to_device(pack: Dict[str, np.ndarray], device) -> Dict[str, torch.Tens
             t = t.to(torch.int64)
         out[key] = t.to(device)
     return out
+
+
+def _widen_narrow(t: torch.Tensor) -> torch.Tensor:
+    """A uint8 or uint16 tensor -> int32 of the same values, on its device.
+    torch's uint16 has few operations (none but copies on CUDA), so it is
+    reinterpreted as int16 and masked."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+def _limb_cols_to_object(sel: np.ndarray) -> np.ndarray:
+    """(C, B, 8) int32 limb columns -> (B, C) object Python ints.
+
+    Host stages do arbitrary-precision math on object arrays.  Columns below
+    2^64 (limbs 2-7 zero: the byte and integer hint inputs, the common case)
+    compose in vectorized uint64 and box once; a wider column converts through
+    bytes, one ``int.from_bytes`` an element, with no loop over its limbs."""
+    C, B, _ = sel.shape
+    ints = np.zeros((B, C), dtype=object)
+    if C == 0:
+        return ints
+    u = sel.view(np.uint32)
+    wide = u[:, :, 2:].any(axis=(1, 2))  # (C,)
+    narrow = np.nonzero(~wide)[0]
+    if narrow.size:
+        v = u[narrow, :, 0].astype(np.uint64) | (u[narrow, :, 1].astype(np.uint64) << np.uint64(32))
+        ints[:, narrow] = v.T.astype(object)
+    for c in np.nonzero(wide)[0]:
+        ints[:, c] = limbs32_to_ints(sel[c])
+    return ints
+
+
+def _object_cols_to_limbs(out_vals: np.ndarray) -> np.ndarray:
+    """(B, C) object ints (non-negative, below 2^256) -> (C, B, 8) int32
+    limbs, with the same uint64 fast path a column as
+    :func:`_limb_cols_to_object` (a value of 2^64 or more raises
+    OverflowError out of the vectorized cast, and the column goes through
+    bytes)."""
+    B, C = out_vals.shape
+    limbs = np.zeros((C, B, LIMBS), dtype=np.uint32)
+    for c in range(C):
+        col = out_vals[:, c]
+        try:
+            v64 = col.astype(np.uint64)
+        except OverflowError:
+            limbs[c] = ints_to_limbs32(col).view(np.uint32)
+            continue
+        limbs[c, :, 0] = v64 & np.uint64(0xFFFFFFFF)
+        limbs[c, :, 1] = v64 >> np.uint64(32)
+    return limbs.view(np.int32)
+
+
+# A foreign-call handler's answer -> the VM's ForeignCallResult (the JAX
+# package's api.py:86-105; this package's api module is not ported yet).
+ForeignCallHandler = Callable[[str, List[List[FieldElement]]], Sequence[object]]
+
+
+def _to_field(value) -> FieldElement:
+    if isinstance(value, FieldElement):
+        return value
+    if isinstance(value, int):
+        return FieldElement(value)
+    if isinstance(value, str):
+        f = FieldElement.from_hex(value)
+        if f is None:
+            raise ValueError(f"invalid hex field element: {value!r}")
+        return f
+    raise TypeError(f"cannot convert {value!r} to a field element")
+
+
+def _decode_foreign_call_result(outputs: Sequence[object]) -> br.ForeignCallResult:
+    values = []
+    for output in outputs:
+        if isinstance(output, (list, tuple)):
+            values.append(br.FcArray(tuple(br.Value(_to_field(v)) for v in output)))
+        else:
+            values.append(br.FcSingle(br.Value(_to_field(output))))
+    return br.ForeignCallResult(tuple(values))
 
 
 # ---------------------------------------------------------------------------
@@ -445,10 +542,18 @@ def run_brillig(ctx, W, ok, buf, dot_kernel="v2"):
 @dataclass
 class _Segment:
     levels: List[dict]  # packed device buffers per level
+    host_stages: List[HostStage]  # run after the device levels
 
 
 class BatchSolver:
-    """``dot_kernel`` picks the expression-evaluation route of the
+    """``backend`` solves the host stages' backend-dependent black-box calls
+    (Schnorr, Pedersen, fixed-base multiplication; default
+    :class:`GrumpkinSolver`); ``foreign_call_handler(name, inputs)`` answers
+    the foreign calls of a host stage's Brillig blocks, instance by instance
+    (without one, an instance that reaches a foreign call fails at that
+    opcode).
+
+    ``dot_kernel`` picks the expression-evaluation route of the
     dynamic-denominator and assert-zero levels: ``"v2"`` (the fused dot, the
     default) or ``"v1"`` (the first-generation multiply and dot, BN254 only).
     Both give the same bits.
@@ -456,15 +561,24 @@ class BatchSolver:
     ``group_stages`` (the default) runs a level's Brillig blocks of one
     bytecode as one trace and its memory opcodes on blocks of one size as one
     gather and scatter; ``False`` runs each block and each opcode alone, as
-    the JAX package does: the same bits in more launches."""
+    the JAX package does: the same bits in more launches.
+
+    ``host_batch`` (the default) runs a host stage batched over the instances
+    where :mod:`.host_batch` has a route (straight-line Brillig, a general
+    ToLeRadix, PermutationSort); ``False`` runs every host stage instance by
+    instance through the sequential solvers: the same bits, slower (the JAX
+    package's ``ACVM_TPU_NO_HOST_BATCH``)."""
 
     def __init__(
         self,
         plan: Plan,
+        backend: Optional[BlackBoxFunctionSolver] = None,
+        foreign_call_handler: Optional[ForeignCallHandler] = None,
         mesh=None,
         device="cuda",
         dot_kernel: str = "v2",
         group_stages: bool = True,
+        host_batch: bool = True,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -478,9 +592,12 @@ class BatchSolver:
                 f"kernel, which knows BN254 only, not {plan.params.name}"
             )
         self.plan = plan
+        self.backend = backend or GrumpkinSolver()
+        self.foreign_call_handler = foreign_call_handler
         self.device = torch.device(device)
         self.dot_kernel = dot_kernel
         self.group_stages = group_stages
+        self.host_batch = host_batch
         self.ctx = LimbContext(plan.params, self.device)  # raises without a card
         # (domain, index) -> the Pedersen generator each device table was
         # built from, and whether a Schnorr gate was packed: solve() checks
@@ -495,14 +612,14 @@ class BatchSolver:
             self.memory_slots[block_id] = (size, self._memory_counts[size])
             self._memory_counts[size] += 1
         self.segments = self._build_segments()
+        self._check_host_stages()
 
     # -- packing ------------------------------------------------------------
     def _pack_level(self, level: Level) -> dict:
-        for field, what in _UNPORTED_LEVEL_FIELDS.items():
+        for field, (what, route) in _UNPORTED_LEVEL_FIELDS.items():
             if getattr(level, field):
                 raise NotImplementedError(
-                    f"BatchSolver: {what} (Level.{field}) are not ported; it "
-                    "solves arithmetic gates and the Grumpkin gadgets"
+                    f"BatchSolver: {what} (Level.{field}) are not ported{route}"
                 )
         dev = self.device
         packed: dict = {"kinds": []}
@@ -743,8 +860,9 @@ class BatchSolver:
             if st.output_array or any(kind != "single" for kind, _ in st.inputs):
                 raise NotImplementedError(
                     f"BatchSolver: the Brillig block at opcode {st.opcode_index} has "
-                    "array inputs or outputs, which need the VM's memory; host "
-                    "stages are not ported"
+                    "array inputs or outputs, which need the VM's memory; the JAX "
+                    "package's host path sends such a block to its device Brillig "
+                    "VM, which is not ported"
                 )
             key = (tuple(st.bytecode), len(st.inputs),
                    tuple(reg for reg, _ in st.output_simple), st.predicate is not None)
@@ -756,7 +874,8 @@ class BatchSolver:
             except BrilligTraceError as err:
                 raise NotImplementedError(
                     f"BatchSolver: the Brillig block at opcode {members[0].opcode_index} "
-                    f"cannot be traced ({err}); host stages are not ported"
+                    f"cannot be traced ({err}); plan with device_brillig_trace=False "
+                    "to run it as a host stage"
                 ) from None
             packs.append(dict(
                 program=program,
@@ -800,11 +919,47 @@ class BatchSolver:
             )
 
     def _build_segments(self) -> List[_Segment]:
-        """Levels between host stages form a segment.  Host stages are not
-        ported (``_pack_level`` raises on one), so today there is one segment;
-        the split is kept because it is where they will run."""
-        levels = [self._pack_level(level) for level in self.plan.levels]
-        return [_Segment(levels=levels)] if levels else []
+        """A level with host stages closes a segment: its device levels run,
+        then its host stages.  (The JAX package also closes a segment every
+        ``max_levels_per_segment`` levels, to bound the size of a jitted
+        program; eager PyTorch compiles nothing, so there is no such bound
+        here.)"""
+        segments: List[_Segment] = []
+        current = _Segment(levels=[], host_stages=[])
+        for level in self.plan.levels:
+            current.levels.append(self._pack_level(level))
+            if level.host:
+                current.host_stages = list(level.host)
+                segments.append(current)
+                current = _Segment(levels=[], host_stages=[])
+        if current.levels:
+            segments.append(current)
+        return segments
+
+    def _check_host_stages(self) -> None:
+        """Refuse, at construction, a Brillig block that the JAX package's
+        host path runs on its device VM (``tpu/brillig_vm_device.py``): branchy
+        bytecode of the VM's control and data opcodes over BN254, which
+        ``host_batch.brillig_batchable`` does not take.  That VM is not ported;
+        running such a block here instance by instance would hide it.  Under
+        ``host_batch=False`` the JAX package runs it instance by instance too,
+        and so does this solver."""
+        if not self.host_batch or self.plan.params != BN254_FR:
+            return
+        for segment in self.segments:
+            for stage in segment.host_stages:
+                for op_index in stage.opcode_indices:
+                    opcode = self.plan.circuit.opcodes[op_index]
+                    if (isinstance(opcode, ops.OpcodeBrillig)
+                            and not host_batch.brillig_batchable(opcode.brillig)
+                            and host_batch.device_vm_eligible(opcode.brillig)):
+                        raise NotImplementedError(
+                            f"BatchSolver: the Brillig block at opcode {op_index} "
+                            "(jumps, calls, memory or array inputs/outputs) runs on "
+                            "the JAX package's device Brillig VM, which is not "
+                            "ported; BatchSolver(..., host_batch=False) runs it "
+                            "instance by instance on the host"
+                        )
 
     # -- device execution ---------------------------------------------------
     def _run_level(self, W, ok, fail, mem, packed):
@@ -848,22 +1003,171 @@ class BatchSolver:
                 raise AssertionError(kind)
         return W, ok, fail
 
-    def run_segments(self, state):
-        """Run every level over a device state ``(W, ok, fail, mem)``; the
-        panel and the memory blocks are updated in place.  Nothing here waits
-        for the device."""
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run_segments(self, state, stats: Optional[SolveStats] = None):
+        """Run every segment over a device state ``(W, ok, fail, mem)``: its
+        device levels, then its host stages.  The panel and the memory blocks
+        are updated in place.  Only a host stage waits for the device (it
+        reads witnesses); with ``stats`` each segment's device levels also end
+        in a synchronize, so that their time is the device's."""
         W, ok, fail, mem = state
         for segment in self.segments:
-            for packed in segment.levels:
-                W, ok, fail = self._run_level(W, ok, fail, mem, packed)
+            if segment.levels:
+                with Timer() as t_seg:
+                    for packed in segment.levels:
+                        W, ok, fail = self._run_level(W, ok, fail, mem, packed)
+                    if stats is not None:
+                        self._sync()
+                if stats is not None:
+                    stats.segment_seconds.append(t_seg.elapsed)
+            if segment.host_stages:
+                with Timer() as t_host:
+                    W, ok, fail = self._run_host_stages(W, ok, fail, segment.host_stages, stats)
+                if stats is not None:
+                    stats.host_stage_seconds.append(t_host.elapsed)
         return W, ok, fail, mem
+
+    # -- host stages ---------------------------------------------------------
+    def _run_host_stages(self, W, ok, fail, stages: List[HostStage],
+                         stats: Optional[SolveStats] = None):
+        """Run one segment's host stages over the ``(NW, B, 8)`` panel.
+
+        The columns the stages read (``stage.reads``, else ``known_before``)
+        come off the device in one ``index_select`` and one copy and become
+        (B,) object arrays of Python ints, shared by the stages in order (a
+        later stage reads an earlier one's writes).  Each opcode runs batched
+        over the instances where :mod:`.host_batch` has a route, else
+        instance by instance through the sequential solvers; the writes go
+        back in one ``index_copy_``, with ``ok`` and ``fail``."""
+        dev = W.device
+        B = W.shape[1]
+        p = self.plan.params.modulus
+        ok_np = ok.cpu().numpy().copy()
+        fail_np = fail.cpu().numpy().copy()
+
+        # Only the witnesses the stages' opcodes read: known_before (every
+        # witness known at earlier levels) can be nearly the whole panel.
+        needed, writes = set(), set()
+        for stage in stages:
+            needed.update(stage.reads if stage.reads else stage.known_before)
+            writes.update(stage.writes)
+        cols = sorted(needed)
+        sel = W.index_select(0, torch.tensor(cols, dtype=torch.int64, device=dev))
+        ints = _limb_cols_to_object(sel.cpu().numpy())
+        col_arrays: Dict[int, np.ndarray] = {w: ints[:, i] for i, w in enumerate(cols)}
+
+        def get_col(w: int) -> np.ndarray:
+            return col_arrays[int(w)]
+
+        write_cols = sorted(writes)
+        wpos = {w: i for i, w in enumerate(write_cols)}
+        out_vals = np.zeros((B, len(write_cols)), dtype=object)
+
+        def store_writes(values: Dict[int, np.ndarray]) -> None:
+            for w, arr in values.items():
+                col_arrays[w] = arr
+                out_vals[:, wpos[w]] = arr
+
+        def run_batched(opcode, op_index: int) -> bool:
+            """The opcode over every instance at once, if host_batch has a
+            route for it; False where it has none."""
+            if isinstance(opcode, ops.OpcodeBrillig):
+                if host_batch.brillig_batchable(opcode.brillig):
+                    store_writes(host_batch.run_brillig_batch(opcode.brillig, get_col, B, p))
+                    return True
+                return False
+            if isinstance(opcode, ops.OpcodeDirective):
+                directive = opcode.directive
+                if isinstance(directive, ops.DirPermutationSort):
+                    store_writes(host_batch.run_permutation_sort_batch(directive, get_col, B, p))
+                    return True
+                if isinstance(directive, ops.DirToLeRadix):
+                    values, bad = host_batch.run_to_le_radix_batch(directive, get_col, B, p)
+                    store_writes(values)
+                    ok_np[bad] = False
+                    fail_np[bad] = np.minimum(fail_np[bad], np.int32(op_index))
+                    return True
+            return False
+
+        for stage in stages:
+            for op_index in stage.opcode_indices:
+                opcode = self.plan.circuit.opcodes[op_index]
+                if self.host_batch:
+                    try:
+                        if run_batched(opcode, op_index):
+                            continue
+                    except host_batch.HostBatchFallback:
+                        pass
+                self._run_stage_per_instance(stage, op_index, opcode, col_arrays, out_vals,
+                                             wpos, ok_np, fail_np)
+                if stats is not None:
+                    stats.host_per_instance_stages += 1
+
+        if write_cols:
+            limbs = torch.from_numpy(_object_cols_to_limbs(out_vals)).to(dev)
+            W.index_copy_(0, torch.tensor(write_cols, dtype=torch.int64, device=dev), limbs)
+        return W, torch.from_numpy(ok_np).to(dev), torch.from_numpy(fail_np).to(dev)
+
+    def _run_stage_per_instance(self, stage, op_index, opcode, col_arrays, out_vals, wpos,
+                                ok_np, fail_np) -> None:
+        """One host-stage opcode through the sequential solvers, instance by
+        instance (bit-exact with ``pwg.ACVM``).  An instance whose opcode
+        cannot be solved fails at it and gets zeros for what it did not
+        write."""
+        B = out_vals.shape[0]
+        # Reads only: pre-inserting a write column would turn the solver's
+        # own output insert into a spurious UnsatisfiedConstrain conflict.
+        stage_cols = sorted(
+            set(stage.reads if stage.reads else stage.known_before) - set(stage.writes)
+        )
+        for b in range(B):
+            wm = WitnessMap()
+            for w in stage_cols:
+                if w in col_arrays:
+                    wm.insert(Witness(w), FieldElement(int(col_arrays[w][b])))
+            try:
+                if isinstance(opcode, ops.OpcodeBlackBoxFuncCall):
+                    bb_dispatch.solve(self.backend, wm, opcode.call)
+                elif isinstance(opcode, ops.OpcodeDirective):
+                    solve_directives(wm, opcode.directive)
+                elif isinstance(opcode, ops.OpcodeBrillig):
+                    self._solve_brillig_instance(wm, opcode.brillig, op_index)
+                else:
+                    raise AssertionError(opcode)
+            except OpcodeResolutionError:
+                ok_np[b] = False
+                fail_np[b] = min(fail_np[b], op_index)
+            for w in stage.writes:
+                value = wm.get(Witness(w))
+                v = int(value) if value is not None else 0
+                out_vals[b, wpos[w]] = v
+                if w not in col_arrays:
+                    col_arrays[w] = np.zeros(B, dtype=object)
+                col_arrays[w][b] = v
+
+    def _solve_brillig_instance(self, wm: WitnessMap, brillig, op_index: int) -> None:
+        """One instance of a Brillig block, answering its foreign calls with
+        the handler.  The replay list is the instance's own: results of one
+        instance must not leak into the next (the reference consumes opcodes
+        per execution, pwg/mod.rs:139-152)."""
+        replay = list(brillig.foreign_call_results)
+        wait = BrilligSolver.solve(wm, brillig, self.backend, op_index, replay)
+        while wait is not None:
+            if self.foreign_call_handler is None:
+                raise OpcodeResolutionError("foreign call requires a handler in batched mode")
+            inputs = [[v.to_field() for v in group] for group in wait.inputs]
+            replay.append(_decode_foreign_call_result(
+                self.foreign_call_handler(wait.function, inputs)))
+            wait = BrilligSolver.solve(wm, brillig, self.backend, op_index, replay)
 
     # -- public API ----------------------------------------------------------
     def initial_state(self, input_values):
-        """Build (W, ok, fail, mem) from per-instance {witness_index: int}
-        dicts or the host columnar form {witness_index: (B,) array}.  ``fail``
-        starts at the FAIL_NONE sentinel and tracks the first failing opcode
-        index per instance; ``mem`` maps a block size to the zeroed
+        """Build (W, ok, fail, mem) from any input form :meth:`solve` takes.
+        ``fail`` starts at the FAIL_NONE sentinel and tracks the first failing
+        opcode index per instance; ``mem`` maps a block size to the zeroed
         ``(K, size, B, 8)`` stack of the K memory blocks of that size."""
         B, kwargs = self._pack_host(input_values)
         return self._finish_initial_state(B, **kwargs)
@@ -871,23 +1175,71 @@ class BatchSolver:
     def _pack_host(self, input_values):
         """The pure-host half of :meth:`initial_state`: normalize the inputs
         into dense numpy buffers WITHOUT touching the device.  Returns
-        (B, kwargs-for-_finish_initial_state)."""
+        (B, kwargs-for-_finish_initial_state).  The two narrow forms (the
+        packed matrix, and byte or 16-bit columns already on the device) are
+        only checked and sorted here: their values go to limb 0 of the panel
+        in :meth:`_finish_initial_state`."""
         p = self.plan.params.modulus
-        if isinstance(input_values, tuple):
-            raise NotImplementedError(
-                "BatchSolver: the packed-matrix input form (witness_indices, "
-                "matrix) is not ported"
-            )
+        if isinstance(input_values, tuple) and len(input_values) == 2:
+            # Packed-matrix form: (witness_indices, (B, K) uint8/uint16
+            # matrix), a numpy array or a tensor on the solver's device.
+            # Column k assigns witness_indices[k].  Each value is written
+            # whole into limb 0, so wider dtypes (or duplicate columns, whose
+            # scatter order would be undefined) are refused, not corrupted.
+            cols_list, vals2d = input_values
+            if isinstance(vals2d, torch.Tensor):
+                self._check_on_device(vals2d, "packed-matrix inputs")
+                narrow_dtype = vals2d.dtype in (torch.uint8, torch.uint16)
+            else:
+                vals2d = np.asarray(vals2d)
+                narrow_dtype = vals2d.dtype in (np.dtype(np.uint8), np.dtype(np.uint16))
+            if not narrow_dtype:
+                raise ValueError(
+                    "packed-matrix inputs must be uint8/uint16 (values are "
+                    f"written to a single limb); got {vals2d.dtype}"
+                )
+            if isinstance(vals2d, torch.Tensor):
+                vals2d = _widen_narrow(vals2d)
+            cols_arr = np.fromiter((int(w) for w in cols_list), np.int64, len(cols_list))
+            if vals2d.ndim != 2 or vals2d.shape[1] != len(cols_arr):
+                raise ValueError(
+                    f"packed-matrix inputs: a ({len(cols_arr)} columns) matrix "
+                    f"is needed, got shape {tuple(vals2d.shape)}"
+                )
+            if len(np.unique(cols_arr)) != len(cols_arr):
+                raise ValueError("packed-matrix inputs contain duplicate witness indices")
+            order = np.argsort(cols_arr, kind="stable")
+            if not (order == np.arange(len(order))).all():
+                cols_arr = cols_arr[order]
+                if isinstance(vals2d, torch.Tensor):
+                    vals2d = vals2d[:, torch.from_numpy(order).to(vals2d.device)]
+                else:
+                    vals2d = vals2d[:, order]
+            return int(vals2d.shape[0]), dict(cols=cols_arr, narrow=vals2d)
         if isinstance(input_values, dict):
             # Columnar form: {witness_index: (B,) array-like}.  Numeric arrays
             # must hold values < 2^64 (reduced); object arrays take the
-            # arbitrary-precision path.
-            if any(isinstance(a, torch.Tensor) for a in input_values.values()):
-                raise NotImplementedError(
-                    "BatchSolver: device-resident (tensor) input columns are "
-                    "not ported; pass host arrays"
-                )
-            items = sorted((int(w), np.asarray(a)) for w, a in input_values.items())
+            # arbitrary-precision path.  Tensors on the solver's device
+            # (produced by an upstream pipeline there): uint8/uint16 columns
+            # are stacked and scattered on the device with no host round
+            # trip; other dtypes come to the host and take the columnar path.
+            tensors = [a for a in input_values.values() if isinstance(a, torch.Tensor)]
+            for a in tensors:
+                self._check_on_device(a, "tensor input columns")
+            if tensors and len(tensors) == len(input_values) and all(
+                    a.dtype in (torch.uint8, torch.uint16) for a in tensors):
+                items = sorted((int(w), a) for w, a in input_values.items())
+                B = int(items[0][1].shape[0])
+                for w, a in items:
+                    if tuple(a.shape) != (B,):
+                        raise ValueError(f"columnar input {w}: shape {tuple(a.shape)} != ({B},)")
+                vals2d = torch.stack([_widen_narrow(a) for _, a in items], dim=1)
+                cols_arr = np.fromiter((w for w, _ in items), np.int64, len(items))
+                return B, dict(cols=cols_arr, narrow=vals2d)
+            items = sorted(
+                (int(w), a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a))
+                for w, a in input_values.items()
+            )
             B = len(items[0][1]) if items else 0
             cols = np.asarray([w for w, _ in items], np.int64)
             vals = np.zeros((B, len(items), LIMBS), dtype=np.uint32)
@@ -930,10 +1282,22 @@ class BatchSolver:
         rows = self.plan.num_witnesses + sum(max(size, 1) * k for size, k in self._memory_counts.items())
         return rows * B * LIMBS * 4
 
-    def _finish_initial_state(self, B: int, W=None, cols=None, vals=None):
+    def _check_on_device(self, t: torch.Tensor, what: str) -> None:
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        if t.device != want:
+            raise ValueError(
+                f"BatchSolver: {what} must lie on the solver's device "
+                f"({self.device}), not {t.device}"
+            )
+
+    def _finish_initial_state(self, B: int, W=None, cols=None, vals=None, narrow=None):
         """Assemble the device state.  Sparse (cols, vals) input columns are
         uploaded as they are and scattered into a zero panel ON DEVICE, so the
-        upload is the inputs' size, not the panel's."""
+        upload is the inputs' size, not the panel's; a narrow (B, K) matrix
+        (uint8/uint16 values, numpy or on the device) is uploaded in its own
+        dtype and scattered into limb 0."""
         dev = self.device
         nw = self.plan.num_witnesses
         if dev.type == "cuda":
@@ -947,6 +1311,13 @@ class BatchSolver:
                 )
         if W is not None:
             Wd = torch.from_numpy(W.view(np.int32)).to(dev)
+        elif narrow is not None:
+            Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
+            if cols.size:
+                if isinstance(narrow, np.ndarray):  # uploaded in its own dtype
+                    narrow = _widen_narrow(torch.from_numpy(np.ascontiguousarray(narrow)).to(dev))
+                v = narrow  # (B, K) int32
+                Wd[:, :, 0].index_copy_(0, torch.from_numpy(cols).to(dev), v.t())
         else:
             Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
             if cols is not None and cols.size:
@@ -963,21 +1334,40 @@ class BatchSolver:
 
     @staticmethod
     def _batch_len(input_values) -> int:
+        if isinstance(input_values, tuple) and len(input_values) == 2:
+            return int(input_values[1].shape[0])
         if isinstance(input_values, dict):
             if not input_values:
                 return 0
             return len(next(iter(input_values.values())))
         return len(input_values)
 
-    def solve(self, input_values):
-        """Solve a batch.  ``input_values`` is either a sequence of
-        per-instance ``{witness_index: int}`` dicts, or the host columnar form
-        ``{witness_index: (B,) array}``.  The whole batch is one pass: its
-        witness panel must fit device memory.  Raises ``RuntimeError`` if the
-        Pedersen generators or the Schnorr hook changed since construction."""
+    def solve(self, input_values, stats: Optional[SolveStats] = None):
+        """Solve a batch.  ``input_values`` is one of:
+
+        * a sequence of per-instance ``{witness_index: int}`` dicts;
+        * the columnar form ``{witness_index: (B,) array}`` (numpy arrays, or
+          tensors on the solver's device: uint8/uint16 ones are scattered on
+          the device, others come to the host);
+        * the packed-matrix form ``(witness_indices, (B, K) uint8/uint16
+          matrix)``, a numpy array or a tensor on the solver's device.
+
+        The whole batch is one pass: its witness panel must fit device
+        memory.  With ``stats`` (a :class:`SolveStats`) the solve records its
+        packing, each segment's device time and each segment's host stages.
+        Raises ``RuntimeError`` if the Pedersen generators or the Schnorr hook
+        changed since construction."""
         self._check_generators()
-        state = self.initial_state(input_values)
-        W, ok, fail, mem = self.run_segments(state)
+        if stats is not None:
+            stats.batch = self._batch_len(input_values)
+            stats.total_ops = self.plan.total_ops()
+        with Timer() as t_pack:
+            state = self.initial_state(input_values)
+            if stats is not None:
+                self._sync()
+        if stats is not None:
+            stats.pack_seconds += t_pack.elapsed
+        W, ok, fail, mem = self.run_segments(state, stats)
         # ok/fail are tiny (B,) tensors: materialize them now so the solve is
         # synced (and errors surface here); the big W panel stays on device
         # until a caller actually reads witnesses (lazy BatchResult.W).

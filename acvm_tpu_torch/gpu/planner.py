@@ -593,23 +593,15 @@ class _Planner:
             self._mark_known(out_x, level_idx)
             self._mark_known(out_y, level_idx)
             return
+        from ..blackbox.grumpkin import schnorr_challenge_hook
+
         if (
             isinstance(call, ops.BBSchnorrVerify)
             and len(call.signature) == 64
+            # A Python challenge hook can't run inside the device kernel:
+            # route hooked Schnorr through the bit-exact host stage.
+            and schnorr_challenge_hook() is None
         ):
-            from ..blackbox.grumpkin import schnorr_challenge_hook
-
-            if schnorr_challenge_hook() is not None:
-                # A Python challenge hook can't run inside the device
-                # pipeline: the gate belongs to a host stage, as in the JAX
-                # planner, and host stages are not part of this package yet.
-                raise NotImplementedError(
-                    f"opcode {opcode_index}: SchnorrVerify with a Schnorr "
-                    "challenge hook set routes to a host stage, and host "
-                    "stages are not ported; clear the hook "
-                    "(set_schnorr_challenge_hook(None)) to plan it as a "
-                    "device gate"
-                )
             reads = [int(fi.witness) for fi in call.get_inputs_vec()]
             level_idx = max(self._witness_level(w) for w in reads) + 1
             self._level(level_idx).schnorr.append(

@@ -733,3 +733,167 @@ def gadget_inputs_columnar(circuit: Circuit, batch: int, kind: str, seed: int = 
 def columnar_instance(columnar, index: int) -> Dict[int, int]:
     """Extract one instance from columnar inputs as a {witness: int} dict."""
     return {w: int(a[index]) for w, a in columnar.items()}
+
+
+def sort_network_bits(n: int) -> int:
+    """Control bits of the AS-Waksman network over n wires, as
+    ``pwg.sorting.route`` emits them: 129 for 32, 321 for 64, 769 for 128."""
+    if n < 2:
+        return 0
+    if n == 2:
+        return 1
+    return n // 2 + (n - 1) // 2 + sort_network_bits(n // 2) + sort_network_bits(n - n // 2)
+
+
+def oracle_affine(name: str, inputs):
+    """The foreign-call handler of :func:`build_sort_circuit`'s oracle block:
+    ``oracle_affine(x) = 3 x + 1 mod p``."""
+    if name != "oracle_affine":
+        raise ValueError(f"unknown oracle {name!r}")
+    return [(3 * int(inputs[0][0]) + 1) % BN254_FR.modulus]
+
+
+def build_sort_circuit(n: int = 64, lib=None):
+    """The ACIR of a Noir program that sorts an array of ``n`` u32 values,
+    prints the decimal digits of their sum and asks an oracle for a value it
+    then constrains, in that opcode order:
+
+    * ``Range(k_i, 32)`` for each input key k_i (witnesses 1..n), and the
+      solve gate ``total = sum k_i``;
+    * ``PermutationSort(inputs=[[k_i]], tuple_size=1, sort_by=[0])`` into
+      :func:`sort_network_bits` (n) control bits, each checked boolean
+      (``c c - c = 0``);
+    * the AS-Waksman switch network those bits drive, wired in the order
+      ``route()`` emits them (``pwg/sorting.py``: the input switches, the
+      output switches, then the two sub-networks): a switch of bit c over
+      (a, b) is the two solve gates ``out_a = a + c b - c a`` and
+      ``out_b = b - c b + c a``; its outputs are the sorted keys s_i;
+    * each difference ``d_i = s_(i+1) - s_i`` as a solve gate and
+      ``Range(d_i, 32)``;
+    * ``ToLeRadix(total, radix=10)`` into 12 digits, each ``Range(digit, 4)``,
+      and the check ``sum 10^j digit_j - total = 0``;
+    * a Brillig block that makes one foreign call (``"oracle_affine"``, input
+      ``total``) and returns its answer, and the check
+      ``answer - (3 total + 1) = 0``: solve with
+      ``foreign_call_handler=oracle_affine``.
+
+    n = 64: 1,171 opcodes over 1,104 witnesses.  ``lib`` as in
+    :func:`build_brillig_ops_circuit`; :func:`sort_circuit_roles` names its
+    witnesses."""
+    return _sort_circuit(n, lib or PORT_CLASSES)[0]
+
+
+def sort_circuit_roles(n: int = 64) -> Dict[str, List[int]]:
+    """The witnesses of :func:`build_sort_circuit` (n) by role: ``keys``,
+    ``total``, ``bits``, ``sorted`` (the network's outputs), ``diffs``,
+    ``digits`` (little-endian) and ``answer`` (the oracle's)."""
+    return _sort_circuit(n, PORT_CLASSES)[1]
+
+
+def _sort_circuit(n: int, lib):
+    
+    o, fe, W, b = lib.opcodes, lib.FieldElement, lib.Witness, lib.brillig
+    keys = [W(1 + i) for i in range(n)]
+    next_witness = n + 1
+    opcodes = []
+
+    def fresh():
+        nonlocal next_witness
+        next_witness += 1
+        return W(next_witness - 1)
+
+    def gate(mul=(), lin=(), q=0):
+        opcodes.append(o.OpcodeArithmetic(lib.Expression(
+            mul_terms=[(fe(c), x, y) for c, x, y in mul],
+            linear_combinations=[(fe(c), x) for c, x in lin], q_c=fe(q))))
+
+    def range_check(w, bits):
+        opcodes.append(o.OpcodeBlackBoxFuncCall(o.BBRange(o.FunctionInput(w, bits))))
+
+    for k in keys:
+        range_check(k, 32)
+    total = fresh()
+    gate(lin=[(1, k) for k in keys] + [(-1, total)])
+    bits = [fresh() for _ in range(sort_network_bits(n))]
+    opcodes.append(o.OpcodeDirective(o.DirPermutationSort(
+        inputs=[[lib.Expression.from_witness(k)] for k in keys], tuple_size=1, bits=bits,
+        sort_by=[0])))
+    for c in bits:
+        gate(mul=[(1, c, c)], lin=[(-1, c)])
+
+    def switch(c, x, y):
+        out_a, out_b = fresh(), fresh()
+        gate(mul=[(1, c, y), (-1, c, x)], lin=[(1, x), (-1, out_a)])
+        gate(mul=[(-1, c, y), (1, c, x)], lin=[(1, y), (-1, out_b)])
+        return out_a, out_b
+
+    def network(xs, off):
+        """Outputs of the network over the wires xs whose bits start at
+        bits[off] (the layout of route()'s result)."""
+        m = len(xs)
+        if m == 1:
+            return list(xs)
+        if m == 2:
+            return list(switch(bits[off], xs[0], xs[1]))
+        m1 = m // 2
+        inner = [None] * m
+        for i in range(m // 2):
+            inner[i], inner[i + m1] = switch(bits[off + i], xs[2 * i], xs[2 * i + 1])
+        if m % 2:
+            inner[m - 1] = xs[m - 1]
+        off_y = off + m // 2
+        off_sub = off_y + (m - 1) // 2
+        iy = network(inner[:m1], off_sub) + network(inner[m1:], off_sub + sort_network_bits(m1))
+        ys = [None] * m
+        for j in range((m - 1) // 2):
+            ys[2 * j], ys[2 * j + 1] = switch(bits[off_y + j], iy[j], iy[j + m1])
+        ys[m - 1] = iy[m - 1]
+        if m % 2 == 0:
+            ys[m - 2] = iy[m1 - 1]
+        return ys
+
+    s = network(keys, 0)
+    diffs = []
+    for lo, hi in zip(s, s[1:]):
+        diffs.append(fresh())
+        gate(lin=[(1, hi), (-1, lo), (-1, diffs[-1])])
+        range_check(diffs[-1], 32)
+    digits = [fresh() for _ in range(12)]
+    opcodes.append(o.OpcodeDirective(o.DirToLeRadix(lib.Expression.from_witness(total), digits, 10)))
+    for dg in digits:
+        range_check(dg, 4)
+    gate(lin=[(10 ** j, dg) for j, dg in enumerate(digits)] + [(-1, total)])
+    answer = fresh()
+    R0 = b.RomRegister(b.RegisterIndex(0))
+    opcodes.append(o.OpcodeBrillig(o.Brillig(
+        inputs=[o.BrilligInputSingle(lib.Expression.from_witness(total))],
+        outputs=[o.BrilligOutputSimple(answer)], foreign_call_results=[],
+        bytecode=[b.OpForeignCall("oracle_affine", (R0,), (R0,)), b.OpStop()], predicate=None)))
+    gate(lin=[(1, answer), (-3, total)], q=-1)
+    circuit = lib.Circuit(current_witness_index=next_witness - 1, opcodes=opcodes,
+                          private_parameters=set(keys))
+    roles = dict(keys=keys, total=[total], bits=bits, sorted=s, diffs=diffs, digits=digits,
+                 answer=[answer])
+    return circuit, {k: [int(w) for w in v] for k, v in roles.items()}
+
+
+def sort_inputs(circuit, batch: int, seed: int = 21, fail_instance=None):
+    """Columnar keys of :func:`build_sort_circuit`, a (batch,) uint64 array a
+    key: random u32 values, except that every fourth instance (b = 1 mod 4)
+    draws its keys from 0..15, so that it sorts duplicates.  With
+    ``fail_instance`` set, that instance's middle key is 2^32: it fails its
+    ``Range`` (opcode n // 2, the first opcode it fails) and no other
+    instance fails.  Returns ``(columns, fail_opcode)`` (None without
+    ``fail_instance``)."""
+    import numpy as np
+
+    n = len(circuit.private_parameters)
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 32, size=(n, batch), dtype=np.uint64)
+    dup = np.arange(batch) % 4 == 1
+    keys[:, dup] = rng.integers(0, 16, size=(n, int(dup.sum())), dtype=np.uint64)
+    fail_op = None
+    if fail_instance is not None:
+        keys[n // 2, fail_instance] = 1 << 32
+        fail_op = n // 2
+    return {1 + i: keys[i] for i in range(n)}, fail_op

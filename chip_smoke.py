@@ -5,7 +5,8 @@
     python3 chip_smoke.py --ptxas    # also print ptxas' register/spill report
     python3 chip_smoke.py --profile  # also one profiled solve per path: device
                                      # time by kernel, device busy share (and
-                                     # the SHA-256 path traced block by block)
+                                     # the SHA-256 path traced block by block;
+                                     # path_host's solve with its host stages)
     python3 chip_smoke.py --level-variants  # also the level kernel built with
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
@@ -57,23 +58,37 @@ build, a failed launch or a failed comparison raises and the exit code is not
                straight-line Brillig hints) over 4,096 random 32-byte messages:
                flags, two digests against hashlib and their full witness maps
                against the evaluator, one ``divmod`` launch a Quotient level
-               (748) and no plain division on the card, timed solves;
+               (748) and no plain division on the card, timed solves; the same
+               messages in the three ingest forms (host columns, the packed
+               matrix, uint8 columns on the card) must give the same panel and
+               flags, each timed through ``solve()`` and its ``_pack_host``
+               apart from the upload and panel build;
 10. ``path_mem``  runtime-indexed arrays (8 memory blocks of 1,024 entries, 32
                rounds of read, multiply-add and write each, the predicate and
                runtime-selector edges; 9,003 opcodes) over 1,024 instances, one
                of them failing at an index one past its block: flags,
                first-failure indices, three full witness maps against the
                evaluator, timed solves;
-11. ``brillig_ops``  one Brillig block for each field op and each int op at
+11. ``path_host``  a sorting program (``build_sort_circuit(64)``: 64 u32 keys
+               range-checked, their sum, a PermutationSort into the 321 bits of
+               the AS-Waksman network they drive, the sorted keys' gaps, the
+               sum's decimal digits, an oracle's 3 x + 1 by a foreign call;
+               1,171 opcodes) over 1,024 instances, one with a key of 2^32:
+               device segments around three host stages; every instance's
+               sorted keys, digits, answer and flags against Python ints, three
+               witness maps against the sequential engine, ``host_batch=False``
+               the same panel, ``level`` and ``dot`` against their plain
+               versions, ``host_solves_per_sec`` and the ``SolveStats`` split;
+12. ``brillig_ops``  one Brillig block for each field op and each int op at
                1-256 bits over 2,048 instances of edge values, every witness
                against the evaluator;
-12. ``kernels`` every kernel against its plain PyTorch version at the main
+13. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel;
-13. the raw ``nvidia-smi`` name and power limit;
-14. ``{"ok": true, "device": {...}}``.
+14. the raw ``nvidia-smi`` name and power limit;
+15. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -283,9 +298,11 @@ def main() -> int:
     from acvm_tpu_torch.utils import (
         array_inputs, brillig_ops_inputs, build_array_circuit, build_brillig_ops_circuit,
         build_gadget_circuit, build_sha256_circuit, build_u32_circuit, build_wide_arith_circuit,
-        columnar_instance, divmod_edge_operands, divmod_word_grid, gadget_inputs_columnar,
-        random_inputs, sha256_inputs, u32_inputs, with_repeated_constraints,
+        build_sort_circuit, columnar_instance, divmod_edge_operands, divmod_word_grid,
+        gadget_inputs_columnar, oracle_affine, random_inputs, sha256_inputs, sort_circuit_roles,
+        sort_inputs, u32_inputs, with_repeated_constraints,
     )
+    from acvm_tpu_torch.utils.profiling import SolveStats
     from acvm_tpu_torch.utils.ec_points import exceptional_panel
 
     dev = torch.device("cuda")
@@ -1443,6 +1460,36 @@ def main() -> int:
         emit({"profile_sha_one_trace_a_block": profile(device_solve_of(one_a_block, state, torch),
                                                        block_secs)})
         del one_a_block
+    # The same messages in the three ingest forms: host columns (uint8 numpy),
+    # the packed matrix (witness indices, (B, 32) uint8) and uint8 columns on
+    # the card.  Equal panels and flags, or the phase fails; each form's rate
+    # through solve(), and its _pack_host apart from the upload and panel
+    # build (median of three, ending in a synchronize).
+    forms = {"host_columns": cols,
+             "packed_matrix": (list(cols), np.stack([cols[w] for w in cols], axis=1)),
+             "device_uint8": {w: torch.from_numpy(a).to(dev) for w, a in cols.items()}}
+    ingest = {}
+    for form_name, form in forms.items():
+        got = solver.solve(form)
+        assert torch.equal(got.panel, res.panel), form_name
+        assert np.array_equal(got.ok, res.ok) and np.array_equal(got.fail, res.fail), form_name
+        del got
+        pack_times, build_times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            B_, kwargs = solver._pack_host(form)
+            t1 = time.perf_counter()
+            state_ = solver._finish_initial_state(B_, **kwargs)
+            torch.cuda.synchronize()
+            pack_times.append(t1 - t0)
+            build_times.append(time.perf_counter() - t1)
+            del state_, kwargs
+        form_rate, form_secs = timed_rate(lambda: solver.solve(form), sha_B, reps=3)
+        ingest[form_name] = {"pack_host_ms": statistics.median(pack_times) * 1e3,
+                             "upload_and_panel_build_ms": statistics.median(build_times) * 1e3,
+                             "sha256_solves_per_sec_with_packing": form_rate,
+                             "solve_seconds_with_packing": form_secs}
+    del forms
     emit({"path_sha": {
         "opcodes": len(circuit.opcodes), "witnesses": circuit.num_vars() - 1, "batch": sha_B,
         "levels": len(levels), "quotient_levels": quotient_levels, "brillig_blocks": blocks,
@@ -1452,6 +1499,7 @@ def main() -> int:
         "plain_divmod_on_card": plain_on_card, "plan_and_pack_seconds": plan_seconds,
         "sha256_solves_per_sec": rate, "solve_seconds": secs,
         "sha256_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+        "ingest_forms_equal": True, "ingest_forms": ingest,
         "panel_bytes": solver.panel_bytes(sha_B)}})
     del state, res, solver
     torch.cuda.empty_cache()
@@ -1520,7 +1568,110 @@ def main() -> int:
     del state, res, solver
     torch.cuda.empty_cache()
 
-    # -- 11. brillig_ops --------------------------------------------------------------
+    # -- 11. path_host ----------------------------------------------------------------
+    # A Noir program that sorts 64 u32 keys, prints the decimal digits of their
+    # sum and asks an oracle for 3 x + 1 (build_sort_circuit(64): 1,171
+    # opcodes), over 1,024 instances, one with a key of 2^32: device segments
+    # around three host stages (PermutationSort, ToLeRadix(10), a foreign
+    # call).  Every instance's sorted keys, digits, answer and flags against
+    # Python ints; host_batch=False gives the same panel.
+    host_B, host_bad = 1024, 7
+    n_keys = 64
+    circuit = build_sort_circuit(n_keys)
+    roles = sort_circuit_roles(n_keys)
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit), foreign_call_handler=oracle_affine)
+    plan_seconds = time.perf_counter() - t0
+    stage_kinds = [[type(getattr(circuit.opcodes[h.opcode_indices[0]], "directive", None)
+                         or circuit.opcodes[h.opcode_indices[0]]).__name__ for h in seg.host_stages]
+                   for seg in solver.segments]
+    assert sorted(k for seg in stage_kinds for k in seg) == [
+        "DirPermutationSort", "DirToLeRadix", "OpcodeBrillig"], stage_kinds
+    cols, fail_op = sort_inputs(circuit, host_B, fail_instance=host_bad)
+    build.reset_launches()
+    stats = SolveStats()
+    t0 = time.perf_counter()
+    res = solver.solve(cols, stats=stats)
+    first_solve_seconds = time.perf_counter() - t0
+    host_launches = dict(build.LAUNCHES)
+    for name in ("level", "dot"):
+        assert host_launches[name] > 0, host_launches
+    want_fail = [int(FAIL_NONE)] * host_B
+    want_fail[host_bad] = fail_op
+    assert res.fail.tolist() == want_fail and res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+    rows = sorted({w for ws in roles.values() for w in ws})
+    vals = fk.limbs32_to_ints(res.panel[torch.tensor(rows, device=dev)].cpu().numpy())
+    got = {w: vals[i * host_B:(i + 1) * host_B] for i, w in enumerate(rows)}
+    for b in range(host_B):
+        keys = [int(cols[w][b]) for w in roles["keys"]]
+        total = sum(keys)
+        assert [got[w][b] for w in roles["sorted"]] == sorted(keys), b
+        assert [got[w][b] for w in roles["diffs"]] == [y - x for x, y in zip(sorted(keys), sorted(keys)[1:])], b
+        assert got[roles["total"][0]][b] == total, b
+        assert [got[w][b] for w in roles["digits"]] == [total // 10 ** j % 10 for j in range(12)], b
+        assert got[roles["answer"][0]][b] == (3 * total + 1) % P, b
+    # Two full witness maps against the sequential engine (acvm_tpu_torch.pwg,
+    # held to the JAX package's by tests/test_torch_pwg.py), the failing
+    # instance's first failure too.
+    for b in (0, host_B - 1, host_bad):
+        status, acvm = sequential_solve(circuit, columnar_instance(cols, b), oracle_affine)
+        if b == host_bad:
+            assert status == "failure" and acvm.instruction_pointer == fail_op, (status, b)
+            continue
+        assert status == "solved", (status, b)
+        inst = res.instance_ints(b)
+        assert all(inst[int(w)] == int(v) for w, v in acvm.finalize()), b
+    clean, _ = sort_inputs(circuit, host_B)  # the second solve: no failing instance
+    res_clean = solver.solve(clean)
+    assert res_clean.ok.all()
+    per_instance_stats = SolveStats()
+    t0 = time.perf_counter()
+    per_instance = BatchSolver(solver.plan, foreign_call_handler=oracle_affine,
+                               host_batch=False).solve(cols, stats=per_instance_stats)
+    per_instance_seconds = time.perf_counter() - t0
+    assert torch.equal(per_instance.panel, res.panel)
+    assert np.array_equal(per_instance.ok, res.ok) and np.array_equal(per_instance.fail, res.fail)
+    del per_instance, res_clean
+
+    # level and dot against their plain versions on one call's operands from
+    # the solved panel: the widest static level, the booleanity checks' panel.
+    levels = [lv for seg in solver.segments for lv in seg.levels]
+    params = solver.ctx.params
+    static = max((lv["arith_static"] for lv in levels if "arith_static" in lv["kinds"]),
+                 key=lambda s_: s_["desc"].shape[0])
+    check = max((lv["arith_check"] for lv in levels if "arith_check" in lv["kinds"]),
+                key=lambda c_: c_["expr"]["qc"].shape[0])
+    host_checks = {"level": level_check(res.panel, static, params),
+                   "dot": dot_check(res.panel, check["expr"], params)}
+    torch.cuda.synchronize()
+    assert all(c["max_abs_err"] == 0 for c in host_checks.values()), host_checks
+
+    opcodes = len(circuit.opcodes)
+    timed_stats = SolveStats()
+    rate, secs = timed_rate(lambda: solver.solve(cols), opcodes * host_B, reps=3)
+    solver.solve(cols, stats=timed_stats)
+    if want_profile:
+        emit({"profile_host": profile(lambda: solver.solve(cols), secs)})
+    emit({"path_host": {
+        "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": host_B, "keys": n_keys,
+        "control_bits": len(roles["bits"]), "levels": len(levels), "segments": len(solver.segments),
+        "host_stages_by_segment": stage_kinds, "ok": True, "checked_instances": host_B,
+        "failing_instance": {"instance": host_bad, "fail": fail_op},
+        "kernels_against_plain": host_checks, "launches": host_launches,
+        "launches_all_port_kernels": sum(host_launches.values()),
+        "plan_and_pack_seconds": plan_seconds, "first_solve_seconds": first_solve_seconds,
+        "host_solves_per_sec": rate, "solve_seconds": secs,
+        "solve_stats": timed_stats.summary(), "segment_seconds": timed_stats.segment_seconds,
+        "host_stage_seconds": timed_stats.host_stage_seconds,
+        "host_per_instance_stages": timed_stats.host_per_instance_stages,
+        "host_batch_off": {"equal_panel": True, "solve_seconds": per_instance_seconds,
+                           "host_per_instance_stages": per_instance_stats.host_per_instance_stages,
+                           "host_stage_seconds": per_instance_stats.host_stage_seconds},
+        "panel_bytes": solver.panel_bytes(host_B)}})
+    del res, solver
+    torch.cuda.empty_cache()
+
+    # -- 12. brillig_ops --------------------------------------------------------------
     # One straight-line block for each Brillig op (5 field, 13 int at 1-256
     # bits) over 2,048 instances of edge values, every witness of every
     # instance against the evaluator.  Field Div reaches pow, the divisions and
@@ -1546,10 +1697,10 @@ def main() -> int:
                           "checked_instances": ops_B, "launches": ops_launches}})
     del res
 
-    # -- 12. kernels, 13. card, 14. verdict -------------------------------------------
+    # -- 13. kernels, 14. card, 15. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
-             "sha": sha_launches, "mem": mem_launches}
+             "sha": sha_launches, "mem": mem_launches, "host": host_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]
@@ -1565,6 +1716,24 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def sequential_solve(circuit, assignment, handler):
+    """The port's sequential engine (pwg.ACVM) on one instance, answering
+    foreign calls with ``handler``: (status, acvm)."""
+    from acvm_tpu_torch.acir import Witness, WitnessMap
+    from acvm_tpu_torch.blackbox import GrumpkinSolver
+    from acvm_tpu_torch.fields.field import FieldElement
+    from acvm_tpu_torch.gpu.batch_solver import _decode_foreign_call_result
+    from acvm_tpu_torch.pwg import ACVM, ACVMStatus
+
+    wm = WitnessMap({Witness(w): FieldElement(v) for w, v in assignment.items()})
+    acvm = ACVM(GrumpkinSolver(), circuit.opcodes, wm)
+    while acvm.solve() == ACVMStatus.REQUIRES_FOREIGN_CALL:
+        call = acvm.get_pending_foreign_call()
+        acvm.resolve_pending_foreign_call(_decode_foreign_call_result(
+            handler(call.function, [[v.to_field() for v in group] for group in call.inputs])))
+    return acvm.status, acvm
 
 
 def device_solve_of(solver, state, torch):

@@ -233,15 +233,19 @@ def test_gadget_circuits_and_inputs_equal_the_jax_package_s(kind):
 
 
 def test_schnorr_challenge_hook_is_refused_at_plan_time():
+    """A hook set at plan time takes SchnorrVerify off the device: the gate
+    becomes a host stage, as in the JAX planner (its solve is held to the
+    JAX package in tests/test_torch_host_stages.py)."""
     circuit = bench.build_gadget_circuit("schnorr", 1, msg_len=2)
     plan = plan_circuit(circuit)  # no hook: a device gate
     assert sum(len(lv.schnorr) for lv in plan.levels) == 1
     solver = BatchSolver(plan, device="cpu")
     gk.set_schnorr_challenge_hook(lambda r_x, pub, message: 1)
     try:
-        with pytest.raises(NotImplementedError, match="host stage"):
-            plan_circuit(circuit)
-        # a solver planned before the hook was set would ignore it: refused too
+        hooked = plan_circuit(circuit)
+        assert sum(len(lv.schnorr) for lv in hooked.levels) == 0
+        assert [h.opcode_indices for lv in hooked.levels for h in lv.host] == [[0]]
+        # a solver planned before the hook was set would ignore it: refused
         with pytest.raises(RuntimeError, match="challenge hook"):
             solver.solve(bench.gadget_inputs_columnar(circuit, 1, "schnorr"))
     finally:

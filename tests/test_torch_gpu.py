@@ -16,7 +16,7 @@ import torch
 from acvm_tpu_torch import build
 from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
-from acvm_tpu_torch.gpu import BatchSolver, intops, plan_circuit
+from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, intops, plan_circuit
 from acvm_tpu_torch.utils import (
     array_inputs,
     brillig_ops_inputs,
@@ -25,15 +25,18 @@ from acvm_tpu_torch.utils import (
     build_gadget_circuit,
     build_quotient_circuit,
     build_sha256_circuit,
+    build_sort_circuit,
     build_u32_circuit,
     build_uint_ops_circuit,
     build_wide_arith_circuit,
     divmod_edge_operands,
     divmod_word_grid,
     gadget_inputs_columnar,
+    oracle_affine,
     quotient_edge_inputs,
     random_inputs,
     sha256_inputs,
+    sort_inputs,
     u32_inputs,
     with_repeated_constraints,
 )
@@ -347,3 +350,44 @@ def test_sha256_fallback_on_card_equals_hashlib(card):
     for b in range(B):
         message = bytes(int(cols[i + 1][b]) for i in range(32))
         assert bytes(d[b] for d in digests) == hashlib.sha256(message).digest(), b
+
+
+@pytest.mark.parametrize("host_batch", [True, False])
+def test_host_stages_on_card_equal_solver_on_cpu(card, host_batch):
+    """The sorting circuit at n = 16 over 64 instances, one failing a key's
+    Range: device segments around the sort, the decimal radix and the oracle
+    block; panel and flags equal to the CPU solve, the sorted keys to
+    Python's."""
+    circuit = build_sort_circuit(16)
+    cols, fail_op = sort_inputs(circuit, 64, fail_instance=9)
+    plan = plan_circuit(circuit)
+    build.reset_launches()
+    gpu = BatchSolver(plan, foreign_call_handler=oracle_affine, host_batch=host_batch).solve(cols)
+    assert build.LAUNCHES["level"] > 0 and build.LAUNCHES["dot"] > 0, build.LAUNCHES
+    cpu = BatchSolver(plan, foreign_call_handler=oracle_affine, device="cpu").solve(cols)
+    assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    assert gpu.fail.tolist() == [fail_op if b == 9 else int(FAIL_NONE) for b in range(64)]
+    if host_batch:
+        assert torch.equal(gpu.panel.cpu(), cpu.panel)
+    answer = circuit.current_witness_index
+    total = [sum(int(cols[1 + i][b]) for i in range(16)) for b in range(64)]
+    assert gpu.witness_ints(answer) == [(3 * t + 1) % BN254_FR.modulus for t in total]
+
+
+def test_device_resident_byte_columns(card):
+    """uint8 and uint16 columns on the card, columnar and as a packed
+    matrix, give the host columns' panel on the SHA-256 fallback."""
+    circuit, B = build_sha256_circuit(32), 64
+    cols = sha256_inputs(B)
+    solver = BatchSolver(plan_circuit(circuit))
+    want = solver.solve(cols)
+    for dtype in (np.uint8, np.uint16):
+        dev_cols = {w: torch.from_numpy(a.astype(dtype)).to(card) for w, a in cols.items()}
+        got = solver.solve(dev_cols)
+        assert torch.equal(got.panel, want.panel) and np.array_equal(got.ok, want.ok)
+        order = sorted(cols, reverse=True)
+        matrix = np.stack([cols[w].astype(dtype) for w in order], axis=1)
+        assert torch.equal(solver.solve((order, torch.from_numpy(matrix).to(card))).panel, want.panel)
+        assert torch.equal(solver.solve((order, matrix)).panel, want.panel)
+    with pytest.raises(ValueError, match="solver's device"):
+        solver.solve({w: torch.from_numpy(a) for w, a in cols.items()})  # on the host
