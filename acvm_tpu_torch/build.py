@@ -25,9 +25,9 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
-           "divmod")
+           "divmod", "brillig_vm")
 PROBES = ("imad_rate", "mont_probe")
-HEADERS = ("field.cuh", "ec.cuh", "pow.cuh")
+HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -60,6 +60,9 @@ _SIGNATURES = {
     "batch_inv": ("acvm_batch_inv", [_P, _P, _LL, _LL, _I, _P, _P, _P]),
     # a, b, q, r, elements, bits of a to read, stream.
     "divmod": ("acvm_divmod", [_P, _P, _P, _P, _LL, _I, _P]),
+    # The instruction table, opcodes, registers, memory, status, steps,
+    # instances, memory cells, step budget, field words, p - 2's chain, stream.
+    "brillig_vm": ("acvm_brillig_vm", [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain

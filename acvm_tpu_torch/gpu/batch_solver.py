@@ -35,8 +35,9 @@ does not run) read their witnesses off the panel in one gather and one copy,
 run on the host (batched over the instances as object arrays where
 :mod:`acvm_tpu_torch.gpu.host_batch` has a route, else instance by instance
 through the sequential solvers of :mod:`acvm_tpu_torch.pwg`) and write back
-in one scatter.  A branchy Brillig block that the JAX package runs on its
-device VM raises ``NotImplementedError``: that VM is not ported yet.
+in one scatter.  A branchy Brillig block (jumps, calls, memory, traps) runs
+on the device Brillig VM (:mod:`acvm_tpu_torch.gpu.brillig_vm_device`): one
+``brillig_vm`` launch a block over the whole batch.
 
 Anything else a plan can hold — hashes and ECDSA planned for the device — and
 every scaling option not listed in :meth:`BatchSolver.solve` raises
@@ -81,6 +82,7 @@ from ..pwg.errors import OpcodeResolutionError
 from ..utils.profiling import SolveStats, Timer
 from . import ec, host_batch, intops
 from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
+from .brillig_vm_device import run_brillig_vm_batch
 from .fused_level import fused_level_call, pack_level_desc
 from .planner import ExprPlan, HostStage, Level, MemoryInitStage, Plan
 
@@ -183,48 +185,6 @@ def _widen_narrow(t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.uint16:
         return t.view(torch.int16).to(torch.int32) & 0xFFFF
     return t.to(torch.int32)
-
-
-def _limb_cols_to_object(sel: np.ndarray) -> np.ndarray:
-    """(C, B, 8) int32 limb columns -> (B, C) object Python ints.
-
-    Host stages do arbitrary-precision math on object arrays.  Columns below
-    2^64 (limbs 2-7 zero: the byte and integer hint inputs, the common case)
-    compose in vectorized uint64 and box once; a wider column converts through
-    bytes, one ``int.from_bytes`` an element, with no loop over its limbs."""
-    C, B, _ = sel.shape
-    ints = np.zeros((B, C), dtype=object)
-    if C == 0:
-        return ints
-    u = sel.view(np.uint32)
-    wide = u[:, :, 2:].any(axis=(1, 2))  # (C,)
-    narrow = np.nonzero(~wide)[0]
-    if narrow.size:
-        v = u[narrow, :, 0].astype(np.uint64) | (u[narrow, :, 1].astype(np.uint64) << np.uint64(32))
-        ints[:, narrow] = v.T.astype(object)
-    for c in np.nonzero(wide)[0]:
-        ints[:, c] = limbs32_to_ints(sel[c])
-    return ints
-
-
-def _object_cols_to_limbs(out_vals: np.ndarray) -> np.ndarray:
-    """(B, C) object ints (non-negative, below 2^256) -> (C, B, 8) int32
-    limbs, with the same uint64 fast path a column as
-    :func:`_limb_cols_to_object` (a value of 2^64 or more raises
-    OverflowError out of the vectorized cast, and the column goes through
-    bytes)."""
-    B, C = out_vals.shape
-    limbs = np.zeros((C, B, LIMBS), dtype=np.uint32)
-    for c in range(C):
-        col = out_vals[:, c]
-        try:
-            v64 = col.astype(np.uint64)
-        except OverflowError:
-            limbs[c] = ints_to_limbs32(col).view(np.uint32)
-            continue
-        limbs[c, :, 0] = v64 & np.uint64(0xFFFFFFFF)
-        limbs[c, :, 1] = v64 >> np.uint64(32)
-    return limbs.view(np.int32)
 
 
 # A foreign-call handler's answer -> the VM's ForeignCallResult (the JAX
@@ -564,10 +524,11 @@ class BatchSolver:
     the JAX package does: the same bits in more launches.
 
     ``host_batch`` (the default) runs a host stage batched over the instances
-    where :mod:`.host_batch` has a route (straight-line Brillig, a general
-    ToLeRadix, PermutationSort); ``False`` runs every host stage instance by
-    instance through the sequential solvers: the same bits, slower (the JAX
-    package's ``ACVM_TPU_NO_HOST_BATCH``)."""
+    where it has a route (straight-line Brillig, a general ToLeRadix and
+    PermutationSort in :mod:`.host_batch`; a branchy Brillig block on the
+    device Brillig VM); ``False`` runs every host stage instance by instance
+    through the sequential solvers: the same bits, slower (the JAX package's
+    ``ACVM_TPU_NO_HOST_BATCH``)."""
 
     def __init__(
         self,
@@ -612,7 +573,6 @@ class BatchSolver:
             self.memory_slots[block_id] = (size, self._memory_counts[size])
             self._memory_counts[size] += 1
         self.segments = self._build_segments()
-        self._check_host_stages()
 
     # -- packing ------------------------------------------------------------
     def _pack_level(self, level: Level) -> dict:
@@ -860,9 +820,10 @@ class BatchSolver:
             if st.output_array or any(kind != "single" for kind, _ in st.inputs):
                 raise NotImplementedError(
                     f"BatchSolver: the Brillig block at opcode {st.opcode_index} has "
-                    "array inputs or outputs, which need the VM's memory; the JAX "
-                    "package's host path sends such a block to its device Brillig "
-                    "VM, which is not ported"
+                    "array inputs or outputs, which the trace does not run (the JAX "
+                    "package's trace leaves its array outputs unwritten); plan with "
+                    "device_brillig_trace=False to run it as a host stage on the "
+                    "device Brillig VM"
                 )
             key = (tuple(st.bytecode), len(st.inputs),
                    tuple(reg for reg, _ in st.output_simple), st.predicate is not None)
@@ -935,31 +896,6 @@ class BatchSolver:
         if current.levels:
             segments.append(current)
         return segments
-
-    def _check_host_stages(self) -> None:
-        """Refuse, at construction, a Brillig block that the JAX package's
-        host path runs on its device VM (``tpu/brillig_vm_device.py``): branchy
-        bytecode of the VM's control and data opcodes over BN254, which
-        ``host_batch.brillig_batchable`` does not take.  That VM is not ported;
-        running such a block here instance by instance would hide it.  Under
-        ``host_batch=False`` the JAX package runs it instance by instance too,
-        and so does this solver."""
-        if not self.host_batch or self.plan.params != BN254_FR:
-            return
-        for segment in self.segments:
-            for stage in segment.host_stages:
-                for op_index in stage.opcode_indices:
-                    opcode = self.plan.circuit.opcodes[op_index]
-                    if (isinstance(opcode, ops.OpcodeBrillig)
-                            and not host_batch.brillig_batchable(opcode.brillig)
-                            and host_batch.device_vm_eligible(opcode.brillig)):
-                        raise NotImplementedError(
-                            f"BatchSolver: the Brillig block at opcode {op_index} "
-                            "(jumps, calls, memory or array inputs/outputs) runs on "
-                            "the JAX package's device Brillig VM, which is not "
-                            "ported; BatchSolver(..., host_batch=False) runs it "
-                            "instance by instance on the host"
-                        )
 
     # -- device execution ---------------------------------------------------
     def _run_level(self, W, ok, fail, mem, packed):
@@ -1056,7 +992,7 @@ class BatchSolver:
             writes.update(stage.writes)
         cols = sorted(needed)
         sel = W.index_select(0, torch.tensor(cols, dtype=torch.int64, device=dev))
-        ints = _limb_cols_to_object(sel.cpu().numpy())
+        ints = host_batch.limb_cols_to_object(sel.cpu().numpy())
         col_arrays: Dict[int, np.ndarray] = {w: ints[:, i] for i, w in enumerate(cols)}
 
         def get_col(w: int) -> np.ndarray:
@@ -1078,7 +1014,13 @@ class BatchSolver:
                 if host_batch.brillig_batchable(opcode.brillig):
                     store_writes(host_batch.run_brillig_batch(opcode.brillig, get_col, B, p))
                     return True
-                return False
+                if not host_batch.device_vm_eligible(opcode.brillig):
+                    return False
+                values, trapped = run_brillig_vm_batch(opcode.brillig, get_col, B, p, dev)
+                store_writes(values)
+                ok_np[trapped] = False
+                fail_np[trapped] = np.minimum(fail_np[trapped], np.int32(op_index))
+                return True
             if isinstance(opcode, ops.OpcodeDirective):
                 directive = opcode.directive
                 if isinstance(directive, ops.DirPermutationSort):
@@ -1107,7 +1049,7 @@ class BatchSolver:
                     stats.host_per_instance_stages += 1
 
         if write_cols:
-            limbs = torch.from_numpy(_object_cols_to_limbs(out_vals)).to(dev)
+            limbs = torch.from_numpy(host_batch.cols_to_limbs(out_vals.T, p)).to(dev)
             W.index_copy_(0, torch.tensor(write_cols, dtype=torch.int64, device=dev), limbs)
         return W, torch.from_numpy(ok_np).to(dev), torch.from_numpy(fail_np).to(dev)
 

@@ -190,8 +190,6 @@ def _int_binary(ctx: LimbContext, step: Step, a, b):
         return intops.long_divmod(m(a), m(b), num_bits=bit_size)[0]
     if op == br.BinaryIntOp.And:
         return m(a) & m(b)
-    if op == br.BinaryIntOp.Shl:
-        return m(intops.shl_static(a, step.rhs_const))
     if op == br.BinaryIntOp.Shr:
         # The register value is shifted before the mask (arithmetic.rs:75-79
         # applies the modulo to the shifted result).
@@ -202,6 +200,8 @@ def _int_binary(ctx: LimbContext, step: Step, a, b):
         out = m(intops.int_sub(a, b))
     elif op == br.BinaryIntOp.Mul:
         out = m(intops.int_mul(a, b))
+    elif op == br.BinaryIntOp.Shl:
+        out = m(intops.shl_static(a, step.rhs_const))
     elif op == br.BinaryIntOp.Or:
         out = m(a | b)
     elif op == br.BinaryIntOp.Xor:

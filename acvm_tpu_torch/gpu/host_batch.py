@@ -24,23 +24,24 @@ per VM instruction instead of a full interpreter per instance):
   (acvm/src/pwg/directives/mod.rs:88-120).
 
 Branchy bytecode of the 13 control and data opcodes (:func:`device_vm_eligible`)
-belongs to a batched device VM, which is not part of this package yet: the
-solver refuses it rather than run it here.  Anything else (foreign calls,
-black-box ops inside Brillig, every stage that raises
-:class:`HostBatchFallback`) runs on the per-instance sequential solvers in
-`BatchSolver._run_host_stages`; ``BatchSolver(..., host_batch=False)`` sends
-every stage there (conformance bisection).
+runs on the batched device VM (:mod:`acvm_tpu_torch.gpu.brillig_vm_device`).
+Anything else (foreign calls, black-box ops inside Brillig, every stage that
+raises :class:`HostBatchFallback`) runs on the per-instance sequential solvers
+in `BatchSolver._run_host_stages`; ``BatchSolver(..., host_batch=False)`` sends
+every stage there (conformance bisection).  The two column bridges between the
+``(C, B, 8)`` limb panel and (B,) object columns live here too.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import brillig as br
 from ..acir import opcodes as ops
 from ..acir.expression import Expression
+from ..fields.kernels import LIMBS, ints_to_limbs32, limbs32_to_ints
 
 _BATCH_OPS = (
     br.OpConst,
@@ -69,9 +70,9 @@ def brillig_batchable(brillig: ops.Brillig) -> bool:
     )
 
 
-# The opcodes a batched device VM runs (Brillig's control and data opcodes:
+# The opcodes the batched device VM runs (Brillig's control and data opcodes:
 # no ForeignCall, whose replay needs the host, and no BlackBox), and its static
-# bound on register indices.
+# bound on register indices (`brillig_vm_device.MAX_REGISTERS`).
 _DEVICE_VM_OPS = (
     br.OpBinaryFieldOp,
     br.OpBinaryIntOp,
@@ -91,7 +92,7 @@ DEVICE_VM_MAX_REGISTERS = 512
 
 
 def device_vm_eligible(brillig: ops.Brillig) -> bool:
-    """Bytecode a batched device VM runs: the 13 control/data opcodes (no
+    """Bytecode the batched device VM runs: the 13 control/data opcodes (no
     ForeignCall and no BlackBox), with statically-bounded register usage."""
     if brillig.foreign_call_results:
         return False
@@ -108,6 +109,56 @@ def device_vm_eligible(brillig: ops.Brillig) -> bool:
 
 
 GetCol = Callable[[int], np.ndarray]  # witness index -> (B,) object ints
+
+
+def limb_cols_to_object(sel: np.ndarray) -> np.ndarray:
+    """(C, B, 8) int32 limb columns -> (B, C) object Python ints.
+
+    Host stages do arbitrary-precision math on object arrays.  Columns below
+    2^64 (limbs 2-7 zero: the byte and integer hint inputs, the common case)
+    compose in vectorized uint64 and box once; a wider column converts through
+    bytes, one ``int.from_bytes`` an element, with no loop over its limbs."""
+    C, B, _ = sel.shape
+    ints = np.zeros((B, C), dtype=object)
+    if C == 0:
+        return ints
+    u = sel.view(np.uint32)
+    wide = u[:, :, 2:].any(axis=(1, 2))  # (C,)
+    narrow = np.nonzero(~wide)[0]
+    if narrow.size:
+        v = u[narrow, :, 0].astype(np.uint64) | (u[narrow, :, 1].astype(np.uint64) << np.uint64(32))
+        ints[:, narrow] = v.T.astype(object)
+    for c in np.nonzero(wide)[0]:
+        ints[:, c] = limbs32_to_ints(sel[c])
+    return ints
+
+
+def cols_to_limbs(cols: Sequence[np.ndarray], p: int) -> np.ndarray:
+    """(B,) integer columns -> (C, B, 8) int32 limbs of their values mod p
+    (p > 2^64).  A column of an unsigned dtype, or an object column whose
+    values all lie in [0, 2^64), splits as uint64 (vectorized); any other
+    column (a signed dtype, negative or wider values) goes through
+    ``int(v) % p`` element by element, so no value wraps."""
+    cols = list(cols)
+    batch = len(cols[0]) if cols else 0
+    limbs = np.zeros((len(cols), batch, LIMBS), dtype=np.uint32)
+    for c, col in enumerate(cols):
+        v64 = None
+        if col.dtype.kind == "u":
+            v64 = col.astype(np.uint64)
+        elif col.dtype == object and (batch == 0 or min(col) >= 0):
+            # numpy may cast a negative int to uint64 by wrapping it, so the
+            # fast path takes only non-negative values (and fails above 2^64)
+            try:
+                v64 = col.astype(np.uint64)
+            except (OverflowError, TypeError):
+                pass
+        if v64 is None:
+            limbs[c] = ints_to_limbs32([int(v) % p for v in col]).view(np.uint32)
+            continue
+        limbs[c, :, 0] = v64 & np.uint64(0xFFFFFFFF)
+        limbs[c, :, 1] = v64 >> np.uint64(32)
+    return limbs.view(np.int32)
 
 
 def eval_expr_batch(

@@ -897,3 +897,318 @@ def sort_inputs(circuit, batch: int, seed: int = 21, fail_instance=None):
         keys[n // 2, fail_instance] = 1 << 32
         fail_op = n // 2
     return {1 + i: keys[i] for i in range(n)}, fail_op
+
+
+# ---------------------------------------------------------------------------
+# Unconstrained loops: the device Brillig VM's circuits
+# ---------------------------------------------------------------------------
+
+
+def insertion_sort_bytecode(n: int, b=br) -> list:
+    """An unconstrained insertion sort of the n words of memory at the pointer
+    in r0, in place; r0 (the output array's pointer) is left as it was.  The
+    inner loop loads a neighbouring pair, compares it at 32 bits and calls a
+    two-Store swap helper that returns: 22 opcodes, n (n - 1) / 2 swaps at
+    most (1,656 opcodes for 16 keys in descending order)."""
+    R, I, V = b.RegisterIndex, b.BinaryIntOp, b.Value.from_int
+    return [
+        b.OpConst(R(1), V(n)),                                  # 0: r1 = n
+        b.OpConst(R(4), V(1)),                                  # 1: r4 = 1
+        b.OpConst(R(2), V(1)),                                  # 2: i = 1
+        b.OpBinaryIntOp(R(9), I.LessThan, 32, R(2), R(1)),      # 3: outer: i < n?
+        b.OpJumpIfNot(R(9), 18),                                # 4
+        b.OpMov(R(3), R(2)),                                    # 5: j = i
+        b.OpJumpIfNot(R(3), 16),                                # 6: inner: j == 0 -> next i
+        b.OpBinaryIntOp(R(6), I.Add, 32, R(0), R(3)),           # 7: &a[j]
+        b.OpBinaryIntOp(R(5), I.Sub, 32, R(6), R(4)),           # 8: &a[j - 1]
+        b.OpLoad(R(7), R(5)),                                   # 9
+        b.OpLoad(R(8), R(6)),                                   # 10
+        b.OpBinaryIntOp(R(9), I.LessThanEquals, 32, R(7), R(8)),  # 11: in order?
+        b.OpJumpIf(R(9), 16),                                   # 12
+        b.OpCall(19),                                           # 13: swap
+        b.OpBinaryIntOp(R(3), I.Sub, 32, R(3), R(4)),           # 14: j -= 1
+        b.OpJump(6),                                            # 15
+        b.OpBinaryIntOp(R(2), I.Add, 32, R(2), R(4)),           # 16: next i
+        b.OpJump(3),                                            # 17
+        b.OpStop(),                                             # 18
+        b.OpStore(R(5), R(8)),                                  # 19: swap: a[j - 1] = a[j]
+        b.OpStore(R(6), R(7)),                                  # 20:       a[j] = a[j - 1]
+        b.OpReturn(),                                           # 21
+    ]
+
+
+def isqrt_bytecode(b=br) -> list:
+    """r0 = isqrt(r0) for r0 < 2^36 by binary search at 64 bits: lo = 0,
+    hi = 2^18 + 1 (lo^2 <= s < hi^2), mid = (lo + hi) / 2 by an UnsignedDiv,
+    about 19 iterations of 10 opcodes."""
+    R, I, V = b.RegisterIndex, b.BinaryIntOp, b.Value.from_int
+    return [
+        b.OpConst(R(1), V(0)),                                  # 0: lo
+        b.OpConst(R(2), V((1 << 18) + 1)),                      # 1: hi
+        b.OpConst(R(3), V(1)),                                  # 2
+        b.OpConst(R(4), V(2)),                                  # 3
+        b.OpBinaryIntOp(R(5), I.Add, 64, R(1), R(3)),           # 4: loop: lo + 1 < hi?
+        b.OpBinaryIntOp(R(6), I.LessThan, 64, R(5), R(2)),      # 5
+        b.OpJumpIfNot(R(6), 16),                                # 6
+        b.OpBinaryIntOp(R(7), I.Add, 64, R(1), R(2)),           # 7
+        b.OpBinaryIntOp(R(7), I.UnsignedDiv, 64, R(7), R(4)),   # 8: mid
+        b.OpBinaryIntOp(R(8), I.Mul, 64, R(7), R(7)),           # 9
+        b.OpBinaryIntOp(R(9), I.LessThanEquals, 64, R(8), R(0)),  # 10: mid^2 <= s?
+        b.OpJumpIfNot(R(9), 14),                                # 11
+        b.OpMov(R(1), R(7)),                                    # 12: lo = mid
+        b.OpJump(4),                                            # 13
+        b.OpMov(R(2), R(7)),                                    # 14: hi = mid
+        b.OpJump(4),                                            # 15
+        b.OpMov(R(0), R(1)),                                    # 16
+        b.OpStop(),                                             # 17
+    ]
+
+
+def inverse_bytecode(b=br) -> list:
+    """r0 = 1 / (r0 - r1) in the field, trapping where r0 = r1 (an
+    ``assert(x != 0)`` before the inverse)."""
+    R, F = b.RegisterIndex, b.BinaryFieldOp
+    return [
+        b.OpBinaryFieldOp(R(2), F.Sub, R(0), R(1)),             # 0: x
+        b.OpConst(R(3), b.Value.from_int(0)),                   # 1
+        b.OpBinaryFieldOp(R(4), F.Equals, R(2), R(3)),          # 2
+        b.OpJumpIfNot(R(4), 5),                                 # 3
+        b.OpTrap(),                                             # 4
+        b.OpConst(R(5), b.Value.from_int(1)),                   # 5
+        b.OpBinaryFieldOp(R(0), F.Div, R(5), R(2)),             # 6
+        b.OpStop(),                                             # 7
+    ]
+
+
+def build_brillig_vm_circuit(n_keys: int = 16, seed: int = 31, lib=None):
+    """The ACIR of a Noir program that calls three ``unconstrained`` helpers
+    with loops and constrains their answers, in that opcode order:
+
+    * ``Range(k_i, 32)`` for each key k_i (witnesses 1..n), and the solve gate
+      ``s = sum k_i``;
+    * block A, :func:`insertion_sort_bytecode` over one array input of the
+      keys into one array output t; the gaps ``t_(i+1) - t_i`` as solve gates,
+      each with ``Range(., 32)``; and a grand-product permutation check at a
+      challenge c drawn from ``seed``: ``prod (c - k_i) = prod (c - t_i)`` as
+      two chains of solve gates and one assert-zero;
+    * block B, :func:`isqrt_bytecode` of s into r, and ``s - r^2`` and
+      ``r^2 + 2 r - s`` as solve gates, each with ``Range(., 37)``;
+    * block C, :func:`inverse_bytecode` of (k_0, k_1) into inv, and the
+      assert-zero ``(k_0 - k_1) inv - 1 = 0``.
+
+    The three blocks read only inputs and the sum, so they are one host stage
+    between device segments.  16 keys: 88 opcodes over 84 witnesses; the
+    worst case of the sort (keys in descending order) takes 1,656 opcodes
+    against the step budget's 2,432.  ``lib`` as in
+    :func:`build_brillig_ops_circuit`; :func:`brillig_vm_circuit_roles` names
+    its witnesses."""
+    return _vm_circuit(n_keys, seed, lib or PORT_CLASSES)[0]
+
+
+def brillig_vm_circuit_roles(n_keys: int = 16) -> Dict[str, List[int]]:
+    """The witnesses of :func:`build_brillig_vm_circuit` by role: ``keys``,
+    ``total``, ``sorted`` (t), ``gaps``, ``root`` (r), ``inverse``, and the
+    opcode indices of the three blocks (``blocks``)."""
+    return _vm_circuit(n_keys, 0, PORT_CLASSES)[1]
+
+
+def _vm_circuit(n: int, seed: int, lib):
+    o, fe, W, b = lib.opcodes, lib.FieldElement, lib.Witness, lib.brillig
+    E = lib.Expression.from_witness
+    keys = [W(1 + i) for i in range(n)]
+    next_witness = n + 1
+    opcodes, blocks = [], []
+
+    def fresh():
+        nonlocal next_witness
+        next_witness += 1
+        return W(next_witness - 1)
+
+    def gate(mul=(), lin=(), q=0):
+        opcodes.append(o.OpcodeArithmetic(lib.Expression(
+            mul_terms=[(fe(c), x, y) for c, x, y in mul],
+            linear_combinations=[(fe(c), x) for c, x in lin], q_c=fe(q))))
+
+    def range_check(w, bits):
+        opcodes.append(o.OpcodeBlackBoxFuncCall(o.BBRange(o.FunctionInput(w, bits))))
+
+    def block(inputs, outputs, bytecode):
+        blocks.append(len(opcodes))
+        opcodes.append(o.OpcodeBrillig(o.Brillig(
+            inputs=inputs, outputs=outputs, foreign_call_results=[], bytecode=bytecode,
+            predicate=None)))
+
+    for k in keys:
+        range_check(k, 32)
+    total = fresh()
+    gate(lin=[(1, k) for k in keys] + [(-1, total)])
+
+    t = [fresh() for _ in range(n)]
+    block([o.BrilligInputArray([E(k) for k in keys])], [o.BrilligOutputArray(t)],
+          insertion_sort_bytecode(n, b))
+    gaps = []
+    for lo, hi in zip(t, t[1:]):
+        gaps.append(fresh())
+        gate(lin=[(1, hi), (-1, lo), (-1, gaps[-1])])
+        range_check(gaps[-1], 32)
+    c = random.Random(seed).randrange(1, BN254_FR.modulus)
+
+    def product(ws):  # prod (c - w) as a chain of solve gates
+        acc = fresh()
+        gate(lin=[(-1, ws[0]), (-1, acc)], q=c)
+        for w in ws[1:]:
+            nxt = fresh()
+            gate(mul=[(-1, acc, w)], lin=[(c, acc), (-1, nxt)])
+            acc = nxt
+        return acc
+
+    gate(lin=[(1, product(keys)), (-1, product(t))])
+
+    root = fresh()
+    block([o.BrilligInputSingle(E(total))], [o.BrilligOutputSimple(root)], isqrt_bytecode(b))
+    below, above = fresh(), fresh()
+    gate(mul=[(1, root, root)], lin=[(-1, total), (1, below)])  # below = s - r^2
+    range_check(below, 37)
+    gate(mul=[(-1, root, root)], lin=[(-2, root), (1, total), (1, above)])  # above = r^2 + 2r - s
+    range_check(above, 37)
+
+    inverse = fresh()
+    block([o.BrilligInputSingle(E(keys[0])), o.BrilligInputSingle(E(keys[1]))],
+          [o.BrilligOutputSimple(inverse)], inverse_bytecode(b))
+    gate(mul=[(1, keys[0], inverse), (-1, keys[1], inverse)], q=-1)
+    circuit = lib.Circuit(current_witness_index=next_witness - 1, opcodes=opcodes,
+                          private_parameters=set(keys))
+    roles = dict(keys=keys, total=[total], sorted=t, gaps=gaps, root=[root], inverse=[inverse])
+    roles = {k: [int(w) for w in v] for k, v in roles.items()}
+    roles["blocks"] = blocks
+    return circuit, roles
+
+
+def brillig_vm_inputs(circuit, batch: int, seed: int = 23):
+    """Columnar keys of :func:`build_brillig_vm_circuit`, a (batch,) uint64
+    array a key: random u32 values, every fourth instance (b = 1 mod 4) drawn
+    from 0..15 (duplicates), k_0 != k_1 everywhere but in these instances:
+
+    * 0: the keys in descending order (the sort's worst case);
+    * 1: every key 2^32 - 1 (so k_0 = k_1: it traps in block C);
+    * 2: k_0 = k_1 (it traps in block C, at that block's opcode index);
+    * 3: the middle key 2^32 (it fails its ``Range``, opcode n // 2, first).
+
+    Returns ``(columns, fails)``: fails maps each failing instance to the
+    first opcode it fails; every other instance is satisfied."""
+    import numpy as np
+
+    n = len(circuit.private_parameters)
+    block_c = [i for i, op in enumerate(circuit.opcodes)
+               if type(op).__name__ == "OpcodeBrillig"][-1]
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 32, size=(n, batch), dtype=np.uint64)
+    dup = np.arange(batch) % 4 == 1
+    keys[:, dup] = rng.integers(0, 16, size=(n, int(dup.sum())), dtype=np.uint64)
+    same = keys[0] == keys[1]
+    keys[1, same] ^= np.uint64(1)
+    keys[:, 0] = (n - np.arange(n, dtype=np.uint64)) * np.uint64(1_000_003)
+    keys[:, 1] = (1 << 32) - 1
+    keys[1, 2] = keys[0, 2]
+    keys[n // 2, 3] = 1 << 32
+    fails = {1: block_c, 2: block_c, 3: n // 2}
+    return {1 + i: keys[i] for i in range(n)}, fails
+
+
+def _sum_loop_bytecode(b) -> list:
+    """r0 = 1 + 2 + ... + r0 by a JumpIfNot loop at 64 bits (per-instance trip
+    counts): the JAX package's fixture (tests/test_brillig_vm_device.py)."""
+    R, I = b.RegisterIndex, b.BinaryIntOp
+    return [b.OpConst(R(1), b.Value.from_int(0)), b.OpConst(R(2), b.Value.from_int(1)),
+            b.OpJumpIfNot(R(0), 6),
+            b.OpBinaryIntOp(R(1), I.Add, 64, R(1), R(0)),
+            b.OpBinaryIntOp(R(0), I.Sub, 64, R(0), R(2)),
+            b.OpJump(2), b.OpMov(R(0), R(1)), b.OpStop()]
+
+
+def _binary_search_bytecode(n: int, b) -> list:
+    """r0 = the lower bound of r1 in the sorted array at the pointer in r0
+    (Load and branches): the JAX package's fixture."""
+    R, I, V = b.RegisterIndex, b.BinaryIntOp, b.Value.from_int
+    return [b.OpConst(R(2), V(0)), b.OpConst(R(3), V(n)), b.OpConst(R(4), V(1)),
+            b.OpConst(R(5), V(2)),
+            b.OpBinaryIntOp(R(6), I.LessThan, 64, R(2), R(3)), b.OpJumpIfNot(R(6), 16),
+            b.OpBinaryIntOp(R(7), I.Add, 64, R(2), R(3)),
+            b.OpBinaryIntOp(R(7), I.UnsignedDiv, 64, R(7), R(5)),
+            b.OpBinaryIntOp(R(8), I.Add, 64, R(0), R(7)), b.OpLoad(R(9), R(8)),
+            b.OpBinaryIntOp(R(10), I.LessThan, 64, R(9), R(1)), b.OpJumpIfNot(R(10), 14),
+            b.OpBinaryIntOp(R(2), I.Add, 64, R(7), R(4)), b.OpJump(4),
+            b.OpMov(R(3), R(7)), b.OpJump(4), b.OpMov(R(0), R(2)), b.OpStop()]
+
+
+def _call_trap_bytecode(b) -> list:
+    """r0 = 3 r0 in a called subroutine that traps where r0 = 7 (Call, Return,
+    a conditional Trap): the JAX package's fixture."""
+    R, I, V = b.RegisterIndex, b.BinaryIntOp, b.Value.from_int
+    return [b.OpCall(3), b.OpMov(R(0), R(1)), b.OpStop(),
+            b.OpConst(R(2), V(3)), b.OpBinaryIntOp(R(1), I.Mul, 64, R(0), R(2)),
+            b.OpConst(R(3), V(7)), b.OpBinaryIntOp(R(4), I.Equals, 64, R(0), R(3)),
+            b.OpJumpIfNot(R(4), 9), b.OpTrap(), b.OpReturn()]
+
+
+VM_EDGE_ARRAY = 8  # the binary search's array
+
+
+def build_brillig_vm_edges_circuit(lib=None):
+    """The JAX package's three device-VM fixtures as one circuit of four
+    blocks (opcodes 0-3), each a host stage: the sum loop of w1 into w2; the
+    binary search of the needle w11 in the sorted array w3..w10 into w12;
+    Call/Return with a conditional Trap of w13 into w14 (trapping where
+    w13 = 7); the sum loop of w16 again under the predicate w15, into w17."""
+    lib = lib or PORT_CLASSES
+    o, W, b = lib.opcodes, lib.Witness, lib.brillig
+    E = lib.Expression.from_witness
+
+    def block(inputs, out, bytecode, predicate=None):
+        return o.OpcodeBrillig(o.Brillig(
+            inputs=inputs, outputs=[o.BrilligOutputSimple(W(out))], foreign_call_results=[],
+            bytecode=bytecode, predicate=predicate))
+
+    arr = [E(W(3 + i)) for i in range(VM_EDGE_ARRAY)]
+    opcodes = [
+        block([o.BrilligInputSingle(E(W(1)))], 2, _sum_loop_bytecode(b)),
+        block([o.BrilligInputArray(arr), o.BrilligInputSingle(E(W(11)))], 12,
+              _binary_search_bytecode(VM_EDGE_ARRAY, b)),
+        block([o.BrilligInputSingle(E(W(13)))], 14, _call_trap_bytecode(b)),
+        block([o.BrilligInputSingle(E(W(16)))], 17, _sum_loop_bytecode(b), predicate=E(W(15))),
+    ]
+    inputs = {W(i) for i in (1, 11, 13, 15, 16)} | {W(3 + i) for i in range(VM_EDGE_ARRAY)}
+    return lib.Circuit(current_witness_index=17, opcodes=opcodes, private_parameters=inputs)
+
+
+def brillig_vm_edge_inputs(batch: int, seed: int = 29, escape_instance=None):
+    """Columns of :func:`build_brillig_vm_edges_circuit`: sum-loop counts in
+    0..199, sorted arrays of values below 100 with needles in 0..104, call
+    inputs in 0..9 (7 traps), the predicate 0 or 1 at random.  With
+    ``escape_instance`` set, that instance's first loop runs 1,000 times,
+    past the step budget (8 opcodes: 1,536 steps): the block escapes and
+    reruns instance by instance.  Returns ``(columns, expected)``, expected
+    the four outputs and the trap mask by Python's reckoning."""
+    import bisect
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = {1: rng.integers(0, 200, batch, dtype=np.uint64)}
+    if escape_instance is not None:
+        cols[1][escape_instance] = 1000
+    arrays = np.sort(rng.integers(0, 100, (batch, VM_EDGE_ARRAY), dtype=np.uint64), axis=1)
+    for i in range(VM_EDGE_ARRAY):
+        cols[3 + i] = arrays[:, i].copy()
+    cols[11] = rng.integers(0, 105, batch, dtype=np.uint64)
+    cols[13] = rng.integers(0, 10, batch, dtype=np.uint64)
+    cols[15] = rng.integers(0, 2, batch, dtype=np.uint64)
+    cols[16] = rng.integers(0, 200, batch, dtype=np.uint64)
+    trap = cols[13] == 7
+    expected = {
+        2: [int(v) * (int(v) + 1) // 2 for v in cols[1]],
+        12: [bisect.bisect_left(list(arrays[k]), int(cols[11][k])) for k in range(batch)],
+        14: [0 if t else 3 * int(v) for v, t in zip(cols[13], trap)],
+        17: [int(v) * (int(v) + 1) // 2 * int(q) for v, q in zip(cols[16], cols[15])],
+    }
+    return cols, expected, trap

@@ -6,7 +6,8 @@
     python3 chip_smoke.py --profile  # also one profiled solve per path: device
                                      # time by kernel, device busy share (and
                                      # the SHA-256 path traced block by block;
-                                     # path_host's solve with its host stages)
+                                     # path_host's and path_vm's solves with
+                                     # their host stages)
     python3 chip_smoke.py --level-variants  # also the level kernel built with
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
@@ -79,22 +80,44 @@ build, a failed launch or a failed comparison raises and the exit code is not
                witness maps against the sequential engine, ``host_batch=False``
                the same panel, ``level`` and ``dot`` against their plain
                versions, ``host_solves_per_sec`` and the ``SolveStats`` split;
-12. ``brillig_ops``  one Brillig block for each field op and each int op at
+12. ``path_vm``  a program with unconstrained loops (``build_brillig_vm_circuit(16)``:
+               an insertion sort of 16 u32 keys into an array output, an
+               integer square root by binary search, an inverse that traps
+               where k_0 = k_1; 88 opcodes) over 8,192 instances, the sort's
+               worst case, two traps and a key of 2^32 among them: three
+               ``brillig_vm`` launches and no per-instance stage; every
+               instance's sorted keys, root, inverse and flags against Python
+               ints, three witness maps against the sequential engine,
+               ``host_batch=False`` the same panel on 256 instances,
+               ``vm_solves_per_sec``, the ``SolveStats`` split and the VM
+               route's input, kernel and readback times with the steps an
+               instance, a block at a time;
+13. ``brillig_ops``  one Brillig block for each field op and each int op at
                1-256 bits over 2,048 instances of edge values, every witness
                against the evaluator;
-13. ``kernels`` every kernel against its plain PyTorch version at the main
+14. ``brillig_vm_edges``  the JAX package's device-VM fixtures (a sum loop, a
+               binary search over an array input, Call/Return with a
+               conditional Trap) and a predicated loop over 2,048 instances
+               against Python ints, one instance past the step budget
+               rerunning its block instance by instance (one per-instance
+               stage); every block of 13 through the VM equal to the trace's
+               panel, the UnsignedDiv-by-zero instances trapping;
+15. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; ``batch_inv`` also at four chunk sizes on
-               the dyn path's (2,048, 2,048) panel;
-14. the raw ``nvidia-smi`` name and power limit;
-15. ``{"ok": true, "device": {...}}``.
+               the dyn path's (2,048, 2,048) panel; ``brillig_vm`` on the sort
+               block of 12 over all 8,192 instances, with the opcodes executed
+               by kind that its bound counts;
+16. the raw ``nvidia-smi`` name and power limit;
+17. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -283,6 +306,7 @@ def main() -> int:
 
     import numpy as np
 
+    from acvm_tpu_torch import brillig as br
     from acvm_tpu_torch import build
     from acvm_tpu_torch.acir import Circuit, Expression, Witness
     from acvm_tpu_torch.acir import opcodes as ops
@@ -299,6 +323,8 @@ def main() -> int:
         array_inputs, brillig_ops_inputs, build_array_circuit, build_brillig_ops_circuit,
         build_gadget_circuit, build_sha256_circuit, build_u32_circuit, build_wide_arith_circuit,
         build_sort_circuit, columnar_instance, divmod_edge_operands, divmod_word_grid,
+        brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs,
+        build_brillig_vm_circuit, build_brillig_vm_edges_circuit,
         gadget_inputs_columnar, oracle_affine, random_inputs, sha256_inputs, sort_circuit_roles,
         sort_inputs, u32_inputs, with_repeated_constraints,
     )
@@ -1671,36 +1697,282 @@ def main() -> int:
     del res, solver
     torch.cuda.empty_cache()
 
-    # -- 12. brillig_ops --------------------------------------------------------------
+    # -- 12. path_vm ------------------------------------------------------------------
+    # A Noir program with three unconstrained helpers that loop (an insertion
+    # sort of 16 u32 keys into an array output, an integer square root by binary
+    # search, an inverse that asserts its input is not 0), over 8,192
+    # instances: the worst-case sort, all keys 2^32 - 1, k_0 = k_1 (a trap), a
+    # key of 2^32 (a Range).  Every instance's sorted keys, root, inverse and
+    # flags against Python ints; one brillig_vm launch a block, none per
+    # instance; host_batch=False the same panel on 256 instances.
+    vm_B, n_vm_keys = 8192, 16
+    circuit = build_brillig_vm_circuit(n_vm_keys)
+    roles = brillig_vm_circuit_roles(n_vm_keys)
+    cols, vm_fails = brillig_vm_inputs(circuit, vm_B)
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    stage_blocks = [[i for h in seg.host_stages for i in h.opcode_indices] for seg in solver.segments]
+    assert sorted(i for seg in stage_blocks for i in seg) == roles["blocks"], stage_blocks
+    build.reset_launches()
+    stats = SolveStats()
+    t0 = time.perf_counter()
+    res = solver.solve(cols, stats=stats)
+    first_solve_seconds = time.perf_counter() - t0
+    vm_launches = dict(build.LAUNCHES)
+    assert vm_launches["brillig_vm"] == 3 and stats.host_per_instance_stages == 0, (
+        vm_launches, stats.host_per_instance_stages)
+    want_fail = [vm_fails.get(b, int(FAIL_NONE)) for b in range(vm_B)]
+    assert res.fail.tolist() == want_fail and res.ok.tolist() == [b not in vm_fails for b in range(vm_B)]
+    rows = sorted({w for key in ("keys", "total", "sorted", "root", "inverse") for w in roles[key]})
+    vals = fk.limbs32_to_ints(res.panel[torch.tensor(rows, device=dev)].cpu().numpy())
+    got = {w: vals[i * vm_B:(i + 1) * vm_B] for i, w in enumerate(rows)}
+    for b in range(vm_B):
+        keys = [int(cols[w][b]) for w in roles["keys"]]
+        # the sort compares at 32 bits: the key 2^32 of instance 3 sorts as 0
+        assert [got[w][b] for w in roles["sorted"]] == sorted(keys, key=lambda v: v % 2**32), b
+        assert got[roles["total"][0]][b] == sum(keys), b
+        assert got[roles["root"][0]][b] == math.isqrt(sum(keys)), b
+        x = (keys[0] - keys[1]) % P
+        assert got[roles["inverse"][0]][b] == (pow(x, -1, P) if x else 0), b
+    for b in (0, 2, 4):  # the worst-case sort, a trap, a plain instance
+        status, acvm = sequential_solve(circuit, columnar_instance(cols, b), None)
+        if b in vm_fails:
+            assert status == "failure" and acvm.instruction_pointer == vm_fails[b], (status, b)
+            continue
+        assert status == "solved", (status, b)
+        inst = res.instance_ints(b)
+        assert all(inst[int(w)] == int(v) for w, v in acvm.finalize()), b
+    per_B = 256
+    part = {w: v[:per_B] for w, v in cols.items()}
+    per_instance_stats = SolveStats()
+    t0 = time.perf_counter()
+    per_instance = BatchSolver(solver.plan, host_batch=False).solve(part, stats=per_instance_stats)
+    per_instance_seconds = time.perf_counter() - t0
+    assert torch.equal(per_instance.panel, res.panel[:, :per_B])
+    assert per_instance.fail.tolist() == want_fail[:per_B]
+    assert per_instance_stats.host_per_instance_stages == 3
+    del per_instance
+
+    # The VM route's parts, block by block, on the host columns the stage reads.
+    from acvm_tpu_torch.gpu import brillig_vm_device as bvm, host_batch
+    read = roles["keys"] + roles["total"]
+    host_cols = host_batch.limb_cols_to_object(res.panel[torch.tensor(read, device=dev)].cpu().numpy())
+    col_of = {w: host_cols[:, i] for i, w in enumerate(read)}
+    route = []
+    for name, index in zip(("sort", "isqrt", "inverse"), roles["blocks"]):
+        brillig = circuit.opcodes[index].brillig
+        t0 = time.perf_counter()
+        program, regs, mem = bvm.initial_state(brillig, lambda w: col_of[int(w)], vm_B, P, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        status, steps = bvm.run_vm(program, regs, mem, bvm.step_budget(program.n_pc))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bvm.read_outputs(brillig, regs, mem, status)
+        t3 = time.perf_counter()
+        steps = steps.float()
+        route.append(dict(block=name, opcode=index, n_pc=program.n_pc,
+                          steps_mean=float(steps.mean()), steps_max=int(steps.max()),
+                          inputs_ms=(t1 - t0) * 1e3, kernel_ms=(t2 - t1) * 1e3,
+                          readback_ms=(t3 - t2) * 1e3))
+        del regs, mem
+    opcodes = len(circuit.opcodes)
+    rate, secs = timed_rate(lambda: solver.solve(cols), opcodes * vm_B, reps=3)
+    timed_stats = SolveStats()
+    solver.solve(cols, stats=timed_stats)
+    if want_profile:
+        emit({"profile_vm": profile(lambda: solver.solve(cols), secs)})
+
+    # brillig_vm against its plain version, tolerance 0, on block A's shape
+    # over all 8,192 instances (the state the stage loads), and its time: each
+    # timed launch starts from a fresh copy of that state.
+    program, regs0, mem0 = bvm.initial_state(circuit.opcodes[roles["blocks"][0]].brillig,
+                                             lambda w: col_of[int(w)], vm_B, P, dev)
+    n_regs, mem_cap = regs0.shape[0], mem0.shape[0]
+    budget = bvm.step_budget(program.n_pc)
+    regs_k, mem_k = regs0.clone(), mem0.clone()
+    status_k, steps_k = bvm.run_vm(program, regs_k, mem_k, budget)
+    regs_p, mem_p = regs0.clone(), mem0.clone()
+    pc_counts = torch.zeros(program.n_pc, dtype=torch.int64, device=dev)
+    status_p, steps_p = bvm.run_vm_plain(program, regs_p, mem_p, budget, pc_counts=pc_counts)
+    torch.cuda.synchronize()
+    vm_err = max(max_abs_err(regs_k, regs_p), max_abs_err(mem_k, mem_p),
+                 max_abs_err(status_k, status_p), max_abs_err(steps_k, steps_p))
+    assert vm_err == 0 and int((status_k != bvm.HALTED).sum()) == 0, vm_err
+    assert int(pc_counts.sum()) == int(steps_k.sum())
+    # The sort's Loads and Stores reach a[j - 1] and a[j] for j < 16: the
+    # array's own rows.  The rows past it are the capacity's padding, still 0.
+    array_rows = n_vm_keys
+    assert not bool(mem_k[array_rows:].any()) and not bool(mem0[array_rows:].any())
+
+    def vm_ms(calls, reps=7):
+        """Median event time of one launch over ``calls`` launches queued back
+        to back, each on its own copy of the initial state (made before)."""
+        run = lambda r, m: bvm.run_vm(program, r, m, budget)  # noqa: E731
+        run(regs0.clone(), mem0.clone())
+        times = []
+        for _ in range(reps):
+            copies = [(regs0.clone(), mem0.clone()) for _ in range(calls)]
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for r, m in copies:
+                run(r, m)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        return statistics.median(times)
+
+    # Bound: the state the instances touch read and written once (the
+    # registers of the block, the array's rows of memory; status and steps
+    # written) and the program table read, against the int32 operations of the
+    # opcodes executed (counted at each pc by the plain run): 8 words an int
+    # op, a data move or a branch test (36 multiply-adds a 256-bit product's
+    # low half), 1 a jump, call, return or stop; field ops 16 (add, sub),
+    # 2 x 136 (mul), 313 x 136 (div: to Montgomery form, the p - 2 chain, the
+    # product).  The sort divides nothing; a block that does would need its
+    # divisions counted from their operands.
+    I_, F_ = br.BinaryIntOp, br.BinaryFieldOp
+    int_cost = {int(I_.Mul): 36}
+    field_cost = {int(F_.Add): 16, int(F_.Sub): 16, int(F_.Mul): 2 * MADDS_PER_MONT_MUL,
+                  int(F_.Div): (fk.pow_chain_products(P - 2) + 2) * MADDS_PER_MONT_MUL}
+    kind_names = {bvm.K_JUMP: "Jump", bvm.K_JUMP_IF: "JumpIf", bvm.K_JUMP_IF_NOT: "JumpIfNot",
+                  bvm.K_CALL: "Call", bvm.K_RETURN: "Return", bvm.K_CONST: "Const",
+                  bvm.K_MOV: "Mov", bvm.K_LOAD: "Load", bvm.K_STORE: "Store",
+                  bvm.K_TRAP: "Trap", bvm.K_STOP: "Stop"}
+    light = {"Jump", "Call", "Return", "Stop", "Trap"}
+    executed_by_kind, vm_ops = {}, 0
+    for (kind, sub), n in zip(program.table[:, :2].tolist(), pc_counts.tolist()):
+        if n == 0:
+            continue
+        if kind == bvm.K_BIN_INT:
+            assert sub not in (int(I_.UnsignedDiv), int(I_.SignedDiv)), "count its divisions"
+            name, cost = f"BinaryIntOp.{I_(sub).name}", int_cost.get(sub, 8)
+        elif kind == bvm.K_BIN_FIELD:
+            name, cost = f"BinaryFieldOp.{F_(sub).name}", field_cost.get(sub, 8)
+        else:
+            name = kind_names[kind]
+            cost = 1 if name in light else 8
+        executed_by_kind[name] = executed_by_kind.get(name, 0) + n
+        vm_ops += n * cost
+    vm_bytes = (2 * (n_regs + array_rows) * fk.LIMBS * 4 * vm_B + 2 * 4 * vm_B
+                + program.table.size * 4)
+    b_ms, b_by = bound(vm_bytes, vm_ops)
+    kernels["brillig_vm"] = dict(
+        name="brillig_vm", route="cuda", source="acvm_tpu_torch/csrc/brillig_vm.cu",
+        replaces="acvm_tpu/tpu/brillig_vm_device.py:215",
+        shape=f"block A of path_vm: {program.n_pc} opcodes, B={vm_B}, {n_regs} registers, "
+              f"{mem_cap} memory cells",
+        steps_mean=float(steps_k.float().mean()), steps_max=int(steps_k.max()),
+        opcodes_executed=int(steps_k.sum()), executed_by_kind=executed_by_kind, int32_ops=vm_ops,
+        bound_bytes=vm_bytes,
+        max_abs_err=vm_err, ms=vm_ms(1), ms_queued=vm_ms(10),
+        plain_ms=time_ms(lambda: bvm.run_vm_plain(program, regs0.clone(), mem0.clone(), budget),
+                         3, warmup=0),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit({"path_vm": {
+        "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": vm_B, "keys": n_vm_keys,
+        "levels": len([lv for seg in solver.segments for lv in seg.levels]),
+        "segments": len(solver.segments), "blocks_by_segment": stage_blocks, "ok": True,
+        "checked_instances": vm_B, "failing_instances": {str(b): f for b, f in vm_fails.items()},
+        "launches": vm_launches, "launches_all_port_kernels": sum(vm_launches.values()),
+        "plan_and_pack_seconds": plan_seconds, "first_solve_seconds": first_solve_seconds,
+        "vm_solves_per_sec": rate, "solve_seconds": secs,
+        "solve_stats": timed_stats.summary(), "segment_seconds": timed_stats.segment_seconds,
+        "host_stage_seconds": timed_stats.host_stage_seconds,
+        "host_per_instance_stages": timed_stats.host_per_instance_stages,
+        "vm_route": route,
+        "host_batch_off": {"instances": per_B, "equal_panel": True,
+                           "solve_seconds": per_instance_seconds,
+                           "host_per_instance_stages": per_instance_stats.host_per_instance_stages,
+                           "host_stage_seconds": per_instance_stats.host_stage_seconds},
+        "panel_bytes": solver.panel_bytes(vm_B),
+        "sort_state_bytes": (regs0.numel() + mem0.numel()) * 4}})
+    del res, solver, regs_k, mem_k, regs_p, mem_p
+    torch.cuda.empty_cache()
+
+    # -- 13. brillig_ops --------------------------------------------------------------
     # One straight-line block for each Brillig op (5 field, 13 int at 1-256
     # bits) over 2,048 instances of edge values, every witness of every
     # instance against the evaluator.  Field Div reaches pow, the divisions and
     # the reduction of 254- and 256-bit results reach divmod.
     ops_B = 2048
-    circuit = build_brillig_ops_circuit()
-    cols = brillig_ops_inputs(ops_B)
+    ops_circuit = build_brillig_ops_circuit()
+    ops_input_cols = brillig_ops_inputs(ops_B)
     build.reset_launches()
     intops.PLAIN_ON_CARD["long_divmod"] = 0
-    res = BatchSolver(plan_circuit(circuit)).solve(cols)
+    res = BatchSolver(plan_circuit(ops_circuit)).solve(ops_input_cols)
     torch.cuda.synchronize()
     ops_launches = dict(build.LAUNCHES)
     assert res.ok.all() and intops.PLAIN_ON_CARD["long_divmod"] == 0
     assert ops_launches["pow"] > 0 and ops_launches["divmod"] > 0 and ops_launches["mul"] > 0
-    nw = circuit.num_vars()
-    ints = fk.limbs32_to_ints(res.panel.cpu().numpy())  # witness-major
+    nw = ops_circuit.num_vars()
+    ops_ints = fk.limbs32_to_ints(res.panel.cpu().numpy())  # witness-major
     for b in range(ops_B):
-        want, failed = evaluate(circuit, columnar_instance(cols, b), P)
+        want, failed = evaluate(ops_circuit, columnar_instance(ops_input_cols, b), P)
         assert failed is None and len(want) == nw - 1
-        bad = [k for k, v in want.items() if ints[k * ops_B + b] != v]
+        bad = [k for k, v in want.items() if ops_ints[k * ops_B + b] != v]
         assert not bad, f"brillig ops instance {b}: witnesses {bad[:3]} differ"
-    emit({"brillig_ops": {"blocks": len(circuit.opcodes), "batch": ops_B, "ok": True,
+    emit({"brillig_ops": {"blocks": len(ops_circuit.opcodes), "batch": ops_B, "ok": True,
                           "checked_instances": ops_B, "launches": ops_launches}})
     del res
 
-    # -- 13. kernels, 14. card, 15. verdict -------------------------------------------
+    # -- 14. brillig_vm_edges -----------------------------------------------------------
+    # The JAX package's device-VM fixtures (a sum loop, a binary search over an
+    # array input, Call/Return with a conditional Trap) and a predicated loop,
+    # over 2,048 instances, against Python ints; one instance's loop past the
+    # step budget makes its block rerun instance by instance (one per-instance
+    # stage, the sequential engine's answer).  Then every block of the
+    # Brillig-ops circuit through the VM equals the trace route's panel above,
+    # bit for bit; where an UnsignedDiv divides by zero the VM traps (the trace
+    # gives 0 and no flag), by design.
+    from acvm_tpu_torch.gpu import brillig_vm_device as bvm
+
+    edge_B, edge_escape = 2048, 5
+    circuit = build_brillig_vm_edges_circuit()
+    edge_plan = plan_circuit(circuit)
+    edges = {}
+    for escape in (None, edge_escape):
+        cols, expected, trap = brillig_vm_edge_inputs(edge_B, escape_instance=escape)
+        build.reset_launches()
+        stats = SolveStats()
+        res = BatchSolver(edge_plan).solve(cols, stats=stats)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["brillig_vm"] == 4, build.LAUNCHES
+        assert stats.host_per_instance_stages == (0 if escape is None else 1), stats.host_per_instance_stages
+        assert res.ok.tolist() == (~trap).tolist()
+        assert res.fail.tolist() == [2 if t else int(FAIL_NONE) for t in trap]
+        for w, want in expected.items():
+            assert res.witness_ints(w) == want, w
+        edges["escape" if escape is not None else "no_escape"] = {
+            "launches": build.LAUNCHES["brillig_vm"],
+            "host_per_instance_stages": stats.host_per_instance_stages,
+            "host_stage_seconds": stats.host_stage_seconds}
+    status, acvm = sequential_solve(circuit, columnar_instance(cols, edge_escape), None)
+    assert status == "solved" and int(acvm.finalize().get(Witness(2))) == res.witness_ints(2)[edge_escape]
+    ops_cols = {w: np.asarray(v).astype(object) for w, v in ops_input_cols.items()}
+    udiv_zero = 0
+    for index, op in enumerate(ops_circuit.opcodes):
+        values, trapped = bvm.run_brillig_vm_batch(op.brillig, lambda w: ops_cols[int(w)], ops_B, P, dev)
+        for w, v in values.items():
+            assert v.tolist() == ops_ints[w * ops_B:(w + 1) * ops_B], (index, w)
+        code = op.brillig.bytecode[-2]
+        divides = isinstance(code, br.OpBinaryIntOp) and code.op == br.BinaryIntOp.UnsignedDiv
+        zero = [divides and int(v) % (1 << code.bit_size) == 0 for v in ops_cols[2]]
+        assert trapped.tolist() == zero, index
+        udiv_zero += sum(zero)
+    emit({"brillig_vm_edges": {"batch": edge_B, "blocks": len(circuit.opcodes), "ok": True,
+                               "escape_instance": edge_escape, **edges,
+                               "brillig_ops_blocks_equal_trace": len(ops_circuit.opcodes),
+                               "brillig_ops_batch": ops_B, "udiv_by_zero_trapped": udiv_zero}})
+    del res
+
+
+    # -- 15. kernels, 16. card, 17. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
-             "sha": sha_launches, "mem": mem_launches, "host": host_launches}
+             "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]

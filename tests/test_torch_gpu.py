@@ -391,3 +391,62 @@ def test_device_resident_byte_columns(card):
         assert torch.equal(solver.solve((order, matrix)).panel, want.panel)
     with pytest.raises(ValueError, match="solver's device"):
         solver.solve({w: torch.from_numpy(a) for w, a in cols.items()})  # on the host
+
+
+def vm_blocks():
+    """(block, columns, batch) for every block of the VM circuits and the
+    Brillig-ops circuit."""
+    from acvm_tpu_torch.utils import (
+        brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs,
+        build_brillig_vm_circuit, build_brillig_vm_edges_circuit,
+    )
+
+    circuit = build_brillig_vm_circuit(16)
+    cols, _ = brillig_vm_inputs(circuit, 512)
+    cols = dict(cols)
+    cols[brillig_vm_circuit_roles(16)["total"][0]] = sum(cols[1 + i].astype(object) for i in range(16))
+    blocks = [(circuit.opcodes[i].brillig, cols, 512) for i in brillig_vm_circuit_roles(16)["blocks"]]
+    edge_cols, _, _ = brillig_vm_edge_inputs(512, escape_instance=3)
+    blocks += [(op.brillig, edge_cols, 512) for op in build_brillig_vm_edges_circuit().opcodes]
+    ops_cols = brillig_ops_inputs(256)
+    return blocks + [(op.brillig, ops_cols, 256) for op in build_brillig_ops_circuit().opcodes]
+
+
+def test_brillig_vm_kernel_equals_plain_version(card):
+    """Every block of the VM circuits (an escape by the step budget among
+    them) and every Brillig op at 1-256 bits: registers, memory, status and
+    steps of the kernel equal the plain version's on the card."""
+    from acvm_tpu_torch.gpu import brillig_vm_device as bvm
+
+    build.reset_launches()
+    blocks = vm_blocks()
+    for k, (brillig, cols, batch) in enumerate(blocks):
+        get = lambda w: np.asarray(cols[int(w)]).astype(object)  # noqa: E731
+        program, regs, mem = bvm.initial_state(brillig, get, batch, BN254_FR.modulus, card)
+        budget = bvm.step_budget(program.n_pc)
+        regs_p, mem_p = regs.clone(), mem.clone()
+        status, steps = bvm.run_vm(program, regs, mem, budget)
+        status_p, steps_p = bvm.run_vm_plain(program, regs_p, mem_p, budget)
+        assert torch.equal(regs, regs_p) and torch.equal(mem, mem_p), k
+        assert torch.equal(status, status_p) and torch.equal(steps, steps_p), k
+    assert build.LAUNCHES["brillig_vm"] == len(blocks)
+
+
+def test_brillig_vm_solver_on_card_equals_solver_on_cpu(card):
+    """The program with unconstrained loops over 256 instances: three
+    brillig_vm launches, no per-instance stage, panel and flags equal to
+    the CPU solve."""
+    from acvm_tpu_torch.utils import brillig_vm_inputs, build_brillig_vm_circuit
+    from acvm_tpu_torch.utils.profiling import SolveStats
+
+    circuit = build_brillig_vm_circuit(16)
+    cols, fails = brillig_vm_inputs(circuit, 256)
+    plan = plan_circuit(circuit)
+    build.reset_launches()
+    stats = SolveStats()
+    gpu = BatchSolver(plan).solve(cols, stats=stats)
+    assert build.LAUNCHES["brillig_vm"] == 3 and stats.host_per_instance_stages == 0
+    cpu = BatchSolver(plan, device="cpu").solve(cols)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel)
+    assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    assert gpu.fail.tolist() == [fails.get(b, int(FAIL_NONE)) for b in range(256)]

@@ -19,7 +19,7 @@ The other cases are small circuits of host stages alone: an ``UnsignedDiv`` by
 zero (both packages raise ``ZeroDivisionError`` out of the per-instance VM,
 while the device trace gives 0: ROADMAP queue 3), a foreign call with no
 handler, a Schnorr verification under a challenge hook, a block of the device
-Brillig VM (refused), a 256-bit Brillig add (reduced mod p, as the VM does;
+Brillig VM (run on it, and instance by instance when asked), a 256-bit Brillig add (reduced mod p, as the VM does;
 ROADMAP queue 3), and the two ingest forms.
 """
 
@@ -412,17 +412,18 @@ def jump_block(lib):
 
 
 def test_device_vm_block_raises_and_runs_per_instance_only_when_asked():
-    """The JAX package runs this block on its device Brillig VM; the port
-    refuses it rather than run it on the host, unless host_batch=False asks
-    for the per-instance route (the JAX package's route under
-    ACVM_TPU_NO_HOST_BATCH)."""
+    """The JAX package runs this block on its device Brillig VM, and so does
+    the port now (its plain version here): no per-instance stage.  Under
+    host_batch=False it runs instance by instance (the JAX package's route
+    under ACVM_TPU_NO_HOST_BATCH): the same panel, and pwg.ACVM's values."""
     plan, _ = plans(jump_block, brillig_trace=True)  # the trace does not take a jump
-    with pytest.raises(NotImplementedError, match=r"opcode 0 .*device Brillig VM"):
-        BatchSolver(plan, device="cpu")
     cols = {1: np.array([3, 9, 5], np.uint64), 2: np.array([4, 2, 5], np.uint64)}
     stats = SolveStats()
-    res = BatchSolver(plan, device="cpu", host_batch=False).solve(cols, stats=stats)
-    assert res.ok.all() and res.witness_ints(3) == [3, 2, 5] and stats.host_per_instance_stages == 1
+    res = BatchSolver(plan, device="cpu").solve(cols, stats=stats)
+    assert res.ok.all() and res.witness_ints(3) == [3, 2, 5] and stats.host_per_instance_stages == 0
+    per_stats = SolveStats()
+    per = BatchSolver(plan, device="cpu", host_batch=False).solve(cols, stats=per_stats)
+    assert torch.equal(per.panel, res.panel) and per_stats.host_per_instance_stages == 1
     for b in range(3):
         status, acvm = sequential(jump_block(JAX_LIB), instance(cols, b))
         assert int(acvm.finalize().get(jacir.Witness(3))) == res.witness_ints(3)[b]

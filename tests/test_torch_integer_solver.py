@@ -28,7 +28,9 @@ from acvm_tpu.tpu import BatchSolver as JBatchSolver, plan_circuit as jplan_circ
 from acvm_tpu.tpu import intops as jintops
 
 from acvm_tpu_torch import brillig as br
-from acvm_tpu_torch.acir import Circuit, Expression, Witness
+from acvm_tpu_torch import pwg as port_pwg
+from acvm_tpu_torch.acir import Circuit, Expression, Witness, WitnessMap
+from acvm_tpu_torch.blackbox import GrumpkinSolver
 from acvm_tpu_torch.acir import opcodes as ops
 from acvm_tpu_torch.convert import limbs16_to_limbs32, limbs32_to_limbs16
 from acvm_tpu_torch.fields import kernels as fk
@@ -36,6 +38,7 @@ from acvm_tpu_torch.fields.field import FieldElement
 from acvm_tpu_torch.fields.params import BN254_FR
 from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
 from acvm_tpu_torch.gpu import intops
+from acvm_tpu_torch.utils.profiling import SolveStats
 from acvm_tpu_torch.utils import (
     PORT_CLASSES,
     build_quotient_circuit,
@@ -240,14 +243,23 @@ def unported_opcode(kind):
                                        ("brillig_foreign_call", "host stages")])
 def test_other_unported_kinds_still_raise(kind, what):
     """Hashes and ECDSA planned for the device still raise.  The two Brillig
-    blocks are host stages now: the jump belongs to the JAX package's device
-    Brillig VM, which is not ported, so it raises naming that VM; the foreign
-    call runs on the host, and with no handler its instance fails there."""
+    blocks are host stages: the jump runs on the device Brillig VM (its plain
+    version here), as the JAX package's host path runs it, and equals the
+    per-instance route and pwg.ACVM; the foreign call runs on the host, and
+    with no handler its instance fails there."""
     circuit = Circuit(current_witness_index=40, opcodes=[unported_opcode(kind)],
                       private_parameters={Witness(1)})
     if kind == "brillig_jump":
-        with pytest.raises(NotImplementedError, match=r"opcode 0 .*device Brillig VM"):
-            BatchSolver(plan_circuit(circuit), device="cpu")
+        stats, per_stats = SolveStats(), SolveStats()
+        res = BatchSolver(plan_circuit(circuit), device="cpu").solve([{1: 3}, {1: 4}], stats=stats)
+        per = BatchSolver(plan_circuit(circuit), device="cpu", host_batch=False).solve(
+            [{1: 3}, {1: 4}], stats=per_stats)
+        assert res.ok.all() and res.witness_ints(2) == [0, 0] and stats.host_per_instance_stages == 0
+        assert torch.equal(per.panel, res.panel) and per_stats.host_per_instance_stages == 1
+        acvm = port_pwg.ACVM(GrumpkinSolver(), circuit.opcodes,
+                             WitnessMap({Witness(1): FieldElement(3)}))
+        assert acvm.solve() == port_pwg.ACVMStatus.SOLVED
+        assert int(acvm.finalize().get(Witness(2))) == 0
         return
     if kind == "brillig_foreign_call":
         res = BatchSolver(plan_circuit(circuit), device="cpu").solve([{1: 3}, {1: 4}])
