@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -61,8 +61,11 @@ _SIGNATURES = {
     # a, b, q, r, elements, bits of a to read, stream.
     "divmod": ("acvm_divmod", [_P, _P, _P, _P, _LL, _I, _P]),
     # The instruction table, opcodes, registers, memory, status, steps,
-    # instances, memory cells, step budget, field words, p - 2's chain, stream.
-    "brillig_vm": ("acvm_brillig_vm", [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P]),
+    # instances, registers an instance, memory cells, step budget, field words,
+    # p - 2's chain, the launch plan (threads a block, table, registers and
+    # memory on chip, shared bytes), stream.
+    "brillig_vm": ("acvm_brillig_vm",
+                   [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain
@@ -94,10 +97,16 @@ def _nvcc() -> str:
     )
 
 
-def lib_path(name: str, defines: Iterable[str] = ()) -> Path:
+def lib_path(name: str, defines: Iterable[str] = (), source: Optional[Path] = None) -> Path:
+    """Where kernel ``name`` built with ``defines`` lives: named by a hash of
+    its source, every header of :data:`HEADERS` and the flags.  An explicit
+    ``source`` (another tree's copy) hashes the headers its tree has; the
+    package's own kernels need every one."""
+    base = source.parent if source else CSRC
     h = hashlib.sha256()
-    for path in (source_path(name), *(CSRC / header for header in HEADERS)):
-        h.update(path.read_bytes())
+    for path in (source or source_path(name), *(base / header for header in HEADERS)):
+        if source is None or path.exists():
+            h.update(path.read_bytes())
     h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -150,21 +159,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_variant(name: str, defines: Iterable[str]):
+def load_variant(name: str, defines: Iterable[str], source: Optional[Path] = None,
+                 signature: Optional[tuple] = None):
     """The C launcher of kernel ``name`` compiled with extra ``-D`` switches
     (the measurement switches a source documents), built beside the kernel's
-    own library and not counted in ``LAUNCHES``.  For measurements only: no
-    path of the solver calls it."""
+    own library and not counted in ``LAUNCHES``.  ``source`` and
+    ``signature`` name another copy of the kernel (an older tree's, with its
+    headers beside it) and its launcher's ``(symbol, argtypes)``.  For
+    measurements only: no path of the solver calls it."""
     flags = [f"-D{d}" for d in defines]
-    out = lib_path(name, flags)
+    out = lib_path(name, flags, Path(source) if source else None)
+    source = Path(source) if source else source_path(name)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(out),
-               str(source_path(name))]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(source.parent), "-o", str(out), str(source)]
         done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if done.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{done.stdout}")
-    symbol, argtypes = _SIGNATURES[name]
+    symbol, argtypes = signature or _SIGNATURES[name]
     fn = getattr(ctypes.CDLL(str(out)), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

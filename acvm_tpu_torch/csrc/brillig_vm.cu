@@ -10,14 +10,18 @@
 // fetch -> execute -> write back -> next pc with no batch-wide step, so an
 // instance that halts early is done and one with a long loop runs on.
 //
-// State.  The instruction table (16 words an opcode, `_Program` in
-// `gpu/brillig_vm_device.py`) is copied into shared memory once a block of
-// threads, or read from device memory through the read-only cache when it is
-// larger than 48 KB.  The registers (NR x 8 words) and the memory (mem_cap x 8
-// words) of every instance live in device memory as (NR, 8, B) and (mem_cap,
-// 8, B): the 32 lanes of a warp reading one register at one pc touch 32
-// consecutive words.  The call stack (32 ints) is the thread's, in local
-// memory.  Values are canonical integers below p, not Montgomery form.
+// State.  A block is one warp of 32 instances.  Its shared memory holds the
+// instruction table (16 words an opcode, `Program` in
+// `gpu/brillig_vm_device.py`; read from device memory through the read-only
+// cache when it is larger than 48 KB), the 32 lanes' call stacks (32 ints
+// each), and, where they fit in the 227 KB a block may have, the registers
+// and then the memory, copied in from the (rows, 8, B) panels at the start and
+// written back whole at the end.  On chip the layout is [row][limb][lane], so
+// a warp reading one row touches 32 consecutive words, one a bank; state that
+// does not fit stays in its panel, read and written there (a warp's 32 lanes
+// on 32 consecutive words too).  `vm_launch_plan` chooses, by the state's
+// size alone: the two tiers are this kernel's own code paths.  Values are
+// canonical integers below p, not Montgomery form.
 //
 // Semantics (held to the JAX device VM and the sequential VM by
 // tests/test_torch_brillig_vm.py):
@@ -42,21 +46,46 @@
 //   escapes.  An escape is a capacity limit, not a result: the caller reruns
 //   the block instance by instance.
 //
-// Bound.  The bytes are the state read and written once (registers, memory,
-// flags); the operations those of the opcodes the instances execute (136
-// multiply-adds a Montgomery product, 311 + 2 products a Div, a few dozen for
-// an int op, one for control flow): both far below what one thread an
-// instance takes, because a step waits on its loads and lanes of a warp at
-// different pcs run one after the other.  Counting that divergence is
-// `chip_smoke.py`'s (steps an instance, mean and max); keeping registers on
-// chip and regrouping instances by pc are later work (ROADMAP queue 2.B).
+// Bound.  The bytes are the state the instances touch, read and written once,
+// the operations those of the opcodes they execute (136 multiply-adds a
+// Montgomery product, 313 products a field Div, a few dozen for an int op,
+// one for control flow).  On path_vm's sort block (8,192 instances) that is
+// 0.0041 ms (bytes) and 0.0030 ms (operations); but each instance is a chain
+// of dependent steps (fetch, decode, operands, op, write-back, next pc), and
+// the slowest one takes 1,656: at one warp a scheduler nothing hides a step's
+// latency, so the kernel is bound by the slowest warp's rounds times a
+// round's latency.  What each part of the design does about it (chip_smoke.py
+// --vm-variants, NVIDIA H100 80GB HBM3 at 700 W, ms queued on the sort block,
+// one launch on the others; the earlier design, a thread an instance in
+// blocks of 128 with its state in device memory, 2.17 in the same call):
+// * one warp a block: 256 blocks over the 132 SMs, not 64.  Alone (state in
+//   device memory, no regrouping, 256-bit int ops) it moves nothing: 2.15,
+//   the warps were never short of SMs.
+// * int ops at 64 bits or fewer on the two low limbs: the generic 256-bit op
+//   was most of a step's instructions.  2.15 -> 1.20.
+// * state on chip (shared memory, [row][limb][lane], one bank a lane):
+//   1.20 -> 0.98.  A step waits on shared memory, not L2.
+// * regrouping (VM_REGROUP): each round only the lanes with the warp's lowest
+//   key step, the key being backward jumps taken, then pc, so lanes split by
+//   an if / else meet again at the loop head: 0.61 (keyed by pc alone it was
+//   0.82, and the isqrt block, whose else-branch lanes then wait for the
+//   loop's end, 0.084 -> 0.28).  Regrouped, the isqrt takes 0.11 (the
+//   reduction costs a converged warp each round), the inverse is unchanged
+//   (0.18, its 313-product chain ~0.14 at 0.45 us a product).
+#include <atomic>
+
 #include "divmod.cuh"
 #include "pow.cuh"
 
 #define VM_WORDS 16          // words an instruction
 #define VM_CALL_DEPTH 32     // CALL_STACK_DEPTH of the JAX device VM
-#define VM_THREADS 128
-#define VM_SHARED_BYTES 49152  // an instruction table up to this size goes to shared memory
+#define VM_SHARED_LIMIT 232448       // the H100's shared memory a block, opted in above 48 KB
+#define VM_TABLE_ON_CHIP_BYTES 49152  // an instruction table up to this size goes to shared memory
+#define VM_MAX_DEVICES 64             // devices a process may launch the kernel on
+#define VM_THREADS 32  // one warp: the regrouping's __reduce_min_sync covers the block
+#ifndef VM_REGROUP
+#define VM_REGROUP 1  // 1: a warp's lanes step by (backward jumps, pc); 0: every running lane each round
+#endif
 
 // Opcode kinds and status codes: gpu/brillig_vm_device.py keeps the same numbers.
 #define K_BIN_FIELD 0
@@ -86,21 +115,6 @@ struct VmField {
     uint32_t r2[ACVM_LIMBS];  // R^2 mod p
     int p_bits;               // an int result at this many bits or more is reduced mod p
 };
-
-// Element `row` of a (rows, 8, B) panel, for instance i.
-__device__ __forceinline__ void load_lane(uint32_t x[ACVM_LIMBS], const uint32_t* panel, int row,
-                                          long long B, long long i) {
-    const uint32_t* src = panel + (long long)row * ACVM_LIMBS * B + i;
-#pragma unroll
-    for (int j = 0; j < ACVM_LIMBS; ++j) x[j] = src[j * B];
-}
-
-__device__ __forceinline__ void store_lane(uint32_t* panel, int row, long long B, long long i,
-                                           const uint32_t x[ACVM_LIMBS]) {
-    uint32_t* dst = panel + (long long)row * ACVM_LIMBS * B + i;
-#pragma unroll
-    for (int j = 0; j < ACVM_LIMBS; ++j) dst[j * B] = x[j];
-}
 
 __device__ __forceinline__ void set_word(uint32_t x[ACVM_LIMBS], uint32_t w) {
 #pragma unroll
@@ -348,112 +362,327 @@ __device__ __forceinline__ long long pointer_of(const uint32_t x[ACVM_LIMBS]) {
     return high ? -1 : (long long)x[0];
 }
 
-__global__ void __launch_bounds__(VM_THREADS)
-brillig_vm_kernel(const int* __restrict__ prog, int n_pc, bool shared_table,
-                  uint32_t* __restrict__ regs, uint32_t* __restrict__ mem, int* __restrict__ status,
-                  int* __restrict__ steps_out, long long B, int mem_cap, int max_steps,
-                  const __grid_constant__ VmField vf, const __grid_constant__ PowSchedule inv) {
-    extern __shared__ int table[];
-    if (shared_table) {
-        for (int k = threadIdx.x; k < n_pc * VM_WORDS; k += blockDim.x) table[k] = prog[k];
-        __syncthreads();
-    }
-    const int* code = shared_table ? table : prog;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
+// The state of one instance: element (row, limb) of its registers or memory.
+// On chip it is the lane's column of a block's [row][limb][lane] array in
+// shared memory, so the 32 lanes of a warp reading one row touch 32
+// consecutive words, one a bank; in device memory it is the instance's column
+// of the (rows, 8, B) panel.
+template <bool ON_CHIP>
+struct Rows {
+    uint32_t* base;  // element (0, 0) of this instance
+    long long B;     // the panel's instance stride (device memory only)
 
-    int stack[VM_CALL_DEPTH];
-    int pc = 0, sp = 0, steps = 0, state = VM_HALTED;
-    uint32_t a[ACVM_LIMBS], b[ACVM_LIMBS], r[ACVM_LIMBS];
-#pragma unroll 1
-    while (pc < n_pc) {
-        if (steps >= max_steps) {
-            state = VM_ESCAPED;
-            break;
+    __device__ __forceinline__ void load(uint32_t x[ACVM_LIMBS], int row) const {
+        if constexpr (ON_CHIP) {
+            const uint32_t* src = base + row * ACVM_LIMBS * VM_THREADS;
+#pragma unroll
+            for (int j = 0; j < ACVM_LIMBS; ++j) x[j] = src[j * VM_THREADS];
+        } else {
+            const uint32_t* src = base + (long long)row * ACVM_LIMBS * B;
+#pragma unroll
+            for (int j = 0; j < ACVM_LIMBS; ++j) x[j] = src[j * B];
         }
-        ++steps;
-        const int* op = code + pc * VM_WORDS;
-        const int kind = op[0], sub = op[1], dst = op[2], lhs = op[3], rhs = op[4], loc = op[5];
-        int next = pc + 1;
-        if (kind == K_BIN_FIELD || kind == K_BIN_INT) {
-            load_lane(a, regs, lhs, B, i);
-            load_lane(b, regs, rhs, B, i);
+    }
+    __device__ __forceinline__ uint64_t load64(int row) const {  // limbs 0 and 1
+        if constexpr (ON_CHIP) {
+            const uint32_t* src = base + row * ACVM_LIMBS * VM_THREADS;
+            return (uint64_t)src[VM_THREADS] << 32 | src[0];
+        } else {
+            const uint32_t* src = base + (long long)row * ACVM_LIMBS * B;
+            return (uint64_t)src[B] << 32 | src[0];
+        }
+    }
+    __device__ __forceinline__ void store64(int row, uint64_t z) const {  // limbs 2-7 zero
+        const uint32_t x[ACVM_LIMBS] = {(uint32_t)z, (uint32_t)(z >> 32), 0, 0, 0, 0, 0, 0};
+        store(row, x);
+    }
+    __device__ __forceinline__ void store(int row, const uint32_t x[ACVM_LIMBS]) const {
+        if constexpr (ON_CHIP) {
+            uint32_t* dst = base + row * ACVM_LIMBS * VM_THREADS;
+#pragma unroll
+            for (int j = 0; j < ACVM_LIMBS; ++j) dst[j * VM_THREADS] = x[j];
+        } else {
+            uint32_t* dst = base + (long long)row * ACVM_LIMBS * B;
+#pragma unroll
+            for (int j = 0; j < ACVM_LIMBS; ++j) dst[j * B] = x[j];
+        }
+    }
+};
+
+// Copy `rows` rows of one instance between the (rows, 8, B) panel and its
+// lane of the block's [row][limb][lane] array: every load independent.
+__device__ __forceinline__ void panel_to_chip(uint32_t* chip, const uint32_t* panel, int rows,
+                                              long long B) {
+#pragma unroll 8
+    for (int k = 0; k < rows * ACVM_LIMBS; ++k) chip[k * VM_THREADS] = panel[(long long)k * B];
+}
+
+__device__ __forceinline__ void chip_to_panel(uint32_t* panel, const uint32_t* chip, int rows,
+                                              long long B) {
+#pragma unroll 8
+    for (int k = 0; k < rows * ACVM_LIMBS; ++k) panel[(long long)k * B] = chip[k * VM_THREADS];
+}
+
+// A BinaryIntOp at bit_size <= 64 on the low two limbs, for the ops that read
+// their operands masked (not SignedDiv, Shl or Shr): the same result as
+// int_op, with no reduction mod p at these widths.  ok is false where an
+// UnsignedDiv divides by zero.
+__device__ __forceinline__ uint64_t narrow_int_op(int sub, int bits, uint64_t a, uint64_t b, bool& ok) {
+    const uint64_t mask = bits >= 64 ? ~0ull : (1ull << bits) - 1;
+    a &= mask;
+    b &= mask;
+    ok = true;
+    switch (sub) {
+        case I_ADD: return (a + b) & mask;
+        case I_SUB: return (a - b) & mask;
+        case I_MUL: return (a * b) & mask;
+        case I_UDIV:
+            ok = b != 0;
+            if (!ok) return 0;
+            return bits <= 32 ? (uint64_t)((uint32_t)a / (uint32_t)b) : a / b;
+        case I_EQ: return a == b;  // 0 or 1 at any bit size
+        case I_LT: return a < b;
+        case I_LTE: return a <= b;
+        case I_AND: return a & b;
+        case I_OR: return a | b;
+        default: return a ^ b;  // I_XOR
+    }
+}
+
+// One instance's interpreter state.
+struct Lane {
+    int pc = 0, sp = 0, steps = 0;
+    int back_edges = 0;  // jumps taken to a pc at or before their own
+    int mem_top = 0;     // 1 + the highest memory cell stored: the rows to write back
+    int state = VM_HALTED;
+};
+
+struct VmProgram {
+    const int* table;  // (n_pc, 16): in shared memory, or read-only in device memory
+    int n_pc, mem_cap, max_steps;
+};
+
+// One opcode of one instance: its step counted against the budget, executed,
+// and the next pc taken.  False once the instance stops (lane.state says how).
+template <bool TABLE_ON_CHIP, bool REGS_ON_CHIP, bool MEM_ON_CHIP>
+__device__ __forceinline__ bool vm_step(const VmProgram& prog, const Rows<REGS_ON_CHIP>& regs,
+                                        const Rows<MEM_ON_CHIP>& mem, int* stack, Lane& lane,
+                                        const VmField& vf, const PowSchedule& inv) {
+    if (lane.steps >= prog.max_steps) {
+        lane.state = VM_ESCAPED;
+        return false;
+    }
+    ++lane.steps;
+    const int pc = lane.pc;
+    const int4* word = reinterpret_cast<const int4*>(prog.table + pc * VM_WORDS);
+    const int4 w0 = TABLE_ON_CHIP ? word[0] : __ldg(word);
+    const int4 w1 = TABLE_ON_CHIP ? word[1] : __ldg(word + 1);
+    const int kind = w0.x, sub = w0.y, dst = w0.z, lhs = w0.w, rhs = w1.x, loc = w1.y;
+    uint32_t a[ACVM_LIMBS], b[ACVM_LIMBS], r[ACVM_LIMBS];
+    int next = pc + 1;
+    switch (kind) {
+        case K_BIN_FIELD:
+        case K_BIN_INT:
+            if (kind == K_BIN_INT && w1.z <= 64 && sub != I_SDIV && sub < I_SHL) {
+                bool ok;
+                const uint64_t z = narrow_int_op(sub, w1.z, regs.load64(lhs), regs.load64(rhs), ok);
+                if (!ok) {
+                    lane.state = VM_TRAPPED;
+                    return false;
+                }
+                regs.store64(dst, z);
+                break;
+            }
+            regs.load(a, lhs);
+            regs.load(b, rhs);
             if (kind == K_BIN_FIELD) {
                 field_op(r, sub, a, b, vf, inv);
-            } else if (!int_op(r, sub, op[6], a, b, vf)) {
-                state = VM_TRAPPED;
-                break;
+            } else if (!int_op(r, sub, w1.z, a, b, vf)) {
+                lane.state = VM_TRAPPED;
+                return false;
             }
-            store_lane(regs, dst, B, i, r);
-        } else if (kind == K_JUMP) {
-            next = loc;
-        } else if (kind == K_JUMP_IF || kind == K_JUMP_IF_NOT) {
-            load_lane(a, regs, lhs, B, i);
-            if (is_zero(a) == (kind == K_JUMP_IF_NOT)) next = loc;
-        } else if (kind == K_CALL) {
-            if (sp >= VM_CALL_DEPTH) {
-                state = VM_ESCAPED;
-                break;
-            }
-            stack[sp++] = pc;
-            next = loc;
-        } else if (kind == K_RETURN) {
-            if (sp == 0) {
-                state = VM_TRAPPED;
-                break;
-            }
-            next = stack[--sp] + 1;
-        } else if (kind == K_CONST) {
-#pragma unroll
-            for (int j = 0; j < ACVM_LIMBS; ++j) r[j] = (uint32_t)op[8 + j];
-            store_lane(regs, dst, B, i, r);
-        } else if (kind == K_MOV) {
-            load_lane(a, regs, lhs, B, i);
-            store_lane(regs, dst, B, i, a);
-        } else if (kind == K_LOAD || kind == K_STORE) {
-            load_lane(a, regs, kind == K_LOAD ? lhs : rhs, B, i);  // the pointer
-            const long long ptr = pointer_of(a);
-            if (ptr < 0 || ptr >= mem_cap) {
-                state = VM_ESCAPED;
-                break;
-            }
-            if (kind == K_LOAD) {
-                load_lane(r, mem, (int)ptr, B, i);
-                store_lane(regs, dst, B, i, r);
-            } else {
-                load_lane(r, regs, lhs, B, i);
-                store_lane(mem, (int)ptr, B, i, r);
-            }
-        } else if (kind == K_TRAP) {
-            state = VM_TRAPPED;
+            regs.store(dst, r);
             break;
-        } else {  // K_STOP
+        case K_JUMP:
+            next = loc;
+            lane.back_edges += next <= pc;
+            break;
+        case K_JUMP_IF:
+        case K_JUMP_IF_NOT:
+            regs.load(a, lhs);
+            if (is_zero(a) == (kind == K_JUMP_IF_NOT)) {
+                next = loc;
+                lane.back_edges += next <= pc;
+            }
+            break;
+        case K_CALL:
+            if (lane.sp >= VM_CALL_DEPTH) {
+                lane.state = VM_ESCAPED;
+                return false;
+            }
+            stack[lane.sp++ * VM_THREADS] = pc;
+            next = loc;
+            break;
+        case K_RETURN:
+            if (lane.sp == 0) {
+                lane.state = VM_TRAPPED;
+                return false;
+            }
+            next = stack[--lane.sp * VM_THREADS] + 1;
+            break;
+        case K_CONST: {
+            const int4 c0 = TABLE_ON_CHIP ? word[2] : __ldg(word + 2);
+            const int4 c1 = TABLE_ON_CHIP ? word[3] : __ldg(word + 3);
+            const uint32_t c[ACVM_LIMBS] = {(uint32_t)c0.x, (uint32_t)c0.y, (uint32_t)c0.z, (uint32_t)c0.w,
+                                            (uint32_t)c1.x, (uint32_t)c1.y, (uint32_t)c1.z, (uint32_t)c1.w};
+            regs.store(dst, c);
             break;
         }
-        pc = next;
+        case K_MOV:
+            regs.load(a, lhs);
+            regs.store(dst, a);
+            break;
+        case K_LOAD:
+        case K_STORE: {
+            regs.load(a, kind == K_LOAD ? lhs : rhs);  // the pointer
+            const long long ptr = pointer_of(a);
+            if (ptr < 0 || ptr >= prog.mem_cap) {
+                lane.state = VM_ESCAPED;
+                return false;
+            }
+            if (kind == K_LOAD) {
+                mem.load(r, (int)ptr);
+                regs.store(dst, r);
+            } else {
+                regs.load(r, lhs);
+                mem.store((int)ptr, r);
+                lane.mem_top = max(lane.mem_top, (int)ptr + 1);
+            }
+            break;
+        }
+        case K_TRAP: lane.state = VM_TRAPPED; return false;
+        default: return false;  // K_STOP
     }
-    status[i] = state;
-    steps_out[i] = steps;
+    lane.pc = next;
+    return next < prog.n_pc;  // a pc at or past the end halts
+}
+
+// Shared memory of a block, in this order: the instruction table where it is
+// on chip, the call stacks ([depth][lane] ints), the registers where they are
+// on chip and the memory where it is ([row][limb][lane] words).  Memory goes
+// back to its panel up to the highest cell stored: the rows above hold what
+// they were given.
+template <bool TABLE_ON_CHIP, bool REGS_ON_CHIP, bool MEM_ON_CHIP>
+__global__ void __launch_bounds__(VM_THREADS)
+brillig_vm_kernel(const int* __restrict__ prog, int n_pc, uint32_t* __restrict__ regs_g,
+                  uint32_t* __restrict__ mem_g, int* __restrict__ status, int* __restrict__ steps_out,
+                  long long B, int n_regs, int mem_cap, int max_steps,
+                  const __grid_constant__ VmField vf, const __grid_constant__ PowSchedule inv) {
+    extern __shared__ __align__(16) int shared[];
+    const int lane_id = threadIdx.x;
+    const int table_words = TABLE_ON_CHIP ? n_pc * VM_WORDS : 0;
+    if constexpr (TABLE_ON_CHIP) {
+        for (int k = lane_id; k < table_words; k += VM_THREADS) shared[k] = prog[k];
+        __syncthreads();
+    }
+    int* stack = shared + table_words + lane_id;
+    uint32_t* chip =
+        reinterpret_cast<uint32_t*>(shared + table_words + VM_CALL_DEPTH * VM_THREADS) + lane_id;
+    uint32_t* regs_chip = chip;
+    uint32_t* mem_chip = chip + (REGS_ON_CHIP ? n_regs * ACVM_LIMBS * VM_THREADS : 0);
+    const long long i = (long long)blockIdx.x * VM_THREADS + lane_id;
+    const bool in_batch = i < B;  // a lane past B loads, runs and stores nothing
+    if (in_batch) {
+        if constexpr (REGS_ON_CHIP) panel_to_chip(regs_chip, regs_g + i, n_regs, B);
+        if constexpr (MEM_ON_CHIP) panel_to_chip(mem_chip, mem_g + i, mem_cap, B);
+    }
+    const Rows<REGS_ON_CHIP> regs{REGS_ON_CHIP ? regs_chip : regs_g + i, B};
+    const Rows<MEM_ON_CHIP> mem{MEM_ON_CHIP ? mem_chip : mem_g + i, B};
+    const VmProgram program{TABLE_ON_CHIP ? shared : prog, n_pc, mem_cap, max_steps};
+
+    Lane lane;
+    bool running = in_batch && n_pc > 0;
+#if VM_REGROUP
+    // Each round the lanes with the warp's lowest key take one step; the
+    // others wait and count no step.  The key is the backward jumps taken,
+    // then the pc: lanes split by an if / else meet again at the loop head, and
+    // a lane that left a loop does not wait for the others to finish it.  Any
+    // key gives the same results, only another order; past 2^15 jumps or 2^16
+    // opcodes the key is cut.  Every lane stays in the loop until the whole
+    // warp is done, so the full-mask reduction sees all 32.
+#pragma unroll 1
+    for (;;) {
+        const unsigned key = (unsigned)min(lane.back_edges, 0x7FFF) << 16 | (unsigned)(lane.pc & 0xFFFF);
+        const unsigned first = __reduce_min_sync(0xFFFFFFFFu, running ? key : 0xFFFFFFFFu);
+        if (first == 0xFFFFFFFFu) break;
+        if (running && key == first)
+            running = vm_step<TABLE_ON_CHIP>(program, regs, mem, stack, lane, vf, inv);
+    }
+#else
+#pragma unroll 1
+    while (running) running = vm_step<TABLE_ON_CHIP>(program, regs, mem, stack, lane, vf, inv);
+#endif
+    if (!in_batch) return;
+    if constexpr (REGS_ON_CHIP) chip_to_panel(regs_g + i, regs_chip, n_regs, B);
+    if constexpr (MEM_ON_CHIP) chip_to_panel(mem_g + i, mem_chip, lane.mem_top, B);
+    status[i] = lane.state;
+    steps_out[i] = lane.steps;
+}
+
+template <bool TABLE_ON_CHIP, bool REGS_ON_CHIP, bool MEM_ON_CHIP>
+static cudaError_t launch_vm(long long B, int shared_bytes, cudaStream_t stream, const int* prog,
+                             int n_pc, uint32_t* regs, uint32_t* mem, int* status, int* steps,
+                             int n_regs, int mem_cap, int max_steps, const VmField& vf,
+                             const PowSchedule& inv) {
+    auto kernel = brillig_vm_kernel<TABLE_ON_CHIP, REGS_ON_CHIP, MEM_ON_CHIP>;
+    if (shared_bytes > 48 * 1024) {  // above 48 KB a kernel must opt in, once on each device
+        static std::atomic<bool> opted_in[VM_MAX_DEVICES];
+        int device = 0;
+        cudaError_t err = cudaGetDevice(&device);
+        if (err != cudaSuccess) return err;
+        if (device >= VM_MAX_DEVICES) return cudaErrorInvalidDevice;
+        if (!opted_in[device].load()) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, VM_SHARED_LIMIT);
+            if (err != cudaSuccess) return err;
+            opted_in[device].store(true);
+        }
+    }
+    const long long blocks = (B + VM_THREADS - 1) / VM_THREADS;
+    kernel<<<(unsigned)blocks, VM_THREADS, shared_bytes, stream>>>(
+        prog, n_pc, regs, mem, status, steps, B, n_regs, mem_cap, max_steps, vf, inv);
+    return cudaGetLastError();
 }
 
 // prog: (n_pc, 16) int32 instruction table; regs (n_regs, 8, B) and mem
 // (mem_cap, 8, B) uint32, updated in place; status, steps: (B,) int32 out.
 // field_words: [p | R | n0 | R^2 | p's bit length]; schedule: p - 2's chain.
+// The launch plan (gpu/brillig_vm_device.py::vm_launch_plan): threads a
+// block, which of the table, registers and memory are on chip, and the shared
+// bytes that implies; a plan this source would lay out otherwise is refused
+// (cudaErrorInvalidValue) before anything runs.
 extern "C" int acvm_brillig_vm(const void* prog, int n_pc, void* regs, void* mem, void* status,
-                               void* steps, long long B, int mem_cap, int max_steps,
+                               void* steps, long long B, int n_regs, int mem_cap, int max_steps,
                                const uint32_t* field_words, const uint32_t* schedule_words,
-                               void* stream) {
+                               int threads, int table_on_chip, int regs_on_chip, int mem_on_chip,
+                               int shared_bytes, void* stream) {
     if (B <= 0) return 0;
+    const long long row = (long long)ACVM_LIMBS * sizeof(uint32_t) * VM_THREADS;
+    const long long table = (long long)n_pc * VM_WORDS * sizeof(int);
+    const long long want = (table_on_chip ? table : 0) + (long long)VM_CALL_DEPTH * sizeof(int) * VM_THREADS +
+                           (regs_on_chip ? n_regs * row : 0) + (mem_on_chip ? mem_cap * row : 0);
+    if (threads != VM_THREADS || want != shared_bytes || want > VM_SHARED_LIMIT ||
+        (table_on_chip && table > VM_TABLE_ON_CHIP_BYTES) || (mem_on_chip && !regs_on_chip))
+        return (int)cudaErrorInvalidValue;
     VmField vf;
     vf.f = field_from_words(field_words);
     for (int j = 0; j < ACVM_LIMBS; ++j) vf.r2[j] = field_words[2 * ACVM_LIMBS + 1 + j];
     vf.p_bits = (int)field_words[3 * ACVM_LIMBS + 1];
-    const size_t table_bytes = (size_t)n_pc * VM_WORDS * sizeof(int);
-    const bool shared_table = table_bytes <= VM_SHARED_BYTES;
-    const long long blocks = (B + VM_THREADS - 1) / VM_THREADS;
-    brillig_vm_kernel<<<(unsigned)blocks, VM_THREADS, shared_table ? table_bytes : 0,
-                        (cudaStream_t)stream>>>(
-        (const int*)prog, n_pc, shared_table, (uint32_t*)regs, (uint32_t*)mem, (int*)status,
-        (int*)steps, B, mem_cap, max_steps, vf, pow_schedule_from_words(schedule_words));
-    return (int)cudaGetLastError();
+    const PowSchedule inv = pow_schedule_from_words(schedule_words);
+    auto* launch = table_on_chip
+        ? (mem_on_chip ? launch_vm<true, true, true>
+                       : (regs_on_chip ? launch_vm<true, true, false> : launch_vm<true, false, false>))
+        : (mem_on_chip ? launch_vm<false, true, true>
+                       : (regs_on_chip ? launch_vm<false, true, false> : launch_vm<false, false, false>));
+    return (int)launch(B, shared_bytes, (cudaStream_t)stream, (const int*)prog, n_pc, (uint32_t*)regs,
+                       (uint32_t*)mem, (int*)status, (int*)steps, n_regs, mem_cap, max_steps, vf, inv);
 }

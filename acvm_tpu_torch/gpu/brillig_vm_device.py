@@ -7,7 +7,8 @@ stage, and the solver's host stage runs it here: its inputs are evaluated on
 the host (:func:`host_batch.eval_expr_batch`), loaded into registers and
 memory on the device, run to halt by one ``brillig_vm`` launch
 (``csrc/brillig_vm.cu``: a thread an instance, each with its own program
-counter), and read back in one copy.
+counter, a warp a block, the state in shared memory where
+:func:`vm_launch_plan` finds room), and read back in one copy.
 
 The counterpart of the JAX package's ``tpu/brillig_vm_device.py``, with its
 capacity rules unchanged, so that the same instances escape: at most
@@ -32,7 +33,7 @@ CPU tensors.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,8 +69,8 @@ from .host_batch import (
 )
 
 __all__ = ["MAX_REGISTERS", "CALL_STACK_DEPTH", "device_vm_eligible", "step_budget",
-           "program_for", "initial_state", "run_vm", "run_vm_plain", "read_outputs",
-           "run_brillig_vm_batch"]
+           "program_for", "initial_state", "vm_launch_plan", "vm_plan_for", "run_vm", "run_vm_plain",
+           "read_outputs", "run_brillig_vm_batch"]
 
 CALL_STACK_DEPTH = 32
 
@@ -139,6 +140,7 @@ class Program:
             else:  # guarded by device_vm_eligible
                 raise TypeError(f"the device VM does not run {type(op).__name__}")
         self.table = table.astype(np.int32)
+        self.touches_memory = bool(np.isin(table[:, 0], (K_LOAD, K_STORE)).any())
         self._on: Dict[torch.device, torch.Tensor] = {}
 
     def on(self, device) -> torch.Tensor:
@@ -174,6 +176,65 @@ def _vm_words(params: FieldParams) -> np.ndarray:
                            np.array([params.modulus.bit_length()], dtype=np.uint32)])
 
 
+# What the H100 gives one block: csrc/brillig_vm.cu keeps the same numbers and
+# refuses a plan it would lay out otherwise.
+VM_THREADS = 32  # instances a block: one warp
+SHARED_BYTES_MAX = 232_448  # shared memory a block may opt in to (227 KB)
+TABLE_ON_CHIP_BYTES = 49_152  # an instruction table up to this size is copied on chip
+
+
+class VmLaunchPlan(NamedTuple):
+    threads: int  # a block
+    blocks: int
+    table_on_chip: bool
+    regs_on_chip: bool
+    mem_on_chip: bool
+    shared_bytes: int  # a block: table, call stacks, and the state on chip
+
+
+def vm_launch_plan(n_regs: int, mem_cap: int, n_pc: int, B: int) -> VmLaunchPlan:
+    """Where ``brillig_vm`` keeps each part of a block's state, by its size
+    alone: a block is one warp, so ``B`` instances spread over ``ceil(B / 32)``
+    blocks; the instruction table goes on chip up to 48 KB, the call stacks
+    always (4 KB), then the registers (1 KB a row: 32 bytes x 32 lanes), the
+    most touched, and then the memory, each where it still fits in
+    :data:`SHARED_BYTES_MAX`.  What does not fit stays in its ``(rows, 8, B)``
+    panel in device memory, and so does a memory of ``mem_cap = 0`` rows (a
+    program with no ``Load`` or ``Store``: nothing to copy)."""
+    row = LIMBS * 4 * VM_THREADS
+    table = n_pc * WORDS * 4
+    table_on_chip = 0 < table <= TABLE_ON_CHIP_BYTES
+    shared = (table if table_on_chip else 0) + CALL_STACK_DEPTH * 4 * VM_THREADS
+    regs_on_chip = shared + n_regs * row <= SHARED_BYTES_MAX
+    shared += n_regs * row if regs_on_chip else 0
+    mem_on_chip = regs_on_chip and 0 < mem_cap and shared + mem_cap * row <= SHARED_BYTES_MAX
+    shared += mem_cap * row if mem_on_chip else 0
+    return VmLaunchPlan(VM_THREADS, -(-B // VM_THREADS), table_on_chip, regs_on_chip, mem_on_chip,
+                        shared)
+
+
+def vm_plan_for(program: Program, regs: torch.Tensor, mem: torch.Tensor) -> VmLaunchPlan:
+    """The plan :func:`run_vm` launches ``program`` under on this state."""
+    mem_cap = mem.shape[0] if program.touches_memory else 0
+    return vm_launch_plan(regs.shape[0], mem_cap, program.n_pc, regs.shape[2])
+
+
+def vm_launch_args(program: Program, regs: torch.Tensor, mem: torch.Tensor, max_steps: int,
+                   plan: VmLaunchPlan, params: FieldParams = BN254_FR):
+    """``(args, status, steps)``: the C launcher's arguments for one run of
+    ``program`` on CUDA tensors under ``plan``, and the (B,) outputs they
+    point at."""
+    B = regs.shape[2]
+    status = torch.empty(B, dtype=torch.int32, device=regs.device)
+    steps = torch.empty_like(status)
+    args = (program.on(regs.device).data_ptr(), program.n_pc, regs.data_ptr(), mem.data_ptr(),
+            status.data_ptr(), steps.data_ptr(), B, regs.shape[0], mem.shape[0], max_steps,
+            _host_ptr(_vm_words(params)), _host_ptr(pow_schedule_words(params.modulus - 2)),
+            plan.threads, plan.table_on_chip, plan.regs_on_chip, plan.mem_on_chip, plan.shared_bytes,
+            torch.cuda.current_stream(regs.device).cuda_stream)
+    return args, status, steps
+
+
 def run_vm(program: Program, regs: torch.Tensor, mem: torch.Tensor, max_steps: int,
            params: FieldParams = BN254_FR) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``program`` from pc 0 for every instance.  ``regs`` (NR, 8, B) and
@@ -181,8 +242,8 @@ def run_vm(program: Program, regs: torch.Tensor, mem: torch.Tensor, max_steps: i
     and are updated in place.  Returns ``(status, steps)``, (B,) int32: HALTED,
     TRAPPED or ESCAPED, and the opcodes each instance executed.
 
-    CUDA tensors: one ``brillig_vm`` launch or an error; CPU tensors:
-    :func:`run_vm_plain`.  Both give the same bits."""
+    CUDA tensors: one ``brillig_vm`` launch under :func:`vm_plan_for`, or an
+    error; CPU tensors: :func:`run_vm_plain`.  Both give the same bits."""
     for t, name in ((regs, "regs"), (mem, "mem")):
         if t.dtype != torch.int32 or t.dim() != 3 or t.shape[1] != LIMBS or not t.is_contiguous():
             raise TypeError(f"run_vm {name}: expected a contiguous (rows, {LIMBS}, B) int32 "
@@ -191,15 +252,9 @@ def run_vm(program: Program, regs: torch.Tensor, mem: torch.Tensor, max_steps: i
         raise ValueError("run_vm: regs and mem must share the batch and the device")
     if not regs.is_cuda:
         return run_vm_plain(program, regs, mem, max_steps, params)
-    B = regs.shape[2]
-    status = torch.empty(B, dtype=torch.int32, device=regs.device)
-    steps = torch.empty_like(status)
-    build.launch(
-        "brillig_vm", program.on(regs.device).data_ptr(), program.n_pc, regs.data_ptr(),
-        mem.data_ptr(), status.data_ptr(), steps.data_ptr(), B, mem.shape[0], max_steps,
-        _host_ptr(_vm_words(params)), _host_ptr(pow_schedule_words(params.modulus - 2)),
-        torch.cuda.current_stream(regs.device).cuda_stream,
-    )
+    args, status, steps = vm_launch_args(program, regs, mem, max_steps,
+                                         vm_plan_for(program, regs, mem), params)
+    build.launch("brillig_vm", *args)
     return status, steps
 
 

@@ -1154,61 +1154,87 @@ def _call_trap_bytecode(b) -> list:
 VM_EDGE_ARRAY = 8  # the binary search's array
 
 
-def build_brillig_vm_edges_circuit(lib=None):
+def build_brillig_vm_edges_circuit(lib=None, array: int = VM_EDGE_ARRAY):
     """The JAX package's three device-VM fixtures as one circuit of four
     blocks (opcodes 0-3), each a host stage: the sum loop of w1 into w2; the
-    binary search of the needle w11 in the sorted array w3..w10 into w12;
-    Call/Return with a conditional Trap of w13 into w14 (trapping where
-    w13 = 7); the sum loop of w16 again under the predicate w15, into w17."""
+    binary search of the needle w(3 + n) in the sorted array w3..w(2 + n) of
+    ``n = array`` words into w(4 + n); Call/Return with a conditional Trap of
+    w(5 + n) into w(6 + n) (trapping where it is 7); the sum loop of w(8 + n)
+    again under the predicate w(7 + n), into w(9 + n).  At the default 8
+    words: w11 into w12, w13 into w14, w16 under w15 into w17."""
     lib = lib or PORT_CLASSES
     o, W, b = lib.opcodes, lib.Witness, lib.brillig
     E = lib.Expression.from_witness
+    n = array
 
     def block(inputs, out, bytecode, predicate=None):
         return o.OpcodeBrillig(o.Brillig(
             inputs=inputs, outputs=[o.BrilligOutputSimple(W(out))], foreign_call_results=[],
             bytecode=bytecode, predicate=predicate))
 
-    arr = [E(W(3 + i)) for i in range(VM_EDGE_ARRAY)]
+    arr = [E(W(3 + i)) for i in range(n)]
     opcodes = [
         block([o.BrilligInputSingle(E(W(1)))], 2, _sum_loop_bytecode(b)),
-        block([o.BrilligInputArray(arr), o.BrilligInputSingle(E(W(11)))], 12,
-              _binary_search_bytecode(VM_EDGE_ARRAY, b)),
-        block([o.BrilligInputSingle(E(W(13)))], 14, _call_trap_bytecode(b)),
-        block([o.BrilligInputSingle(E(W(16)))], 17, _sum_loop_bytecode(b), predicate=E(W(15))),
+        block([o.BrilligInputArray(arr), o.BrilligInputSingle(E(W(3 + n)))], 4 + n,
+              _binary_search_bytecode(n, b)),
+        block([o.BrilligInputSingle(E(W(5 + n)))], 6 + n, _call_trap_bytecode(b)),
+        block([o.BrilligInputSingle(E(W(8 + n)))], 9 + n, _sum_loop_bytecode(b),
+              predicate=E(W(7 + n))),
     ]
-    inputs = {W(i) for i in (1, 11, 13, 15, 16)} | {W(3 + i) for i in range(VM_EDGE_ARRAY)}
-    return lib.Circuit(current_witness_index=17, opcodes=opcodes, private_parameters=inputs)
+    inputs = {W(i) for i in (1, 3 + n, 5 + n, 7 + n, 8 + n)} | {W(3 + i) for i in range(n)}
+    return lib.Circuit(current_witness_index=9 + n, opcodes=opcodes, private_parameters=inputs)
 
 
-def brillig_vm_edge_inputs(batch: int, seed: int = 29, escape_instance=None):
-    """Columns of :func:`build_brillig_vm_edges_circuit`: sum-loop counts in
-    0..199, sorted arrays of values below 100 with needles in 0..104, call
-    inputs in 0..9 (7 traps), the predicate 0 or 1 at random.  With
-    ``escape_instance`` set, that instance's first loop runs 1,000 times,
-    past the step budget (8 opcodes: 1,536 steps): the block escapes and
-    reruns instance by instance.  Returns ``(columns, expected)``, expected
-    the four outputs and the trap mask by Python's reckoning."""
+def brillig_vm_edge_inputs(batch: int, seed: int = 29, escape_instance=None,
+                           array: int = VM_EDGE_ARRAY):
+    """Columns of :func:`build_brillig_vm_edges_circuit` at the same
+    ``array``: sum-loop counts in 0..199, sorted arrays of values below 100
+    with needles in 0..104, call inputs in 0..9 (7 traps), the predicate 0 or
+    1 at random.  With ``escape_instance`` set, that instance's first loop
+    runs 1,000 times, past the step budget (8 opcodes: 1,536 steps): the block
+    escapes and reruns instance by instance.  Returns ``(columns, expected,
+    trap)``: the four outputs and the trap mask by Python's reckoning."""
     import bisect
 
     import numpy as np
 
+    n = array
     rng = np.random.default_rng(seed)
     cols = {1: rng.integers(0, 200, batch, dtype=np.uint64)}
     if escape_instance is not None:
         cols[1][escape_instance] = 1000
-    arrays = np.sort(rng.integers(0, 100, (batch, VM_EDGE_ARRAY), dtype=np.uint64), axis=1)
-    for i in range(VM_EDGE_ARRAY):
+    arrays = np.sort(rng.integers(0, 100, (batch, n), dtype=np.uint64), axis=1)
+    for i in range(n):
         cols[3 + i] = arrays[:, i].copy()
-    cols[11] = rng.integers(0, 105, batch, dtype=np.uint64)
-    cols[13] = rng.integers(0, 10, batch, dtype=np.uint64)
-    cols[15] = rng.integers(0, 2, batch, dtype=np.uint64)
-    cols[16] = rng.integers(0, 200, batch, dtype=np.uint64)
-    trap = cols[13] == 7
+    cols[3 + n] = rng.integers(0, 105, batch, dtype=np.uint64)
+    cols[5 + n] = rng.integers(0, 10, batch, dtype=np.uint64)
+    cols[7 + n] = rng.integers(0, 2, batch, dtype=np.uint64)
+    cols[8 + n] = rng.integers(0, 200, batch, dtype=np.uint64)
+    trap = cols[5 + n] == 7
     expected = {
         2: [int(v) * (int(v) + 1) // 2 for v in cols[1]],
-        12: [bisect.bisect_left(list(arrays[k]), int(cols[11][k])) for k in range(batch)],
-        14: [0 if t else 3 * int(v) for v, t in zip(cols[13], trap)],
-        17: [int(v) * (int(v) + 1) // 2 * int(q) for v, q in zip(cols[16], cols[15])],
+        4 + n: [bisect.bisect_left(list(arrays[k]), int(cols[3 + n][k])) for k in range(batch)],
+        6 + n: [0 if t else 3 * int(v) for v, t in zip(cols[5 + n], trap)],
+        9 + n: [int(v) * (int(v) + 1) // 2 * int(q) for v, q in zip(cols[8 + n], cols[7 + n])],
     }
     return cols, expected, trap
+
+
+def build_brillig_vm_wide_registers_circuit(lib=None, registers: int = 300):
+    """One block, the sum loop of w1 into w2 with its count, its step and its
+    sum in the top three of ``registers`` registers: a register file too
+    large for the device VM to keep on chip at the default 300 (300 KB a warp
+    of 32 instances)."""
+    lib = lib or PORT_CLASSES
+    o, W, b = lib.opcodes, lib.Witness, lib.brillig
+    R, I, V = b.RegisterIndex, b.BinaryIntOp, b.Value.from_int
+    n, one, acc = R(registers - 1), R(registers - 2), R(registers - 3)
+    bytecode = [b.OpMov(n, R(0)), b.OpConst(acc, V(0)), b.OpConst(one, V(1)),
+                b.OpJumpIfNot(n, 7),
+                b.OpBinaryIntOp(acc, I.Add, 64, acc, n), b.OpBinaryIntOp(n, I.Sub, 64, n, one),
+                b.OpJump(3), b.OpMov(R(0), acc), b.OpStop()]
+    block = o.OpcodeBrillig(o.Brillig(
+        inputs=[o.BrilligInputSingle(lib.Expression.from_witness(W(1)))],
+        outputs=[o.BrilligOutputSimple(W(2))], foreign_call_results=[], bytecode=bytecode,
+        predicate=None))
+    return lib.Circuit(current_witness_index=2, opcodes=[block], private_parameters={W(1)})

@@ -16,6 +16,15 @@
                                      # into 2-32 rows at 2^14-2^20 values, the
                                      # measurement behind mont_inv_grouped's
                                      # FOLD_LANES
+    python3 chip_smoke.py --vm-variants [--vm-parent=DIR]  # also brillig_vm
+                                     # built with and without regrouping
+                                     # (VM_REGROUP), its state on chip as
+                                     # planned or all in device memory, on
+                                     # path_vm's three blocks; with
+                                     # --vm-parent, the kernel of
+                                     # the tree unpacked at DIR (the
+                                     # earlier launcher: no launch plan) on
+                                     # the same state
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -91,7 +100,11 @@ build, a failed launch or a failed comparison raises and the exit code is not
                ``host_batch=False`` the same panel on 256 instances,
                ``vm_solves_per_sec``, the ``SolveStats`` split and the VM
                route's input, kernel and readback times with the steps an
-               instance, a block at a time;
+               instance, a block at a time; ``brillig_vm`` against its plain
+               version on each block at 8,192 instances and on the two state
+               tiers the path does not reach (a binary search over 256 words,
+               its memory in device memory; a register file of 300 rows) at
+               8,191;
 13. ``brillig_ops``  one Brillig block for each field op and each int op at
                1-256 bits over 2,048 instances of edge values, every witness
                against the evaluator;
@@ -108,13 +121,16 @@ build, a failed launch or a failed comparison raises and the exit code is not
                launches on each path; ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel; ``brillig_vm`` on the sort
                block of 12 over all 8,192 instances, with the opcodes executed
-               by kind that its bound counts;
+               by kind that its bound counts, and the isqrt and inverse blocks
+               as shapes of it (their divisions counted from their operands,
+               the inverse's Fermat chain's latency beside its bound);
 16. the raw ``nvidia-smi`` name and power limit;
 17. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import math
@@ -325,6 +341,7 @@ def main() -> int:
         build_sort_circuit, columnar_instance, divmod_edge_operands, divmod_word_grid,
         brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs,
         build_brillig_vm_circuit, build_brillig_vm_edges_circuit,
+        build_brillig_vm_wide_registers_circuit,
         gadget_inputs_columnar, oracle_affine, random_inputs, sha256_inputs, sort_circuit_roles,
         sort_inputs, u32_inputs, with_repeated_constraints,
     )
@@ -1782,34 +1799,69 @@ def main() -> int:
     timed_stats = SolveStats()
     solver.solve(cols, stats=timed_stats)
     if want_profile:
-        emit({"profile_vm": profile(lambda: solver.solve(cols), secs)})
+        profile_vm = profile(lambda: solver.solve(cols), secs)
+        # The busy share counts only what the trace saw: every brillig_vm
+        # launch of the solve must be in it (checked at the verdict).
+        profile_vm["brillig_vm_launches_traced"] = sum(
+            r["calls"] for r in profile_vm["port_kernels"] if "brillig_vm_kernel" in r["kernel"])
+        emit({"profile_vm": profile_vm})
 
-    # brillig_vm against its plain version, tolerance 0, on block A's shape
-    # over all 8,192 instances (the state the stage loads), and its time: each
-    # timed launch starts from a fresh copy of that state.
-    program, regs0, mem0 = bvm.initial_state(circuit.opcodes[roles["blocks"][0]].brillig,
-                                             lambda w: col_of[int(w)], vm_B, P, dev)
-    n_regs, mem_cap = regs0.shape[0], mem0.shape[0]
-    budget = bvm.step_budget(program.n_pc)
-    regs_k, mem_k = regs0.clone(), mem0.clone()
-    status_k, steps_k = bvm.run_vm(program, regs_k, mem_k, budget)
-    regs_p, mem_p = regs0.clone(), mem0.clone()
-    pc_counts = torch.zeros(program.n_pc, dtype=torch.int64, device=dev)
-    status_p, steps_p = bvm.run_vm_plain(program, regs_p, mem_p, budget, pc_counts=pc_counts)
-    torch.cuda.synchronize()
-    vm_err = max(max_abs_err(regs_k, regs_p), max_abs_err(mem_k, mem_p),
-                 max_abs_err(status_k, status_p), max_abs_err(steps_k, steps_p))
-    assert vm_err == 0 and int((status_k != bvm.HALTED).sum()) == 0, vm_err
-    assert int(pc_counts.sum()) == int(steps_k.sum())
-    # The sort's Loads and Stores reach a[j - 1] and a[j] for j < 16: the
-    # array's own rows.  The rows past it are the capacity's padding, still 0.
-    array_rows = n_vm_keys
-    assert not bool(mem_k[array_rows:].any()) and not bool(mem0[array_rows:].any())
+    # brillig_vm against its plain version, tolerance 0, on each block of the
+    # path over all 8,192 instances (the state the stage loads): registers,
+    # memory, status and steps.  Then the two state tiers the path does not
+    # reach (vm_launch_plan puts the path's registers and memory on chip): the
+    # binary search over 256 words (memory in device memory) and a register
+    # file of 300 rows (all in device memory), at 8,191 instances (a ragged
+    # last warp).  Each timed launch starts from a fresh copy of the state.
+    I_, F_ = br.BinaryIntOp, br.BinaryFieldOp
+    # The bound's operations a kind: 8 words an int op, a data move or a
+    # branch test (36 multiply-adds a 256-bit product's low half), 1 a jump,
+    # call, return or stop; field ops 16 (add, sub), 2 x 136 (mul), 313 x 136
+    # (div: to Montgomery form, the p - 2 chain, the product).  An
+    # UnsignedDiv costs what its operands need (`division_work`, row 10's
+    # count), from the operands the sequential VM sees (`division_census`).
+    int_cost = {int(I_.Mul): 36}
+    div_products = fk.pow_chain_products(P - 2) + 2
+    field_cost = {int(F_.Add): 16, int(F_.Sub): 16, int(F_.Mul): 2 * MADDS_PER_MONT_MUL,
+                  int(F_.Div): div_products * MADDS_PER_MONT_MUL}
+    kind_names = {bvm.K_JUMP: "Jump", bvm.K_JUMP_IF: "JumpIf", bvm.K_JUMP_IF_NOT: "JumpIfNot",
+                  bvm.K_CALL: "Call", bvm.K_RETURN: "Return", bvm.K_CONST: "Const",
+                  bvm.K_MOV: "Mov", bvm.K_LOAD: "Load", bvm.K_STORE: "Store",
+                  bvm.K_TRAP: "Trap", bvm.K_STOP: "Stop"}
+    light = {"Jump", "Call", "Return", "Stop", "Trap"}
 
-    def vm_ms(calls, reps=7):
+    def vm_work(program, pc_counts, brillig, B):
+        """(opcodes executed by kind, int32 operations, division digits) of
+        one run, from the opcodes executed at each pc."""
+        executed_by_kind, ops, digits = {}, 0, 0
+        for (kind, sub), n in zip(program.table[:, :2].tolist(), pc_counts.tolist()):
+            if n == 0:
+                continue
+            if kind == bvm.K_BIN_INT:
+                assert sub != int(I_.SignedDiv), "count a SignedDiv's magnitudes"
+                name, cost = f"BinaryIntOp.{I_(sub).name}", int_cost.get(sub, 8)
+                cost = 0 if sub == int(I_.UnsignedDiv) else cost  # counted from the operands below
+            elif kind == bvm.K_BIN_FIELD:
+                name, cost = f"BinaryFieldOp.{F_(sub).name}", field_cost.get(sub, 8)
+            else:
+                name = kind_names[kind]
+                cost = 1 if name in light else 8
+            executed_by_kind[name] = executed_by_kind.get(name, 0) + n
+            ops += n * cost
+        if "BinaryIntOp.UnsignedDiv" in executed_by_kind:
+            pairs = division_census(brillig, col_of, B)
+            assert len(pairs) == executed_by_kind["BinaryIntOp.UnsignedDiv"], len(pairs)
+            a = torch.from_numpy(fk.ints_to_limbs32([x for x, _ in pairs]).copy())
+            b = torch.from_numpy(fk.ints_to_limbs32([y for _, y in pairs]).copy())
+            digits, div_ops = division_work(a, b)
+            ops += div_ops
+        return executed_by_kind, ops, digits
+
+    def vm_ms(program, regs0, mem0, budget, calls, reps=7, launch=None):
         """Median event time of one launch over ``calls`` launches queued back
-        to back, each on its own copy of the initial state (made before)."""
-        run = lambda r, m: bvm.run_vm(program, r, m, budget)  # noqa: E731
+        to back, each on its own copy of the initial state (made before);
+        ``launch(regs, mem)`` runs one (default: ``run_vm``)."""
+        run = launch or (lambda r, m: bvm.run_vm(program, r, m, budget))
         run(regs0.clone(), mem0.clone())
         times = []
         for _ in range(reps):
@@ -1824,53 +1876,159 @@ def main() -> int:
             times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
 
-    # Bound: the state the instances touch read and written once (the
-    # registers of the block, the array's rows of memory; status and steps
-    # written) and the program table read, against the int32 operations of the
-    # opcodes executed (counted at each pc by the plain run): 8 words an int
-    # op, a data move or a branch test (36 multiply-adds a 256-bit product's
-    # low half), 1 a jump, call, return or stop; field ops 16 (add, sub),
-    # 2 x 136 (mul), 313 x 136 (div: to Montgomery form, the p - 2 chain, the
-    # product).  The sort divides nothing; a block that does would need its
-    # divisions counted from their operands.
-    I_, F_ = br.BinaryIntOp, br.BinaryFieldOp
-    int_cost = {int(I_.Mul): 36}
-    field_cost = {int(F_.Add): 16, int(F_.Sub): 16, int(F_.Mul): 2 * MADDS_PER_MONT_MUL,
-                  int(F_.Div): (fk.pow_chain_products(P - 2) + 2) * MADDS_PER_MONT_MUL}
-    kind_names = {bvm.K_JUMP: "Jump", bvm.K_JUMP_IF: "JumpIf", bvm.K_JUMP_IF_NOT: "JumpIfNot",
-                  bvm.K_CALL: "Call", bvm.K_RETURN: "Return", bvm.K_CONST: "Const",
-                  bvm.K_MOV: "Mov", bvm.K_LOAD: "Load", bvm.K_STORE: "Store",
-                  bvm.K_TRAP: "Trap", bvm.K_STOP: "Stop"}
-    light = {"Jump", "Call", "Return", "Stop", "Trap"}
-    executed_by_kind, vm_ops = {}, 0
-    for (kind, sub), n in zip(program.table[:, :2].tolist(), pc_counts.tolist()):
-        if n == 0:
-            continue
-        if kind == bvm.K_BIN_INT:
-            assert sub not in (int(I_.UnsignedDiv), int(I_.SignedDiv)), "count its divisions"
-            name, cost = f"BinaryIntOp.{I_(sub).name}", int_cost.get(sub, 8)
-        elif kind == bvm.K_BIN_FIELD:
-            name, cost = f"BinaryFieldOp.{F_(sub).name}", field_cost.get(sub, 8)
-        else:
-            name = kind_names[kind]
-            cost = 1 if name in light else 8
-        executed_by_kind[name] = executed_by_kind.get(name, 0) + n
-        vm_ops += n * cost
-    vm_bytes = (2 * (n_regs + array_rows) * fk.LIMBS * 4 * vm_B + 2 * 4 * vm_B
-                + program.table.size * 4)
-    b_ms, b_by = bound(vm_bytes, vm_ops)
+    def vm_check(brillig, get, B):
+        """The kernel against the plain version on one block: (program,
+        initial regs and mem, budget, the plain run's (regs, mem, status,
+        steps), pc counts, plain seconds, steps)."""
+        program, regs0, mem0 = bvm.initial_state(brillig, get, B, P, dev)
+        budget = bvm.step_budget(program.n_pc)
+        regs_k, mem_k = regs0.clone(), mem0.clone()
+        status_k, steps_k = bvm.run_vm(program, regs_k, mem_k, budget)
+        regs_p, mem_p = regs0.clone(), mem0.clone()
+        pc_counts = torch.zeros(program.n_pc, dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        status_p, steps_p = bvm.run_vm_plain(program, regs_p, mem_p, budget, pc_counts=pc_counts)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+        err = max(max_abs_err(regs_k, regs_p), max_abs_err(mem_k, mem_p),
+                  max_abs_err(status_k, status_p), max_abs_err(steps_k, steps_p))
+        assert err == 0, err
+        assert int(pc_counts.sum()) == int(steps_k.sum())
+        return (program, regs0, mem0, budget, (regs_p, mem_p, status_p, steps_p), pc_counts,
+                plain_seconds, steps_k)
+
+    def vm_plan(program, regs0, mem0):
+        plan = bvm.vm_plan_for(program, regs0, mem0)
+        return plan, {"threads": plan.threads, "blocks": plan.blocks,
+                      "table_on_chip": plan.table_on_chip, "registers_on_chip": plan.regs_on_chip,
+                      "memory_on_chip": plan.mem_on_chip, "shared_bytes": plan.shared_bytes}
+
+    vm_blocks = {}
+    for name, index in zip(("sort", "isqrt", "inverse"), roles["blocks"]):
+        brillig = circuit.opcodes[index].brillig
+        vm_blocks[name] = (brillig, *vm_check(brillig, lambda w: col_of[int(w)], vm_B))
+    (_, program, regs0, mem0, budget, (regs_p, mem_p, status_p, steps_p), pc_counts, _,
+     steps_k) = vm_blocks["sort"]
+    n_regs, mem_cap = regs0.shape[0], mem0.shape[0]
+    assert int((status_p != bvm.HALTED).sum()) == 0
+    # The sort's Loads and Stores reach a[j - 1] and a[j] for j < 16: the
+    # array's own rows.  The rows past it are the capacity's padding, still 0.
+    array_rows = n_vm_keys
+    assert not bool(mem_p[array_rows:].any()) and not bool(mem0[array_rows:].any())
+    tier_B = vm_B - 1
+    wide_cols, _, _ = brillig_vm_edge_inputs(tier_B, array=256)
+    wide_obj = {w: np.asarray(v).astype(object) for w, v in wide_cols.items()}
+    tiers = {}
+    for name, brillig in (
+            ("binary_search_256_words", build_brillig_vm_edges_circuit(array=256).opcodes[1].brillig),
+            ("registers_300", build_brillig_vm_wide_registers_circuit().opcodes[0].brillig)):
+        t_program, t_regs0, t_mem0, t_budget, _, _, _, t_steps = vm_check(
+            brillig, lambda w: wide_obj[int(w)], tier_B)
+        plan, plan_info = vm_plan(t_program, t_regs0, t_mem0)
+        tiers[name] = dict(batch=tier_B, registers=t_regs0.shape[0], memory_cells=t_mem0.shape[0],
+                           plan=plan_info, steps_mean=float(t_steps.float().mean()),
+                           steps_max=int(t_steps.max()), max_abs_err=0,
+                           ms=vm_ms(t_program, t_regs0, t_mem0, t_budget, 1))
+        del t_regs0, t_mem0
+    assert not tiers["binary_search_256_words"]["plan"]["memory_on_chip"]
+    assert tiers["binary_search_256_words"]["plan"]["registers_on_chip"]
+    assert not tiers["registers_300"]["plan"]["registers_on_chip"]
+
+    # The bound of each block: the state the instances touch read and written
+    # once (the block's registers; for the sort the array's rows of memory),
+    # status and steps written, the program table read; against the int32
+    # operations of the opcodes executed.
+    def block_row(name, touched_mem_rows):
+        brillig, b_program, b_regs0, b_mem0, b_budget, _, b_counts, plain_seconds, b_steps = vm_blocks[name]
+        by_kind, ops, digits = vm_work(b_program, b_counts, brillig, vm_B)
+        moved = (2 * (b_regs0.shape[0] + touched_mem_rows) * fk.LIMBS * 4 * vm_B + 2 * 4 * vm_B
+                 + b_program.table.size * 4)
+        b_ms, b_by = bound(moved, ops)
+        _, plan_info = vm_plan(b_program, b_regs0, b_mem0)
+        return dict(n_pc=b_program.n_pc, registers=b_regs0.shape[0], memory_cells=b_mem0.shape[0],
+                    plan=plan_info, steps_mean=float(b_steps.float().mean()), steps_max=int(b_steps.max()),
+                    opcodes_executed=int(b_steps.sum()), executed_by_kind=by_kind, int32_ops=ops,
+                    division_digits=digits, bound_bytes=moved, max_abs_err=0,
+                    ms=vm_ms(b_program, b_regs0, b_mem0, b_budget, 1),
+                    ms_queued=vm_ms(b_program, b_regs0, b_mem0, b_budget, 10),
+                    plain_seconds_one_run=plain_seconds, bound_ms=b_ms, bound_by=b_by)
+
+    sort_row = block_row("sort", array_rows)
+    isqrt_row = block_row("isqrt", 0)
+    inverse_row = block_row("inverse", 0)
+    # The inverse is one field Div a live instance: a chain of 313 dependent
+    # products, each at the latency `mont_probe` measured in one warp's chain.
+    us_per_product = candidates["carry_flag_even_odd"]["us_per_product_in_chain"]
+    inverse_row["latency_floor_ms"] = div_products * us_per_product * 1e-3
+    inverse_row["latency_floor_from"] = f"{div_products} products x int32.mont_mul_candidates" \
+                                        ".carry_flag_even_odd.us_per_product_in_chain"
+    if "--vm-variants" in sys.argv:
+        # brillig_vm rebuilt with its measurement switch (csrc/brillig_vm.cu:
+        # VM_REGROUP) and run under another plan, and the parent tree's kernel
+        # (--vm-parent=DIR, its own launcher), on each block's state; every
+        # one bit-exact against the plain run.
+        from concurrent.futures import ThreadPoolExecutor
+
+        variants = {  # name: (switches, state on chip as the plan puts it, or all in device memory)
+            "as_built": None,
+            "device_state_no_regroup": (("VM_REGROUP=0",), False),
+            "device_state_regroup": (("VM_REGROUP=1",), False),
+            "on_chip_no_regroup": (("VM_REGROUP=0",), True),
+            "on_chip_regroup": (("VM_REGROUP=1",), True),
+        }
+        switches = sorted({v[0] for v in variants.values() if v})
+        with ThreadPoolExecutor(len(switches)) as pool:  # one nvcc a build, all started together
+            built = dict(zip(switches, pool.map(lambda d: build.load_variant("brillig_vm", d), switches)))
+        fns = {k: built[v[0]] for k, v in variants.items() if v}
+        parent = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--vm-parent=")), None)
+        if parent:
+            # The earlier launcher: prog, n_pc, regs, mem, status, steps, B,
+            # mem_cap, max_steps, field words, p - 2's chain, stream.
+            _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fns["parent_tree"] = build.load_variant(
+                "brillig_vm", [], source=f"{parent}/acvm_tpu_torch/csrc/brillig_vm.cu",
+                signature=("acvm_brillig_vm", [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P]))
+            variants["parent_tree"] = ([], None)
+        times = {}
+        for vname, spec in variants.items():
+            times[vname] = {}
+            for bname, (_, b_program, b_regs0, b_mem0, b_budget, want, *_) in vm_blocks.items():
+                plan, _ = vm_plan(b_program, b_regs0, b_mem0)
+                if spec is not None and spec[1] is False:  # registers and memory in device memory
+                    row = fk.LIMBS * 4 * plan.threads
+                    plan = plan._replace(
+                        regs_on_chip=False, mem_on_chip=False,
+                        shared_bytes=plan.shared_bytes - row * (b_regs0.shape[0] * plan.regs_on_chip
+                                                                + b_mem0.shape[0] * plan.mem_on_chip))
+
+                def launch(r, m, fn=fns.get(vname), plan=plan, b_program=b_program, b_budget=b_budget,
+                           parent_args=vname == "parent_tree"):
+                    if fn is None:
+                        return bvm.run_vm(b_program, r, m, b_budget)
+                    args, st, steps = bvm.vm_launch_args(b_program, r, m, b_budget, plan)
+                    err = fn(*(args[:7] + args[8:12] + args[17:] if parent_args else args))
+                    assert err == 0, (vname, err)
+                    return st, steps
+
+                r, m = b_regs0.clone(), b_mem0.clone()
+                got = (r, m, *launch(r, m))
+                torch.cuda.synchronize()
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), (vname, bname)
+                times[vname][bname] = vm_ms(b_program, b_regs0, b_mem0, b_budget, 1, launch=launch)
+                if bname == "sort":
+                    times[vname]["sort_queued"] = vm_ms(b_program, b_regs0, b_mem0, b_budget, 10,
+                                                        launch=launch)
+        emit({"vm_variants": {"card": smi, "blocks": f"path_vm's three blocks, B={vm_B}",
+                              "equal_to_plain": True, "ms": times}})
     kernels["brillig_vm"] = dict(
         name="brillig_vm", route="cuda", source="acvm_tpu_torch/csrc/brillig_vm.cu",
         replaces="acvm_tpu/tpu/brillig_vm_device.py:215",
         shape=f"block A of path_vm: {program.n_pc} opcodes, B={vm_B}, {n_regs} registers, "
               f"{mem_cap} memory cells",
-        steps_mean=float(steps_k.float().mean()), steps_max=int(steps_k.max()),
-        opcodes_executed=int(steps_k.sum()), executed_by_kind=executed_by_kind, int32_ops=vm_ops,
-        bound_bytes=vm_bytes,
-        max_abs_err=vm_err, ms=vm_ms(1), ms_queued=vm_ms(10),
+        **{k: v for k, v in sort_row.items() if k not in ("plain_seconds_one_run",)},
         plain_ms=time_ms(lambda: bvm.run_vm_plain(program, regs0.clone(), mem0.clone(), budget),
                          3, warmup=0),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        library_ms=None, isqrt_block=isqrt_row, inverse_block=inverse_row, state_tiers=tiers)
     emit({"path_vm": {
         "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": vm_B, "keys": n_vm_keys,
         "levels": len([lv for seg in solver.segments for lv in seg.levels]),
@@ -1889,7 +2047,7 @@ def main() -> int:
                            "host_stage_seconds": per_instance_stats.host_stage_seconds},
         "panel_bytes": solver.panel_bytes(vm_B),
         "sort_state_bytes": (regs0.numel() + mem0.numel()) * 4}})
-    del res, solver, regs_k, mem_k, regs_p, mem_p
+    del res, solver, vm_blocks, regs_p, mem_p
     torch.cuda.empty_cache()
 
     # -- 13. brillig_ops --------------------------------------------------------------
@@ -1984,10 +2142,49 @@ def main() -> int:
         assert row["launches"] > 0, name
         rows.append(row)
     emit({"kernels": rows})
+    if want_profile:
+        assert profile_vm["brillig_vm_launches_traced"] == vm_launches["brillig_vm"], (
+            "the profiled path_vm solve traced", profile_vm["brillig_vm_launches_traced"],
+            "brillig_vm launches of", vm_launches["brillig_vm"])
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def division_census(brillig, col_of, batch):
+    """The operands (a, b) of every UnsignedDiv the instances of one block
+    execute, masked to the op's bit size as the kernel divides them: the
+    port's sequential VM run instance by instance on the columns ``col_of``
+    (witness -> (batch,) ints), its int-op evaluation watched."""
+    from acvm_tpu_torch import brillig as br
+    from acvm_tpu_torch.acir import Witness, WitnessMap
+    from acvm_tpu_torch.blackbox import GrumpkinSolver
+    from acvm_tpu_torch.brillig_vm import vm as seq_vm
+    from acvm_tpu_torch.fields.field import FieldElement
+    from acvm_tpu_torch.pwg.brillig_solver import BrilligSolver
+    from acvm_tpu_torch.pwg.errors import OpcodeResolutionError
+
+    seen = []
+    evaluate = seq_vm.evaluate_binary_int_op
+
+    def watch(op, a, b, bits):
+        assert op != br.BinaryIntOp.SignedDiv, "count a SignedDiv's magnitudes"
+        if op == br.BinaryIntOp.UnsignedDiv:
+            seen.append((a % (1 << bits), b % (1 << bits)))
+        return evaluate(op, a, b, bits)
+
+    seq_vm.evaluate_binary_int_op = watch
+    try:
+        for i in range(batch):
+            wm = WitnessMap({Witness(w): FieldElement(int(v[i])) for w, v in col_of.items()})
+            try:
+                BrilligSolver.solve(wm, brillig, GrumpkinSolver(), 0)
+            except (OpcodeResolutionError, ZeroDivisionError):
+                pass  # a trap: the divisions before it count
+    finally:
+        seq_vm.evaluate_binary_int_op = evaluate
+    return seen
 
 
 def sequential_solve(circuit, assignment, handler):

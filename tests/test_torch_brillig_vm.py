@@ -58,7 +58,7 @@ from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, brillig_vm_device as vm, 
 from acvm_tpu_torch.utils import PORT_CLASSES
 from acvm_tpu_torch.utils.bench_circuits import (
     brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs, build_brillig_vm_circuit,
-    build_brillig_vm_edges_circuit,
+    build_brillig_vm_edges_circuit, build_brillig_vm_wide_registers_circuit,
 )
 from acvm_tpu_torch.utils.profiling import SolveStats
 
@@ -160,6 +160,76 @@ def test_jax_fixtures_match_the_jax_device_vm(edge_circuits, block):
     (w, got), = values.items()
     assert got.tolist() == expected[w]
     assert trapped.tolist() == (trap.tolist() if block == "call_trap" else [False] * BATCH)
+
+
+WIDE_ARRAY = 256  # words of the binary search's array: its memory is past the on-chip tier
+
+
+@pytest.fixture(scope="module")
+def wide_search():
+    """The binary search over 256 words (`build_brillig_vm_edges_circuit(array=256)`,
+    block 1) in both packages, with its columns and Python's answers."""
+    cols, expected, _ = brillig_vm_edge_inputs(BATCH, array=WIDE_ARRAY)
+    return (build_brillig_vm_edges_circuit(array=WIDE_ARRAY).opcodes[1].brillig,
+            build_brillig_vm_edges_circuit(lib=JAX_LIB, array=WIDE_ARRAY).opcodes[1].brillig,
+            object_cols(cols), expected[4 + WIDE_ARRAY])
+
+
+def test_binary_search_over_256_words_matches_every_reference(wide_search):
+    """The block whose memory (2 x 256 + 32 cells) the kernel keeps in device
+    memory: the plain version against the JAX device VM, its sequential VM,
+    pwg.ACVM on the block alone and Python's bisect, instance by instance."""
+    brillig, jbrillig, cols, want = wide_search
+    program, regs, mem = vm.initial_state(brillig, lambda w: cols[int(w)], BATCH, P, "cpu")
+    plan = vm.vm_plan_for(program, regs, mem)
+    assert mem.shape[0] == 2 * WIDE_ARRAY + 32 and plan.regs_on_chip and not plan.mem_on_chip
+    values, trapped = assert_block_equal(brillig, jbrillig, cols)
+    out = 4 + WIDE_ARRAY
+    assert values[out].tolist() == want and not trapped.any()
+    for b in range(BATCH):
+        wm = jacir.WitnessMap({jacir.Witness(w): JFieldElement(int(v[b])) for w, v in cols.items()})
+        acvm = ACVM(JGrumpkinSolver(), [jops.OpcodeBrillig(jbrillig)], wm)
+        assert acvm.solve() == ACVMStatus.SOLVED
+        assert int(acvm.finalize().get(jacir.Witness(out))) == want[b], b
+
+
+# (registers, memory cells, opcodes) -> (table, registers, memory on chip)
+PLANS = {
+    "sort": ((10, 64, 22), (True, True, True)),
+    "registers_300": ((300, 32, 9), (True, False, False)),
+    "memory_544_cells": ((11, 2 * WIDE_ARRAY + 32, 18), (True, True, False)),
+    "table_over_48_kb": ((4, 32, 800), (False, True, True)),
+    "no_load_or_store": ((10, 0, 18), (True, True, False)),
+}
+# The fixture blocks of those shapes: run_vm must plan their own state so.
+PLAN_BLOCKS = {
+    "sort": lambda: build_brillig_vm_circuit(16).opcodes[brillig_vm_circuit_roles(16)["blocks"][0]].brillig,
+    "registers_300": lambda: build_brillig_vm_wide_registers_circuit().opcodes[0].brillig,
+    "memory_544_cells": lambda: build_brillig_vm_edges_circuit(array=WIDE_ARRAY).opcodes[1].brillig,
+}
+
+
+@pytest.mark.parametrize("batch", [1, 32, 33, 8192])
+@pytest.mark.parametrize("case", list(PLANS))
+def test_vm_launch_plan(case, batch):
+    """One warp a block over the whole batch; the table, then the registers,
+    then the memory on chip where each still fits in the 227 KB a block may
+    have; the shared bytes are exactly what the kernel lays out.  A fixture
+    block of the case's shape (the sort, the 300-register sum loop, the
+    256-word binary search) gets the same plan from its own state."""
+    (n_regs, mem_cap, n_pc), tiers = PLANS[case]
+    plan = vm.vm_launch_plan(n_regs, mem_cap, n_pc, batch)
+    assert (plan.table_on_chip, plan.regs_on_chip, plan.mem_on_chip) == tiers
+    row = 8 * 4 * plan.threads
+    assert plan.shared_bytes == (n_pc * 64 * plan.table_on_chip + 32 * 4 * plan.threads
+                                 + row * (n_regs * plan.regs_on_chip + mem_cap * plan.mem_on_chip))
+    assert plan.shared_bytes <= 232_448 and plan.threads == 32
+    assert plan.blocks * plan.threads >= batch > (plan.blocks - 1) * plan.threads
+    if case in PLAN_BLOCKS:
+        zeros = lambda w: np.zeros(1, dtype=object)  # noqa: E731
+        program, regs, mem = vm.initial_state(PLAN_BLOCKS[case](), zeros, 1, P, "cpu")
+        assert (regs.shape[0], mem.shape[0], program.n_pc) == (n_regs, mem_cap, n_pc)
+        assert vm.vm_plan_for(program, regs, mem) == vm.vm_launch_plan(n_regs, mem_cap, n_pc, 1)
 
 
 def jax_solve(solver, inputs):

@@ -395,10 +395,15 @@ def test_device_resident_byte_columns(card):
 
 def vm_blocks():
     """(block, columns, batch) for every block of the VM circuits and the
-    Brillig-ops circuit."""
+    Brillig-ops circuit, then the three state tiers at ragged batches: the
+    sort (registers and memory on chip) on 77 instances, the binary search
+    over 256 words (its memory in device memory) on 100, and a register file
+    of 300 rows (all in device memory) on 33, its instance 3 past the step
+    budget."""
     from acvm_tpu_torch.utils import (
         brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs,
         build_brillig_vm_circuit, build_brillig_vm_edges_circuit,
+        build_brillig_vm_wide_registers_circuit,
     )
 
     circuit = build_brillig_vm_circuit(16)
@@ -409,20 +414,31 @@ def vm_blocks():
     edge_cols, _, _ = brillig_vm_edge_inputs(512, escape_instance=3)
     blocks += [(op.brillig, edge_cols, 512) for op in build_brillig_vm_edges_circuit().opcodes]
     ops_cols = brillig_ops_inputs(256)
-    return blocks + [(op.brillig, ops_cols, 256) for op in build_brillig_ops_circuit().opcodes]
+    blocks += [(op.brillig, ops_cols, 256) for op in build_brillig_ops_circuit().opcodes]
+    sort = circuit.opcodes[brillig_vm_circuit_roles(16)["blocks"][0]].brillig
+    wide_cols, _, _ = brillig_vm_edge_inputs(100, array=256)
+    return blocks + [
+        (sort, cols, 77),
+        (build_brillig_vm_edges_circuit(array=256).opcodes[1].brillig, wide_cols, 100),
+        (build_brillig_vm_wide_registers_circuit().opcodes[0].brillig, edge_cols, 33),
+    ]
 
 
 def test_brillig_vm_kernel_equals_plain_version(card):
     """Every block of the VM circuits (an escape by the step budget among
-    them) and every Brillig op at 1-256 bits: registers, memory, status and
-    steps of the kernel equal the plain version's on the card."""
+    them), every Brillig op at 1-256 bits and the three state tiers at ragged
+    batches: registers, memory, status and steps of the kernel equal the
+    plain version's on the card."""
     from acvm_tpu_torch.gpu import brillig_vm_device as bvm
 
     build.reset_launches()
     blocks = vm_blocks()
+    tiers = set()
     for k, (brillig, cols, batch) in enumerate(blocks):
-        get = lambda w: np.asarray(cols[int(w)]).astype(object)  # noqa: E731
+        get = lambda w: np.asarray(cols[int(w)][:batch]).astype(object)  # noqa: E731
         program, regs, mem = bvm.initial_state(brillig, get, batch, BN254_FR.modulus, card)
+        plan = bvm.vm_plan_for(program, regs, mem)
+        tiers.add((plan.regs_on_chip, plan.mem_on_chip))
         budget = bvm.step_budget(program.n_pc)
         regs_p, mem_p = regs.clone(), mem.clone()
         status, steps = bvm.run_vm(program, regs, mem, budget)
@@ -430,6 +446,7 @@ def test_brillig_vm_kernel_equals_plain_version(card):
         assert torch.equal(regs, regs_p) and torch.equal(mem, mem_p), k
         assert torch.equal(status, status_p) and torch.equal(steps, steps_p), k
     assert build.LAUNCHES["brillig_vm"] == len(blocks)
+    assert tiers == {(True, True), (True, False), (False, False)}
 
 
 def test_brillig_vm_solver_on_card_equals_solver_on_cpu(card):
