@@ -7,7 +7,8 @@ kernel written by hand in CUDA C++ for NVIDIA Hopper (``csrc/``).  It imports
 passes ``device="cpu"``, where each kernel's plain PyTorch version runs.
 
 It solves arithmetic gates, the integer and directive opcodes, the Grumpkin
-gadgets, straight-line Brillig blocks and memory blocks:
+gadgets, the hash gadgets, Brillig blocks (straight-line, and on the device
+Brillig VM) and memory blocks:
 ``plan_circuit(circuit)`` -> ``BatchSolver(plan)`` -> ``solver.solve(inputs)``
 (``acvm_tpu_torch.gpu``).
 """

@@ -6,7 +6,8 @@ mod the field order.  sha256/blake2s come from hashlib; keccak256 (the original
 pre-SHA3 padding) is implemented here since hashlib only ships SHA-3.
 
 The batched device implementations live in ``acvm_tpu_torch.gpu.gadgets``
-(BLAKE2s so far); these host versions define bit-exactness.
+(a CUDA kernel and a plain tensor version of each); these host versions define
+bit-exactness.
 """
 
 from __future__ import annotations

@@ -25,9 +25,9 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
-           "divmod", "brillig_vm")
+           "divmod", "brillig_vm", "sha256", "keccak", "blake2s")
 PROBES = ("imad_rate", "mont_probe")
-HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh")
+HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh", "hash.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +40,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_HASH_ARGS = [_P, _LL, _LL, _P, _P, _P, _I, _P, _LL, _LL, _I, _P, _I, _LL]
 # C launcher of each kernel: (symbol, argtypes).  Without argtypes ctypes would
 # pass every pointer as a 32-bit int.
 _SIGNATURES = {
@@ -66,6 +67,13 @@ _SIGNATURES = {
     # memory on chip, shared bytes), stream.
     "brillig_vm": ("acvm_brillig_vm",
                    [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # The hash kernels (csrc/hash.cuh): the source (pointer, row stride,
+    # instance stride, row / limb / shift tables), M, the sink (pointer, row
+    # stride, instance stride, words a row, output rows), G, B; then keccak's
+    # byte counts, or blake2s' multiples of p and their count; then the stream.
+    "sha256": ("acvm_sha256", _HASH_ARGS + [_P]),
+    "keccak": ("acvm_keccak", _HASH_ARGS + [_P, _P]),
+    "blake2s": ("acvm_blake2s", _HASH_ARGS + [_P, _I, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain

@@ -39,8 +39,13 @@ in one scatter.  A branchy Brillig block (jumps, calls, memory, traps) runs
 on the device Brillig VM (:mod:`acvm_tpu_torch.gpu.brillig_vm_device`): one
 ``brillig_vm`` launch a block over the whole batch.
 
-Anything else a plan can hold — hashes and ECDSA planned for the device — and
-every scaling option not listed in :meth:`BatchSolver.solve` raises
+The hash gadgets (SHA-256, BLAKE2s, Keccak-256 of a static or a runtime
+length, hash-to-field) run a level's gates of one kind and message length as
+one launch of their kernel (:func:`acvm_tpu_torch.gpu.gadgets.hash_rows`):
+the bytes read off the panel, the digest written back as canonical rows.
+
+Anything else a plan can hold — ECDSA planned for the device — and every
+scaling option not listed in :meth:`BatchSolver.solve` raises
 ``NotImplementedError`` naming what is missing, at construction where it can
 be known then.
 """
@@ -80,7 +85,7 @@ from ..pwg.brillig_solver import BrilligSolver
 from ..pwg.directives import solve_directives
 from ..pwg.errors import OpcodeResolutionError
 from ..utils.profiling import SolveStats, Timer
-from . import ec, host_batch, intops
+from . import ec, gadgets, host_batch, intops
 from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
 from .brillig_vm_device import run_brillig_vm_batch
 from .fused_level import fused_level_call, pack_level_desc
@@ -96,8 +101,6 @@ FAIL_NONE = np.int32(2**31 - 1)
 # Level fields this package does not run on the device yet: what each holds,
 # and the route that solves it today.
 _UNPORTED_LEVEL_FIELDS = {
-    "hashes": ("hash gadgets", "; plan with a config whose device_hash_kernels "
-               "is False to run them as host stages"),
     "ecdsa": ("ECDSA verification", ""),
 }
 
@@ -361,6 +364,29 @@ def run_to_le_radix(ctx, W, ok, fail, buf, dot_kernel="v2"):
     out = torch.zeros(digits.shape + (LIMBS,), dtype=torch.int32, device=W.device)
     out[..., 0] = wrap_i32(digits)
     W.index_copy_(0, buf["out_idx"], out)
+    return W, ok, fail
+
+
+def run_hashes(ctx, W, ok, fail, buf):
+    """One group of hash gadgets: a kind and a message length, one launch.
+
+    A variable-length Keccak's size is read as ``pwg.ACVM`` reads it, by its
+    low 128 bits (``FieldElement.to_u128``): the instance fails where that
+    exceeds the M message bytes (limbs 1-3 non-zero, or limb 0 above M) and
+    the bits above 128 are ignored.  A failing instance hashes min(limb 0, M)
+    bytes, as the JAX ``BatchSolver`` does."""
+    length = None
+    if buf["kind"] == "keccak_var":
+        M = buf["src_w"].shape[1]
+        size = W.index_select(0, buf["size_w"])  # (G, B, 8)
+        low = size[..., 0].to(torch.int64) & 0xFFFFFFFF
+        bad = (size[..., 1:4] != 0).any(dim=-1) | (low > M)
+        ok = ok & ~bad.any(dim=0)
+        fail = note_failures(fail, bad, buf["op_idx"])
+        length = low.clamp(max=M).to(torch.int32)
+    modulus = ctx.params.modulus if buf["kind"] == "hash_to_field" else None
+    W = gadgets.hash_rows(buf["kind"], W, buf["src_w"], buf["src_limb"], buf["src_shift"],
+                          buf["out_idx"], length=length, modulus=modulus)
     return W, ok, fail
 
 
@@ -709,6 +735,9 @@ class BatchSolver:
                 out_idx=idx_tensor(out_idx, torch.int64),
                 overflow_mask=limb_rows(overflow),
             )
+        if level.hashes:
+            packed["kinds"].append("hashes")
+            packed["hashes"] = self._pack_hashes(level.hashes)
         if level.ec_fixed_base or level.ec_pedersen or level.schnorr:
             if self.plan.params != BN254_FR:
                 raise NotImplementedError(
@@ -766,6 +795,34 @@ class BatchSolver:
             packed["kinds"].append("brillig")
             packed["brillig"] = self._pack_brillig(level.brillig)
         return packed
+
+    def _pack_hashes(self, gates) -> List[dict]:
+        """A level's hash gadgets grouped by (kind, message length): each
+        group is one launch, its message bytes the planner's (witness, limb,
+        shift) tables."""
+        groups: Dict[tuple, list] = {}
+        for gate in gates:
+            groups.setdefault((gate.kind, len(gate.byte_src)), []).append(gate)
+        dev = self.device
+
+        def as_tensor(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+        packs = []
+        for (kind, M), group in groups.items():
+            src = np.asarray([gate.byte_src for gate in group], dtype=np.int64).reshape(len(group), M, 3)
+            packs.append(dict(
+                kind=kind,
+                src_w=as_tensor(src[..., 0]),
+                src_limb=as_tensor(src[..., 1]),
+                src_shift=as_tensor(src[..., 2]),
+                out_idx=as_tensor([gate.outputs for gate in group]),
+                size_w=torch.tensor([0 if gate.size_witness is None else gate.size_witness
+                                     for gate in group], dtype=torch.int64, device=dev),
+                op_idx=torch.tensor([gate.opcode_index for gate in group], dtype=torch.int32,
+                                    device=dev),
+            ))
+        return packs
 
     def _pack_memory(self, stages) -> List[dict]:
         """A level's memory stages: each MemoryInit alone, the opcodes in
@@ -915,6 +972,9 @@ class BatchSolver:
                 W, ok = run_quotient(ctx, W, ok, packed[kind], self.dot_kernel)
             elif kind == "to_le_radix":
                 W, ok, fail = run_to_le_radix(ctx, W, ok, fail, packed[kind], self.dot_kernel)
+            elif kind == "hashes":
+                for group_buf in packed[kind]:
+                    W, ok, fail = run_hashes(ctx, W, ok, fail, group_buf)
             elif kind == "ec_fixed_base":
                 W, ok, fail = run_ec_fixed_base(ctx, W, ok, fail, packed[kind])
             elif kind == "ec_pedersen":

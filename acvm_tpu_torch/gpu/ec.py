@@ -383,7 +383,8 @@ def schnorr_verify_batched(
     r_not_inf = ~pt_is_inf(R)
     rx, _ = pt_to_affine(ctx, R)
 
-    # challenge: blake2s(pedersen_compress(Rx, Px, Py).x_be || msg) mod n
+    # challenge: blake2s(pedersen_compress(Rx, Px, Py).x_be || msg) mod n; the
+    # digest is one `blake2s` launch on the card
     acc = msm_fixed_tables(ctx, pedersen_tables, torch.stack([rx, pub_x, pub_y]))
     cx, _ = pt_to_affine(ctx, acc)
 

@@ -135,15 +135,25 @@ class ToLeRadixGate:
     opcode_index: int
 
 
+def _input_bytes(num_bits: int) -> int:
+    """The message bytes a hash input read at ``num_bits`` gives: whole bytes,
+    at most the 32 of a field element, as ``fetch_nearest_bytes`` takes them
+    (``pwg.ACVM``).  The JAX planner does not stop at 32 (its byte 32 names a
+    16-bit limb past the element's 16)."""
+    return min((num_bits + 7) // 8, 32)
+
+
 @dataclass
 class HashGate:
     """A device-batched 256-bit hash gadget (sha256 / blake2s / keccak256).
 
     ``byte_src`` is the static message byte layout resolved from each input's
     ``fetch_nearest_bytes(num_bits)`` truncation: per message byte, the source
-    witness, its limb index and the in-limb shift."""
+    witness, its 32-bit limb index ``j // 4`` and the in-limb shift
+    ``8 (j % 4)`` (the JAX planner's are 16-bit limbs).  ``hash_to_field``
+    gates have one output, the field element."""
 
-    kind: str  # "sha256" | "blake2s" | "keccak256" | "keccak_var"
+    kind: str  # "sha256" | "blake2s" | "keccak256" | "keccak_var" | "hash_to_field"
     byte_src: List[Tuple[int, int, int]]  # (witness, limb, shift)
     outputs: List[int]
     opcode_index: int
@@ -511,9 +521,8 @@ class _Planner:
             for fi in call.inputs:
                 w = int(fi.witness)
                 level_idx = max(level_idx, self._witness_level(w))
-                num_bytes = (fi.num_bits + 7) // 8
-                for j in range(num_bytes):
-                    byte_src.append((w, j // 2, 8 * (j % 2)))
+                for j in range(_input_bytes(fi.num_bits)):
+                    byte_src.append((w, j // 4, 8 * (j % 4)))
             level_idx += 1
             out = int(call.output)
             self._level(level_idx).hashes.append(
@@ -559,9 +568,8 @@ class _Planner:
                 for fi in call.inputs:
                     w = int(fi.witness)
                     level_idx = max(level_idx, self._witness_level(w))
-                    num_bytes = (fi.num_bits + 7) // 8
-                    for j in range(num_bytes):
-                        byte_src.append((w, j // 2, 8 * (j % 2)))
+                    for j in range(_input_bytes(fi.num_bits)):
+                        byte_src.append((w, j // 4, 8 * (j % 4)))
                 level_idx += 1
                 self._level(level_idx).hashes.append(
                     HashGate(kind, byte_src, outputs, opcode_index, size_witness)

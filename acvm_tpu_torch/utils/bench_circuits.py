@@ -590,16 +590,21 @@ def divmod_word_grid(per_pair: int, seed: int = 6):
     return a, b
 
 
+HASH_KINDS = {"sha256": ops.BBSha256, "blake2s": ops.BBBlake2s, "keccak256": ops.BBKeccak256}
+
+
 def build_gadget_circuit(
     kind: str, num_gadgets: int = 8, msg_len: int = 64
 ) -> Circuit:
     """A circuit of ``num_gadgets`` independent black-box gadget calls, for
     gadget-throughput measurements.
 
-    kinds: "pedersen" (2 field inputs -> commitment point x, y), "fixed_base"
-    (2 u128-limb inputs -> point x, y) and "schnorr" (pub x/y + 64 sig bytes +
-    ``msg_len`` message bytes -> bool).  The hash and ECDSA kinds of the JAX
-    package's generator wait for their gadgets.
+    kinds: "sha256" / "blake2s" / "keccak256" (per gadget: ``msg_len``
+    byte-witness inputs -> 32 byte-witness outputs), "pedersen" (2 field
+    inputs -> commitment point x, y), "fixed_base" (2 u128-limb inputs ->
+    point x, y) and "schnorr" (pub x/y + 64 sig bytes + ``msg_len`` message
+    bytes -> bool).  The ECDSA kinds of the JAX package's generator wait for
+    their gadget.
     """
     opcodes: List[ops.Opcode] = []
     next_witness = 1
@@ -644,10 +649,17 @@ def build_gadget_circuit(
                 message=[ops.FunctionInput(w, 8) for w in msg],
                 output=fresh(),
             )
+        elif kind in HASH_KINDS:
+            ins = fresh_n(msg_len)
+            input_witnesses.extend(ins)
+            call = HASH_KINDS[kind](
+                inputs=[ops.FunctionInput(w, 8) for w in ins],
+                outputs=fresh_n(32),
+            )
         else:
             raise NotImplementedError(
-                f"build_gadget_circuit: kind {kind!r} is not ported (pedersen, "
-                "fixed_base and schnorr are)"
+                f"build_gadget_circuit: kind {kind!r} is not ported (sha256, blake2s, "
+                "keccak256, pedersen, fixed_base and schnorr are)"
             )
         opcodes.append(ops.OpcodeBlackBoxFuncCall(call))
 
@@ -672,10 +684,10 @@ def gadget_inputs(
 
 def gadget_inputs_columnar(circuit: Circuit, batch: int, kind: str, seed: int = 7):
     """Columnar ``{witness: (B,) array}`` form of :func:`gadget_inputs` — the
-    bulk ingest path of ``BatchSolver.initial_state``.  Bytes come back as
-    uint8 arrays, pedersen field scalars as object arrays, fixed-base limbs as
-    uint64 arrays, and every schnorr instance carries the same valid
-    signature."""
+    bulk ingest path of ``BatchSolver.initial_state``.  Bytes (hash messages)
+    come back as uint8 arrays, pedersen field scalars as object arrays,
+    fixed-base limbs as uint64 arrays, and every schnorr instance carries the
+    same valid signature."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -724,9 +736,11 @@ def gadget_inputs_columnar(circuit: Circuit, batch: int, kind: str, seed: int = 
             for j, fi in enumerate(call.message):
                 cols[int(fi.witness)] = np.full(batch, msg[j], dtype=np.uint8)
         return cols
+    if kind in HASH_KINDS:
+        return {w: rng.integers(0, 256, size=batch, dtype=np.uint8) for w in witnesses}
     raise NotImplementedError(
-        f"gadget_inputs_columnar: kind {kind!r} is not ported (pedersen, "
-        "fixed_base and schnorr are)"
+        f"gadget_inputs_columnar: kind {kind!r} is not ported (sha256, blake2s, "
+        "keccak256, pedersen, fixed_base and schnorr are)"
     )
 
 
@@ -1238,3 +1252,159 @@ def build_brillig_vm_wide_registers_circuit(lib=None, registers: int = 300):
         outputs=[o.BrilligOutputSimple(W(2))], foreign_call_results=[], bytecode=bytecode,
         predicate=None))
     return lib.Circuit(current_witness_index=2, opcodes=[block], private_parameters={W(1)})
+
+
+# ---------------------------------------------------------------------------
+# Hash gadgets: a Merkle-membership program
+# ---------------------------------------------------------------------------
+
+MEMO_BYTES = 200
+
+
+def build_membership_circuit(depth: int = 16, lib=None):
+    """The ACIR of a Noir program that proves membership in a Merkle tree, in
+    the shape of a Semaphore-style proof, in that opcode order:
+
+    * inputs: a 32-byte ``secret``, ``depth`` path ``bits``, ``depth``
+      32-byte ``siblings``, an ``ext_nullifier`` (a field element, hashed as
+      its 32 little-endian bytes: read at 254 bits), a ``MEMO_BYTES``-byte
+      ``memo`` and ``memo_len``; ``Range(., 8)`` on every byte input, as
+      Noir's ``[u8; N]`` parameters carry;
+    * ``leaf = blake2s(secret)``;
+    * for each level: the boolean check ``b b - b = 0``; the selection
+      ``left_j = cur_j + b (sib_j - cur_j)`` and
+      ``right_j = sib_j + b (cur_j - sib_j)`` (64 solve gates); then
+      ``cur = sha256(left || right)``; the last ``cur`` is the ``root``;
+    * ``nullifier = hash_to_field_128_security(secret || ext_nullifier)``;
+    * ``signal = keccak256(root || memo)`` of its first ``memo_len`` bytes
+      (the variable-length form; ``memo_len`` past the 232 bytes fails);
+    * ``binding = keccak256(root || signal)``.
+
+    depth = 16: 1,804 opcodes over 2,395 witnesses.  ``lib`` as in
+    :func:`build_brillig_ops_circuit`; :func:`membership_circuit_roles`
+    names its witnesses."""
+    return _membership_circuit(depth, lib or PORT_CLASSES)[0]
+
+
+def membership_circuit_roles(depth: int = 16) -> Dict[str, List[int]]:
+    """The witnesses of :func:`build_membership_circuit` (depth) by role:
+    ``secret``, ``bits``, ``siblings`` (level by level), ``ext_nullifier``,
+    ``memo``, ``memo_len``, ``leaf``, ``path`` (each level's digest, the
+    last the root), ``root``, ``nullifier``, ``signal``, ``binding``; and the
+    opcode indices ``bool_check_opcodes`` (one a level) and
+    ``keccak_var_opcode``."""
+    return _membership_circuit(depth, PORT_CLASSES)[1]
+
+
+def _membership_circuit(depth: int, lib):
+    o, fe, W = lib.opcodes, lib.FieldElement, lib.Witness
+    next_witness = 1
+    opcodes = []
+
+    def fresh_n(n):
+        nonlocal next_witness
+        next_witness += n
+        return [W(next_witness - n + i) for i in range(n)]
+
+    def gate(mul=(), lin=()):
+        opcodes.append(o.OpcodeArithmetic(lib.Expression(
+            mul_terms=[(fe(c), x, y) for c, x, y in mul],
+            linear_combinations=[(fe(c), x) for c, x in lin], q_c=fe(0))))
+
+    def call(c):
+        opcodes.append(o.OpcodeBlackBoxFuncCall(c))
+        return len(opcodes) - 1
+
+    def as_bytes(ws):
+        return [o.FunctionInput(w, 8) for w in ws]
+
+    secret, bits = fresh_n(32), fresh_n(depth)
+    siblings = [fresh_n(32) for _ in range(depth)]
+    (ext,), memo, (memo_len,) = fresh_n(1), fresh_n(MEMO_BYTES), fresh_n(1)
+    for w in secret + [w for sib in siblings for w in sib] + memo:
+        call(o.BBRange(o.FunctionInput(w, 8)))
+    leaf = fresh_n(32)
+    call(o.BBBlake2s(inputs=as_bytes(secret), outputs=leaf))
+    cur, path, checks = leaf, [], []
+    for b, sib in zip(bits, siblings):
+        gate(mul=[(1, b, b)], lin=[(-1, b)])
+        checks.append(len(opcodes) - 1)
+        left, right = fresh_n(32), fresh_n(32)
+        for c, s, out in zip(cur, sib, left):
+            gate(mul=[(1, b, s), (-1, b, c)], lin=[(1, c), (-1, out)])
+        for c, s, out in zip(cur, sib, right):
+            gate(mul=[(1, b, c), (-1, b, s)], lin=[(1, s), (-1, out)])
+        cur = fresh_n(32)
+        call(o.BBSha256(inputs=as_bytes(left + right), outputs=cur))
+        path += cur
+    (nullifier,) = fresh_n(1)
+    call(o.BBHashToField128Security(inputs=as_bytes(secret) + [o.FunctionInput(ext, 254)],
+                                    output=nullifier))
+    signal = fresh_n(32)
+    var_op = call(o.BBKeccak256VariableLength(inputs=as_bytes(cur + memo),
+                                              var_message_size=o.FunctionInput(memo_len, 32),
+                                              outputs=signal))
+    binding = fresh_n(32)
+    call(o.BBKeccak256(inputs=as_bytes(cur + signal), outputs=binding))
+    inputs = secret + bits + [w for sib in siblings for w in sib] + [ext] + memo + [memo_len]
+    circuit = lib.Circuit(current_witness_index=next_witness - 1, opcodes=opcodes,
+                          private_parameters=set(inputs))
+    roles = dict(secret=secret, bits=bits, siblings=[w for sib in siblings for w in sib],
+                 ext_nullifier=[ext], memo=memo, memo_len=[memo_len], leaf=leaf, path=path,
+                 root=cur, nullifier=[nullifier], signal=signal, binding=binding)
+    roles = {k: [int(w) for w in v] for k, v in roles.items()}
+    roles.update(bool_check_opcodes=checks, keccak_var_opcode=[var_op])
+    return circuit, roles
+
+
+def membership_inputs(circuit, batch: int, seed: int = 41):
+    """Columnar inputs of :func:`build_membership_circuit`: random bytes
+    (uint8) for the secret, siblings and memo, random path bits (uint8), a
+    random field element for the external nullifier (object ints) and a
+    ``memo_len`` in 0..232 (uint64)."""
+    import numpy as np
+
+    depth = (len(circuit.private_parameters) - 34 - MEMO_BYTES) // 33
+    roles = membership_circuit_roles(depth)
+    rng = np.random.default_rng(seed)
+    cols = {w: rng.integers(0, 256, size=batch, dtype=np.uint8)
+            for w in roles["secret"] + roles["siblings"] + roles["memo"]}
+    cols.update({w: rng.integers(0, 2, size=batch, dtype=np.uint8) for w in roles["bits"]})
+    pyrng = random.Random(seed)
+    cols[roles["ext_nullifier"][0]] = np.array(
+        [pyrng.randrange(BN254_FR.modulus) for _ in range(batch)], dtype=object)
+    cols[roles["memo_len"][0]] = rng.integers(0, 32 + MEMO_BYTES + 1, size=batch, dtype=np.uint64)
+    return cols
+
+
+def membership_outputs(instance: Dict[int, int], depth: int = 16):
+    """What :func:`build_membership_circuit` (depth) computes for one
+    instance (witness -> int), from the host hashes and Python ints: a dict of
+    ``leaf``, ``path``, ``root``, ``signal``, ``binding`` (bytes) and
+    ``nullifier`` (int).  The selection is the circuit's own arithmetic mod
+    p, so a path bit other than 0 or 1 gives what the gates give.
+    ``signal`` and ``binding`` are None where ``memo_len`` (its low 128 bits,
+    as the sequential engine reads it) is past the message."""
+    from ..blackbox import hashes
+
+    p = BN254_FR.modulus
+    roles = membership_circuit_roles(depth)
+    col = lambda role: [instance[w] for w in roles[role]]  # noqa: E731
+    secret = bytes(col("secret"))
+    cur = hashes.blake2s(secret)
+    out = {"leaf": cur, "path": b""}
+    sibs = col("siblings")
+    for i, b in enumerate(col("bits")):
+        sib = sibs[32 * i: 32 * i + 32]
+        left = bytes((c + b * (s - c)) % p & 0xFF for c, s in zip(cur, sib))
+        right = bytes((s + b * (c - s)) % p & 0xFF for c, s in zip(cur, sib))
+        cur = hashes.sha256(left + right)
+        out["path"] += cur
+    out["root"] = cur
+    ext = FieldElement(instance[roles["ext_nullifier"][0]]).to_le_bytes()
+    out["nullifier"] = int(hashes.hash_to_field_128_security(secret + ext))
+    size = instance[roles["memo_len"][0]] % (1 << 128)
+    message = cur + bytes(col("memo"))
+    out["signal"] = hashes.keccak256(message[:size]) if size <= len(message) else None
+    out["binding"] = hashes.keccak256(cur + out["signal"]) if out["signal"] is not None else None
+    return out

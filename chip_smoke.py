@@ -7,7 +7,7 @@
                                      # time by kernel, device busy share (and
                                      # the SHA-256 path traced block by block;
                                      # path_host's and path_vm's solves with
-                                     # their host stages)
+                                     # their host stages; path_hash's solves)
     python3 chip_smoke.py --level-variants  # also the level kernel built with
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
@@ -115,17 +115,33 @@ build, a failed launch or a failed comparison raises and the exit code is not
                rerunning its block instance by instance (one per-instance
                stage); every block of 13 through the VM equal to the trace's
                panel, the UnsignedDiv-by-zero instances trapping;
-15. ``kernels`` every kernel against its plain PyTorch version at the main
+15. ``path_hash``  the hash gadgets: the JAX package's gadget circuits
+               (``build_gadget_circuit`` sha256, blake2s, keccak256: 8 gadgets
+               of 64 bytes) over 8,192 random messages as a uint8 matrix on the
+               card, one launch of the kind's kernel a solve, every digest
+               against hashlib (Keccak's against the host Keccak on 512
+               instances), ``{kind}_solves_per_sec``; then the Merkle-membership
+               program (``build_membership_circuit(16)``: 1,804 opcodes, 20 hash
+               launches a solve) over 8,192 instances, a path bit of 2, a
+               memo_len past the message and one of 2^128 + 100 among them:
+               flags and first-failure indices, every instance's leaf, root and
+               nullifier against hashlib, signal and binding against the host
+               Keccak on 512, three witness maps against the sequential engine,
+               the hashes as host stages the same on 256, no plain digest on the
+               card, ``membership_solves_per_sec`` with the ``SolveStats`` split;
+16. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
-               launches on each path; ``batch_inv`` also at four chunk sizes on
+               launches on each path; the hash kernels on path_hash's groups
+               (a panel's row, limb and shift tables) and ``blake2s`` on
+               Schnorr's (2,048, 64) byte matrix; ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel; ``brillig_vm`` on the sort
                block of 12 over all 8,192 instances, with the opcodes executed
                by kind that its bound counts, and the isqrt and inverse blocks
                as shapes of it (their divisions counted from their operands,
                the inverse's Fermat chain's latency beside its bound);
-16. the raw ``nvidia-smi`` name and power limit;
-17. ``{"ok": true, "device": {...}}``.
+17. the raw ``nvidia-smi`` name and power limit;
+18. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -337,7 +353,8 @@ def main() -> int:
     from acvm_tpu_torch.gpu import intops
     from acvm_tpu_torch.utils import (
         array_inputs, brillig_ops_inputs, build_array_circuit, build_brillig_ops_circuit,
-        build_gadget_circuit, build_sha256_circuit, build_u32_circuit, build_wide_arith_circuit,
+        build_gadget_circuit, build_membership_circuit, build_sha256_circuit, build_u32_circuit,
+        build_wide_arith_circuit, membership_circuit_roles, membership_inputs, membership_outputs,
         build_sort_circuit, columnar_instance, divmod_edge_operands, divmod_word_grid,
         brillig_vm_circuit_roles, brillig_vm_edge_inputs, brillig_vm_inputs,
         build_brillig_vm_circuit, build_brillig_vm_edges_circuit,
@@ -949,16 +966,28 @@ def main() -> int:
     def profile(run, wall_seconds):
         """One run() under torch.profiler: device time by kernel (the top 8, and
         every kernel of the port's own, whatever its rank) and the share of the
-        timed wall clock the device was busy."""
-        from torch.profiler import ProfilerActivity, profile as torch_profile
+        timed wall clock the device was busy.  Warm-up runs go first under the
+        profiler, their events discarded, for at least 0.1 s: a trace misses
+        the launches of its first milliseconds (with none, a one-launch solve
+        traced nothing and a 36-level solve lost its first 5 levels; with one
+        warm-up run, the one-launch solve still nothing)."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile, schedule
 
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
+        warmup = max(1, min(1000, math.ceil(0.1 / max(wall_seconds, 1e-6))))
+        traced = []
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=warmup, active=1),
+                           on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+            for _ in range(warmup + 1):
+                run()
+                prof.step()
         from torch.autograd import DeviceType
 
-        # Kernel rows only: an operator's row repeats its kernels' device time.
-        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        # Kernel rows only: an operator's row repeats its kernels' device time,
+        # and the step's own annotation spans the whole step.
+        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in traced[0]
+                if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+                and not e.key.startswith("ProfilerStep")]
         rows.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         return {"device_busy_ms": busy_ms, "wall_ms": wall_seconds * 1e3,
@@ -1216,9 +1245,11 @@ def main() -> int:
         if kind == "schnorr":
             # One gadget level: one ladder launch, and pt_add only for the two
             # trees (6 + 8 rounds) and R = sG + eP: 527 before the ladder kernel.
+            # The challenge's BLAKE2s: one blake2s launch a level.
             assert launches["pt_ladder"] == 1 and launches["pt_add"] == 15, launches
+            assert launches["blake2s"] == 1, launches
         else:
-            assert launches["pt_ladder"] == 0, (kind, launches)
+            assert launches["pt_ladder"] == 0 and launches["blake2s"] == 0, (kind, launches)
         check_gadget_instances(kind, circuit, cols, res, (0, B - 1))
         state = solver.initial_state(cols)
         rate, secs = timed_rate(device_solve_of(solver, state, torch), num_gadgets * B, reps=3)
@@ -2127,10 +2158,299 @@ def main() -> int:
     del res
 
 
-    # -- 15. kernels, 16. card, 17. verdict -------------------------------------------
+    # -- 15. path_hash ----------------------------------------------------------------
+    # (a) The JAX package's gadget circuits at bench.py's sizes: 8 gadgets of 64
+    # one-byte inputs, B = 8,192 random messages as the packed (witnesses,
+    # uint8 matrix) form already on the card.  One launch of the kind's kernel
+    # a solve; every digest against hashlib, Keccak's against the host Keccak
+    # on 512 instances (pure Python).
+    import types
+
+    from acvm_tpu_torch.blackbox import hashes as host_hashes
+    from acvm_tpu_torch.gpu import gadgets
+
+    def reset_plain_digests():
+        for key in gadgets.PLAIN_ON_CARD:
+            gadgets.PLAIN_ON_CARD[key] = 0
+
+    def hash_groups(solver):
+        return [g for seg in solver.segments for lv in seg.levels for g in lv.get("hashes", [])]
+
+    hash_B, hash_G, hash_M = 8192, 8, 64
+    host_digest = {"sha256": host_hashes.sha256, "blake2s": host_hashes.blake2s,
+                   "keccak256": host_hashes.keccak256}
+    hash_launches = {name: 0 for name in build.KERNELS}
+    hash_report, hash_states = {}, {}
+    for kind in host_digest:
+        kernel = gadgets.KERNEL_OF[kind]
+        circuit = build_gadget_circuit(kind, hash_G, hash_M)
+        witnesses = sorted(int(w) for w in circuit.circuit_arguments())
+        matrix = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, size=(hash_B, len(witnesses)), dtype=np.uint8)).to(dev)
+        t0 = time.perf_counter()
+        solver = BatchSolver(plan_circuit(circuit))
+        plan_seconds = time.perf_counter() - t0
+        build.reset_launches()
+        reset_plain_digests()
+        res = solver.solve((witnesses, matrix))
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        assert res.ok.all() and (res.fail == FAIL_NONE).all(), kind
+        assert launches[kernel] == 1 and sum(launches.values()) == 1, (kind, launches)
+        assert not any(gadgets.PLAIN_ON_CARD.values()), gadgets.PLAIN_ON_CARD
+        for name, n in launches.items():
+            hash_launches[name] += n
+        column = {w: i for i, w in enumerate(witnesses)}
+        out_rows = torch.tensor([int(w) for op in circuit.opcodes for w in op.call.outputs], device=dev)
+        digests = res.panel.index_select(0, out_rows)[..., 0].cpu().numpy().astype(np.uint8)
+        digests = digests.reshape(hash_G, 32, hash_B)
+        messages = matrix.cpu().numpy()
+        checked = hash_B if kind != "keccak256" else 512
+        for g, op in enumerate(circuit.opcodes):
+            msgs = messages[:, [column[int(fi.witness)] for fi in op.call.inputs]]
+            for b in range(checked):
+                assert digests[g, :, b].tobytes() == host_digest[kind](msgs[b].tobytes()), (kind, g, b)
+        state = solver.initial_state((witnesses, matrix))
+        rate, secs = timed_rate(device_solve_of(solver, state, torch), hash_G * hash_B)
+        rate_full, secs_full = timed_rate(lambda: solver.solve((witnesses, matrix)), hash_G * hash_B)
+        if want_profile:
+            emit({f"profile_hash_{kind}": profile(device_solve_of(solver, state, torch), secs)})
+        hash_states[kind] = (state[0], hash_groups(solver)[0])
+        hash_report[kind] = {
+            "gadgets": hash_G, "message_bytes": hash_M, "batch": hash_B, "witnesses": len(witnesses) + hash_G * 32,
+            "panel_bytes": solver.panel_bytes(hash_B), "ok": True, "digests_checked": hash_G * checked,
+            "launches": {k: v for k, v in launches.items() if v}, "plan_seconds": plan_seconds,
+            f"{kind}_solves_per_sec": rate, "solve_seconds": secs,
+            f"{kind}_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full}
+        del res, solver, matrix
+    torch.cuda.empty_cache()
+
+    # (b) The Merkle-membership program: blake2s leaf, 16 levels of boolean
+    # check, selection (64 solve gates) and sha256, hash-to-field nullifier,
+    # variable-length Keccak signal, Keccak binding; 20 hash launches a solve.
+    # Instance 1 has a path bit of 2 (fails level 0's boolean check), 2 a
+    # memo_len of 233 (fails at the keccak_var opcode), 3 a memo_len of
+    # 2^128 + 100 (its low 128 bits: 100 bytes, solved, as pwg.ACVM reads it),
+    # 4-8 the memo_lens 0, 135, 136, 137, 232 either side of Keccak's rate.
+    depth, memb_B = 16, 8192
+    memb_lens = {2: 233, 3: (1 << 128) + 100, 4: 0, 5: 135, 6: 136, 7: 137, 8: 232}
+    circuit = build_membership_circuit(depth)
+    roles = membership_circuit_roles(depth)
+    cols = membership_inputs(circuit, memb_B)
+    cols[roles["bits"][0]][1] = 2
+    memo_len = roles["memo_len"][0]
+    cols[memo_len] = cols[memo_len].astype(object)
+    for b, n in memb_lens.items():
+        cols[memo_len][b] = n
+    t0 = time.perf_counter()
+    solver = BatchSolver(plan_circuit(circuit))
+    plan_seconds = time.perf_counter() - t0
+    build.reset_launches()
+    reset_plain_digests()
+    res = solver.solve(cols)
+    torch.cuda.synchronize()
+    memb_launches = dict(build.LAUNCHES)
+    for name, n in memb_launches.items():
+        hash_launches[name] += n
+    hash_kernel_launches = {k: memb_launches[k] for k in ("sha256", "blake2s", "keccak")}
+    assert hash_kernel_launches == {"sha256": depth, "blake2s": 2, "keccak": 2}, memb_launches
+    assert memb_launches["level"] > 0 and not any(gadgets.PLAIN_ON_CARD.values()), (
+        memb_launches, gadgets.PLAIN_ON_CARD)
+    want_fail = [int(FAIL_NONE)] * memb_B
+    want_fail[1], want_fail[2] = roles["bool_check_opcodes"][0], roles["keccak_var_opcode"][0]
+    assert res.fail.tolist() == want_fail and res.ok.tolist() == [f == int(FAIL_NONE) for f in want_fail]
+
+    def rows_of(role):  # (B, n) limb 0 of the role's witnesses
+        idx = torch.tensor(roles[role], device=dev)
+        return res.panel.index_select(0, idx)[..., 0].T.cpu().numpy()
+
+    got_leaf, got_root = rows_of("leaf"), rows_of("root")
+    got_nullifier = res.witness_ints(roles["nullifier"][0])
+    stack = lambda role: np.stack([np.asarray(cols[w]).astype(np.uint8) for w in roles[role]], 1)  # noqa: E731
+    secret, bits = stack("secret"), stack("bits")
+    sibs = stack("siblings").reshape(memb_B, depth, 32)
+    ext = cols[roles["ext_nullifier"][0]]
+    for b in range(memb_B):
+        if b == 1:  # the path bit of 2: the gates' own arithmetic
+            want = membership_outputs(columnar_instance(cols, b), depth)
+            leaf, root = want["leaf"], want["root"]
+        else:
+            leaf = cur = host_hashes.blake2s(secret[b].tobytes())
+            for i in range(depth):
+                sib = sibs[b, i].tobytes()
+                cur = host_hashes.sha256(sib + cur if bits[b, i] else cur + sib)
+            root = cur
+        nullifier = int(host_hashes.hash_to_field_128_security(
+            secret[b].tobytes() + FieldElement(int(ext[b])).to_le_bytes()))
+        assert got_leaf[b].astype(np.uint8).tobytes() == leaf, b
+        assert got_root[b].astype(np.uint8).tobytes() == root, b
+        assert got_nullifier[b] == nullifier, b
+    got_signal, got_binding = rows_of("signal"), rows_of("binding")
+    for b in range(512):
+        want = membership_outputs(columnar_instance(cols, b), depth)
+        assert (want["signal"] is None) == (b == 2), b
+        if want["signal"] is not None:
+            assert got_signal[b].astype(np.uint8).tobytes() == want["signal"], b
+            assert got_binding[b].astype(np.uint8).tobytes() == want["binding"], b
+    for b in (0, 3, memb_B - 1):
+        status, acvm = sequential_solve(circuit, columnar_instance(cols, b), None)
+        assert status == "solved", (b, status)
+        got = res.instance_ints(b)
+        solved = list(acvm.finalize())
+        assert len(solved) == circuit.num_vars() - 1 and all(got[int(w)] == int(v) for w, v in solved), b
+    for b in (1, 2):
+        status, acvm = sequential_solve(circuit, columnar_instance(cols, b), None)
+        location = getattr(acvm.error, "opcode_location", None)
+        assert status == "failure" and want_fail[b] == (
+            acvm.instruction_pointer if location is None else location.acir_index), (b, status)
+    # The same circuit with its hashes planned as host stages (instance by
+    # instance through pwg), on 256 instances: the same flags, and the same
+    # panel on every solved instance (a failing one stops at its opcode).
+    host_config = types.SimpleNamespace(field_params=lambda: BN254_FR, device_hash_kernels=False,
+                                        device_brillig_trace=True)
+    sub = {w: a[:256] for w, a in cols.items()}
+    host_stats = SolveStats()
+    host_res = BatchSolver(plan_circuit(circuit, config=host_config)).solve(sub, stats=host_stats)
+    dev_res = solver.solve(sub)
+    assert host_res.ok.tolist() == dev_res.ok.tolist() and host_res.fail.tolist() == dev_res.fail.tolist()
+    solved = torch.from_numpy(dev_res.ok).to(dev)
+    assert torch.equal(host_res.panel[:, solved], dev_res.panel[:, solved])
+    del host_res, dev_res
+    opcodes = len(circuit.opcodes)
+    rate, secs = timed_rate(lambda: solver.solve(cols), opcodes * memb_B, reps=3)
+    timed_stats = SolveStats()
+    solver.solve(cols, stats=timed_stats)
+    state = solver.initial_state(cols)
+    device_rate, device_secs = timed_rate(device_solve_of(solver, state, torch), opcodes * memb_B, reps=3)
+    if want_profile:
+        emit({"profile_hash_membership": profile(device_solve_of(solver, state, torch), device_secs)})
+    memb_groups = {g["kind"]: g for g in hash_groups(solver)}
+    memb_W = res.panel
+    emit({"path_hash": {
+        "card": smi, "gadget_circuits": hash_report,
+        "membership": {
+            "depth": depth, "opcodes": opcodes, "witnesses": circuit.num_vars() - 1, "batch": memb_B,
+            "panel_bytes": solver.panel_bytes(memb_B),
+            "levels": len([lv for seg in solver.segments for lv in seg.levels]),
+            "hash_groups": [(g["kind"], int(g["src_w"].shape[1])) for g in hash_groups(solver)],
+            "ok": True, "failing_instances": {"1": want_fail[1], "2": want_fail[2]},
+            "memo_lens": {str(b): str(n) for b, n in memb_lens.items()},
+            "leaf_root_nullifier_checked": memb_B, "signal_binding_checked": 512,
+            "witness_maps_against_pwg": [0, 3, memb_B - 1],
+            "host_stage_hashes": {"instances": 256, "equal_flags_and_solved_panel": True,
+                                  "host_stage_seconds": host_stats.host_stage_seconds,
+                                  "host_per_instance_stages": host_stats.host_per_instance_stages},
+            "launches": {k: v for k, v in memb_launches.items() if v},
+            "hash_launches": sum(hash_kernel_launches.values()), "plain_digests_on_card": 0,
+            "plan_and_pack_seconds": plan_seconds,
+            "membership_solves_per_sec": rate, "solve_seconds": secs,
+            "membership_solves_per_sec_device": device_rate, "device_solve_seconds": device_secs,
+            "solve_stats": timed_stats.summary()}}})
+
+    # The three kernels against their plain versions at the path's shapes,
+    # tolerance 0.  Bytes: one 32-byte sector a distinct (panel row,
+    # instance) the kernel reads (a keccak_var instance only the rows of its
+    # first length bytes) and one an output row written, and keccak_var's
+    # int32 lengths; operations from the round structure of each kernel,
+    # gadgets.OPS_PER_BLOCK.
+    def hash_work(kind, buf, B, length=None):
+        """(bytes, int32 operations, how the operations were counted)."""
+        src_w = buf["src_w"].cpu().to(torch.int64)
+        G, M = src_w.shape
+        rows = torch.unique(src_w)
+        if length is None:
+            reads = B * rows.numel()
+        else:  # instance b reads row r iff some gadget g has it at a j < length[g, b]
+            at = torch.where(src_w[:, :, None] == rows, torch.arange(M)[None, :, None], M)
+            first = at.amin(1)  # (G, rows)
+            reads = (length.cpu().to(torch.int64)[:, :, None] > first[:, None, :]).any(0).sum().item()
+        moved = 32 * (reads + G * B * buf["out_idx"].shape[1]) + (4 * G * B if length is not None else 0)
+        per = gadgets.OPS_PER_BLOCK[gadgets.KERNEL_OF[kind]]
+        if kind == "sha256":
+            blocks = G * B * ((M + 8) // 64 + 1)
+            how = f"{per:,} a block x ((M + 8) // 64 + 1) blocks"
+        elif kind in ("blake2s", "hash_to_field"):
+            blocks = G * B * max(1, -(-M // 64))
+            how = f"{per:,} a block x max(1, ceil(M / 64)) blocks"
+        else:
+            blocks = ((length.to(torch.int64) // 136 + 1).sum().item() if length is not None
+                      else G * B * (M // 136 + 1))
+            how = f"{per:,} a permutation x {blocks} permutations (length // 136 + 1 each)"
+        ops = per * blocks
+        if kind == "hash_to_field":
+            ops += G * B * gadgets.TO_FIELD_OPS
+            how += f" + {gadgets.TO_FIELD_OPS} for the subtractions"
+        return moved, ops, how + f"; {reads} (row, instance) sectors read"
+
+    def hash_kernel_row(kind, W, buf, length=None, modulus=None):
+        G, M = buf["src_w"].shape
+        B = W.shape[1]
+        tables = (buf["src_w"], buf["src_limb"], buf["src_shift"], buf["out_idx"])
+        run = lambda X: gadgets.hash_rows(kind, X, *tables, length=length, modulus=modulus)  # noqa: E731
+        plain = lambda X: gadgets.hash_rows_plain(kind, X, *tables, length, modulus)  # noqa: E731
+        got, want = run(W.clone()), plain(W.clone())
+        torch.cuda.synchronize()
+        err = 0 if torch.equal(got, want) else max_abs_err(got, want)
+        del got, want
+        scratch = W.clone()
+        moved, ops, how = hash_work(kind, buf, B, length)
+        b_ms, b_by = bound(moved, ops)
+        row = dict(shape=f"{kind}: G={G} x B={B} x M={M}", max_abs_err=err,
+                   ms=time_ms(lambda: run(W)), ms_queued=time_ms(lambda: run(W), calls=10),
+                   plain_ms=time_ms(lambda: plain(scratch), 3, warmup=0),
+                   bound_ms=b_ms, bound_by=b_by, bound_bytes=moved, int32_ops=ops, ops_counted=how)
+        del scratch
+        return row
+
+    def matrix_kernel_row(fn, plain_fn, msg):
+        got, want = fn(msg), plain_fn(msg)
+        torch.cuda.synchronize()
+        B, M = msg.shape
+        per = gadgets.OPS_PER_BLOCK["blake2s"]
+        b_ms, b_by = bound(B * (M + 32) * 4, B * per * max(1, -(-M // 64)))
+        return dict(shape=f"(B, M) = ({B}, {M}) int32 matrix", max_abs_err=max_abs_err(got, want),
+                    ops_counted=f"{per:,} a block x max(1, ceil(M / 64)) blocks; bytes 4 (M + 32) an instance",
+                    ms=time_ms(lambda: fn(msg)), ms_queued=time_ms(lambda: fn(msg), calls=10),
+                    plain_ms=time_ms(lambda: plain_fn(msg), 3, warmup=0), bound_ms=b_ms, bound_by=b_by)
+
+    kv = memb_groups["keccak_var"]
+    size = memb_W.index_select(0, kv["size_w"])[..., 0].to(torch.int64) & 0xFFFFFFFF
+    kv_length = size.clamp(max=kv["src_w"].shape[1]).to(torch.int32)
+    rows = {
+        "sha256": [("gadgets", "sha256", *hash_states["sha256"], None, None),
+                   ("membership_level", "sha256", memb_W, memb_groups["sha256"], None, None)],
+        "keccak": [("gadgets_fixed_64", "keccak256", *hash_states["keccak256"], None, None),
+                   ("membership_var_232", "keccak_var", memb_W, kv, kv_length, None)],
+        "blake2s": [("membership_leaf_32", "blake2s", memb_W, memb_groups["blake2s"], None, None),
+                    ("membership_to_field_64", "hash_to_field", memb_W, memb_groups["hash_to_field"],
+                     None, P),
+                    ("gadgets_64", "blake2s", *hash_states["blake2s"], None, None)],
+    }
+    replaces = {"sha256": "acvm_tpu/tpu/gadgets.py:74", "keccak": "acvm_tpu/tpu/gadgets.py:244",
+                "blake2s": "acvm_tpu/tpu/gadgets.py:157"}
+    for name, shapes in rows.items():
+        measured = {label: hash_kernel_row(kind, W, buf, length, modulus)
+                    for label, kind, W, buf, length, modulus in shapes}
+        first = measured.pop(shapes[0][0])
+        kernels[name] = dict(name=name, route="cuda", source=f"acvm_tpu_torch/csrc/{name}.cu",
+                             replaces=replaces[name], **first, library_ms=None,
+                             **{label: row for label, row in measured.items()})
+    kernels["keccak"]["also_replaces"] = ["acvm_tpu/tpu/gadgets.py:274", "acvm_tpu/tpu/gadgets.py:322"]
+    kernels["blake2s"]["also_replaces"] = ["acvm_tpu/tpu/batch_solver.py:451"]
+    schnorr_msg = torch.from_numpy(np.random.default_rng(8).integers(0, 256, size=(2048, 64))).to(dev)
+    kernels["blake2s"]["schnorr_2048x64"] = matrix_kernel_row(
+        gadgets.blake2s_digest, gadgets.blake2s_digest_plain, schnorr_msg)
+    assert all(kernels[name]["max_abs_err"] == 0 and all(
+        v["max_abs_err"] == 0 for v in kernels[name].values() if isinstance(v, dict))
+        for name in rows), "hash kernel against its plain version"
+    del res, solver, state, memb_W, hash_states
+    torch.cuda.empty_cache()
+
+    # -- 16. kernels, 17. card, 18. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
-             "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches}
+             "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches,
+             "hash": hash_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]

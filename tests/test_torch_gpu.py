@@ -8,6 +8,7 @@ import nothing of JAX:
 """
 
 import hashlib
+import types
 
 import numpy as np
 import pytest
@@ -467,3 +468,106 @@ def test_brillig_vm_solver_on_card_equals_solver_on_cpu(card):
     assert torch.equal(gpu.panel.cpu(), cpu.panel)
     assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
     assert gpu.fail.tolist() == [fails.get(b, int(FAIL_NONE)) for b in range(256)]
+
+
+@pytest.mark.parametrize("M", [0, 1, 32, 55, 56, 64, 65, 119, 120, 135, 136, 137, 232, 272])
+def test_hash_kernels_equal_plain_versions(card, M):
+    """Each digest kernel on a (B, M) byte matrix against its plain version
+    and the host hashes; keccak's var form over lengths 0 ... M."""
+    from acvm_tpu_torch.blackbox.hashes import keccak256
+    from acvm_tpu_torch.gpu import gadgets
+
+    B = 300  # a ragged batch: not a multiple of the block
+    msg = torch.from_numpy(np.random.default_rng(M).integers(0, 256, size=(B, M))).to(card)
+    build.reset_launches()
+    for fn, plain, host in ((gadgets.sha256_digest, gadgets.sha256_digest_plain, hashlib.sha256),
+                            (gadgets.blake2s_digest, gadgets.blake2s_digest_plain, hashlib.blake2s),
+                            (gadgets.keccak256_digest, gadgets.keccak256_digest_plain, None)):
+        got = fn(msg)
+        assert torch.equal(got, plain(msg)), fn.__name__
+        host = host or (lambda m: types.SimpleNamespace(digest=lambda: keccak256(m)))
+        for b in (0, B - 1):
+            assert bytes(got[b].tolist()) == host(bytes(msg[b].tolist())).digest(), fn.__name__
+    length = torch.from_numpy(np.random.default_rng(M + 1).integers(0, M + 1, size=B)).to(card)
+    length[:2] = torch.tensor([0, M])
+    got = gadgets.keccak256_var_digest(msg, length)
+    assert torch.equal(got, gadgets.keccak256_var_digest_plain(msg, length))
+    assert bytes(got[7].tolist()) == keccak256(bytes(msg[7, :int(length[7])].tolist()))
+    assert (build.LAUNCHES["sha256"], build.LAUNCHES["blake2s"], build.LAUNCHES["keccak"]) == (1, 1, 2)
+
+
+def test_keccak_var_length_past_the_message_raises_before_launch(card):
+    """A length of M + 1 on the card raises, in both wrappers, and launches
+    no kernel that would read past the message."""
+    from acvm_tpu_torch.gpu import gadgets
+
+    M = 232
+    msg = torch.zeros((4, M), dtype=torch.int32, device=card)
+    length = torch.tensor([0, 1, M, M + 1], dtype=torch.int32, device=card)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="lengths must lie in"):
+        gadgets.keccak256_var_digest(msg, length)
+    W = torch.zeros((M + 40, 4, 8), dtype=torch.int32, device=card)
+    tables = [torch.zeros((1, M), dtype=torch.int32, device=card) for _ in range(3)]
+    out_idx = torch.arange(M, M + 32, dtype=torch.int32, device=card).reshape(1, 32)
+    with pytest.raises(ValueError, match="lengths must lie in"):
+        gadgets.hash_rows("keccak_var", W, *tables, out_idx, length=length.reshape(1, 4))
+    assert build.LAUNCHES["keccak"] == 0
+
+
+@pytest.mark.parametrize("params", [BN254_FR, BLS12_381_FR], ids=lambda p: p.name)
+def test_hash_rows_kernels_equal_plain_versions(card, params):
+    """Each kernel off a panel, through random (row, limb, shift) tables,
+    against hash_rows_plain: every kind, hash-to-field in both fields."""
+    from acvm_tpu_torch.gpu import gadgets
+
+    rng = np.random.default_rng(11)
+    NW, B, G = 140, 333, 3
+    for kind, M, n_out in (("sha256", 64, 32), ("blake2s", 33, 32), ("keccak256", 140, 32),
+                           ("keccak_var", 232, 32), ("hash_to_field", 64, 1)):
+        W = torch.from_numpy(rng.integers(-2**31, 2**31, size=(NW, B, 8)).astype(np.int32))
+        tables = [torch.from_numpy(t.astype(np.int32)) for t in (
+            rng.integers(0, 30, size=(G, M)), rng.integers(0, 8, size=(G, M)),
+            8 * rng.integers(0, 4, size=(G, M)))]
+        out_idx = torch.from_numpy(rng.permutation(np.arange(30, NW))[:G * n_out].reshape(G, n_out)
+                                   .astype(np.int32))
+        length = (torch.from_numpy(rng.integers(0, M + 1, size=(G, B)).astype(np.int32))
+                  if kind == "keccak_var" else None)
+        modulus = params.modulus if kind == "hash_to_field" else None
+        want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length, modulus)
+        on_card = [t.to(card) for t in (W, *tables, out_idx)]
+        got = gadgets.hash_rows(kind, *on_card, length=None if length is None else length.to(card),
+                                modulus=modulus)
+        assert torch.equal(got.cpu(), want), kind
+
+
+def test_hash_solver_on_card_equals_solver_on_cpu(card):
+    """The membership program (depth 2) over 70 instances, three of them at
+    the edges (a path bit of 2, memo_len 233, memo_len 2^128 + 100), and the
+    gadget circuits: one hash launch a group, no plain digest, panel and
+    flags equal to the CPU solve."""
+    from acvm_tpu_torch.gpu import gadgets
+    from acvm_tpu_torch.utils import (build_membership_circuit, membership_circuit_roles,
+                                      membership_inputs)
+
+    circuit, roles = build_membership_circuit(2), membership_circuit_roles(2)
+    cols = {w: a.astype(object) for w, a in membership_inputs(circuit, 70).items()}
+    cols[roles["bits"][0]][1] = 2
+    cols[roles["memo_len"][0]][2] = 233
+    cols[roles["memo_len"][0]][3] = (1 << 128) + 100
+    cases = [(circuit, cols, {"blake2s": 2, "sha256": 2, "keccak": 2})]
+    for kind, name in (("sha256", "sha256"), ("blake2s", "blake2s"), ("keccak256", "keccak")):
+        gadget = build_gadget_circuit(kind, 3, 64)
+        cases.append((gadget, gadget_inputs_columnar(gadget, 70, kind), {name: 1}))
+    for circ, inputs, launches in cases:
+        plan = plan_circuit(circ)
+        build.reset_launches()
+        for k in gadgets.PLAIN_ON_CARD:
+            gadgets.PLAIN_ON_CARD[k] = 0
+        gpu = BatchSolver(plan).solve(inputs)
+        assert {k: build.LAUNCHES[k] for k in launches} == launches, build.LAUNCHES
+        assert not any(gadgets.PLAIN_ON_CARD.values()), gadgets.PLAIN_ON_CARD
+        cpu = BatchSolver(plan, device="cpu").solve(inputs)
+        assert torch.equal(gpu.panel.cpu(), cpu.panel)
+        assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    assert gpu is not None and cpu.ok.all()

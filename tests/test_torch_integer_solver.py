@@ -242,13 +242,24 @@ def unported_opcode(kind):
                                        ("brillig_jump", "host stages"),
                                        ("brillig_foreign_call", "host stages")])
 def test_other_unported_kinds_still_raise(kind, what):
-    """Hashes and ECDSA planned for the device still raise.  The two Brillig
-    blocks are host stages: the jump runs on the device Brillig VM (its plain
-    version here), as the JAX package's host path runs it, and equals the
-    per-instance route and pwg.ACVM; the foreign call runs on the host, and
-    with no handler its instance fails there."""
+    """ECDSA planned for the device still raises.  The SHA-256 opcode solves
+    on the device's hash level (the plain digest here) and equals pwg.ACVM.
+    The two Brillig blocks are host stages: the jump runs on the device
+    Brillig VM (its plain version here), as the JAX package's host path runs
+    it, and equals the per-instance route and pwg.ACVM; the foreign call runs
+    on the host, and with no handler its instance fails there."""
     circuit = Circuit(current_witness_index=40, opcodes=[unported_opcode(kind)],
                       private_parameters={Witness(1)})
+    if kind == "hashes":
+        res = BatchSolver(plan_circuit(circuit), device="cpu").solve([{1: 3}, {1: 4}])
+        assert res.ok.all() and (res.fail == FAIL_NONE).all()
+        for b, value in enumerate((3, 4)):
+            acvm = port_pwg.ACVM(GrumpkinSolver(), circuit.opcodes,
+                                 WitnessMap({Witness(1): FieldElement(value)}))
+            assert acvm.solve() == port_pwg.ACVMStatus.SOLVED
+            solved = list(acvm.finalize())
+            assert len(solved) == 33 and all(res.instance_ints(b)[int(w)] == int(v) for w, v in solved)
+        return
     if kind == "brillig_jump":
         stats, per_stats = SolveStats(), SolveStats()
         res = BatchSolver(plan_circuit(circuit), device="cpu").solve([{1: 3}, {1: 4}], stats=stats)
