@@ -3,7 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C launcher.  ``nvcc``
 compiles it for ``sm_90a`` into ``acvm_tpu_torch/_build/<name>-<hash>.so`` at
 first use (the hash covers the sources and the flags, so an edited source
-rebuilds); ``ctypes`` loads it.  Nothing is built or loaded at import time, and
+rebuilds); ``ctypes`` loads it.  A kernel of :data:`VARIANTS` is another
+kernel's source built with extra defines: the wide-field modes (p > 2^255) of
+``mul``, ``pow`` and ``batch_inv``, named ``<name>_wide``.  Nothing is built or loaded at import time, and
 a failed build raises: there is no other route for a CUDA tensor.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  A wrapper adds one where
@@ -25,7 +27,14 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
-           "divmod", "brillig_vm", "sha256", "keccak", "blake2s")
+           "divmod", "brillig_vm", "sha256", "keccak", "blake2s", "mul_wide", "pow_wide",
+           "batch_inv_wide", "ecdsa_mul")
+# Kernels built from another kernel's source: name -> (source, defines).
+VARIANTS = {
+    "mul_wide": ("mul", ("ACVM_WIDE",)),
+    "pow_wide": ("pow", ("ACVM_WIDE",)),
+    "batch_inv_wide": ("batch_inv", ("ACVM_WIDE",)),
+}
 PROBES = ("imad_rate", "mont_probe")
 HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh", "hash.cuh")
 NVCC_FLAGS = [
@@ -74,12 +83,17 @@ _SIGNATURES = {
     "sha256": ("acvm_sha256", _HASH_ARGS + [_P]),
     "keccak": ("acvm_keccak", _HASH_ARGS + [_P, _P]),
     "blake2s": ("acvm_blake2s", _HASH_ARGS + [_P, _I, _P]),
+    # u1, u2, Q (3, B, 8), the generator's window table, out (3, B, 8),
+    # verifications, a = -3, field, stream.
+    "ecdsa_mul": ("acvm_ecdsa_mul", [_P, _P, _P, _P, _P, _LL, _I, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain
     # length, variant, threads a block, field, stream.
     "mont_probe": ("acvm_mont_probe", [_P, _P, _P, _LL, _I, _I, _I, _P, _P]),
 }
+for _name, (_source, _) in VARIANTS.items():
+    _SIGNATURES[_name] = _SIGNATURES[_source]
 
 
 def reset_launches() -> None:
@@ -88,7 +102,13 @@ def reset_launches() -> None:
 
 
 def source_path(name: str) -> Path:
-    return CSRC / f"{name}.cu"
+    return CSRC / f"{VARIANTS.get(name, (name,))[0]}.cu"
+
+
+def variant_flags(name: str) -> List[str]:
+    """The ``-D`` switches kernel ``name`` is built with (none for a kernel
+    built from its own source)."""
+    return [f"-D{d}" for d in VARIANTS.get(name, ("", ()))[1]]
 
 
 def _nvcc() -> str:
@@ -111,6 +131,7 @@ def lib_path(name: str, defines: Iterable[str] = (), source: Optional[Path] = No
     ``source`` (another tree's copy) hashes the headers its tree has; the
     package's own kernels need every one."""
     base = source.parent if source else CSRC
+    defines = [*variant_flags(name), *defines]
     h = hashlib.sha256()
     for path in (source or source_path(name), *(base / header for header in HEADERS)):
         if source is None or path.exists():
@@ -131,7 +152,7 @@ def build(names: Iterable[str] = KERNELS, extra_flags: List[str] = ()) -> Dict[s
         if out.exists() and not extra_flags:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC),
+        cmd = [_nvcc(), *NVCC_FLAGS, *variant_flags(name), *extra_flags, "-I", str(CSRC),
                "-o", str(tmp), str(source_path(name))]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
@@ -180,7 +201,8 @@ def load_variant(name: str, defines: Iterable[str], source: Optional[Path] = Non
     source = Path(source) if source else source_path(name)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(source.parent), "-o", str(out), str(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *variant_flags(name), *flags, "-I", str(source.parent),
+               "-o", str(out), str(source)]
         done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if done.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{done.stdout}")

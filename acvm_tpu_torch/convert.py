@@ -10,7 +10,10 @@ table ``(W, 16, 3, 8)`` and a memory block ``(size, B, 8)``.  This package
 holds 8 x 32-bit limbs as int32 (uint32 bit patterns) and one witness-major
 panel ``(NW, B, 8)``.  The values are the same numbers either way (Montgomery
 radix 2^256 on both sides), so every function here is a pure relayout;
-nothing is rescaled.
+nothing is rescaled.  That holds for any value below 2^256: the wide fields'
+elements (the secp256k1 / secp256r1 base fields and group orders, p > 2^255)
+and the ECDSA generator tables (``(64, 16, 3, 16)`` there, ``(64, 16, 3, 8)``
+here: ``window_table_from_jax``) carry over as the narrow ones do.
 
 All functions take and return numpy arrays: hand the result to
 ``torch.from_numpy`` or ``jnp.asarray`` as needed.

@@ -23,7 +23,8 @@
 // move per value (a read twice, the prefix written, read back and
 // overwritten).  Bound by the integer pipes when lanes fill the card; the
 // chunk size trades chains (n / g of them) against a lane's dependent depth
-// (3g + ~305 products).  out must not alias a.
+// (3g + ~305 products).  out must not alias a.  Built twice: as `batch_inv`
+// over the narrow field and, with -DACVM_WIDE, as `batch_inv_wide`.
 #include "pow.cuh"
 
 // Each step's loads are issued one step ahead of its products: at the dyn
@@ -32,7 +33,7 @@
 // the step, 0.49-0.51 with loads ahead; PERF.md).
 __global__ void __launch_bounds__(ACVM_POW_THREADS)
 batch_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long G,
-                 long long L, int g, const __grid_constant__ PowSchedule s, const Field f) {
+                 long long L, int g, const __grid_constant__ PowSchedule s, const KernelField f) {
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long chunks = (G + g - 1) / g;
     if (t >= chunks * L) return;
@@ -112,6 +113,6 @@ extern "C" int acvm_batch_inv(const void* a, void* out, long long G, long long L
     const long long blocks = (lanes + threads - 1) / threads;
     batch_inv_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (uint32_t*)out, G, L, g, pow_schedule_from_words(schedule_words),
-        field_from_words(field_words));
+        field_from_words_as<KernelField>(field_words));
     return (int)cudaGetLastError();
 }

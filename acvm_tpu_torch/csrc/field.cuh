@@ -3,8 +3,18 @@
 //
 // The field (modulus, R mod p, -p^-1 mod 2^32) travels as a kernel argument,
 // so it sits in the constant bank and every limb of p is an immediate-like
-// operand after unrolling.  Works for any odd modulus p with 2p < 2^256
-// (BN254 Fr and BLS12-381 Fr).
+// operand after unrolling.
+//
+// Two modes, two types, so that a kernel states at compile time which one it
+// runs and no value of one type converts to the other:
+//
+// * `Field`: any odd modulus p with 2p < 2^256 (BN254 Fr and BLS12-381 Fr).
+//   A sum of two elements and a product's running sum fit eight limbs.
+// * `WideField`: 2^255 < p < 2^256 (the base fields and the group orders of
+//   secp256k1 and secp256r1).  a + b may carry out of limb 7, and so may the
+//   product's running sum: the modular add and the product keep that carry
+//   as a ninth word and hand it to the conditional subtract.  `mont_mul_sum`
+//   has no wide form ((T + 1) p < 2^256 holds for no T).
 #pragma once
 
 #include <cstdint>
@@ -13,14 +23,23 @@
 #define ACVM_LIMBS 8
 
 struct Field {
+    static constexpr bool wide = false;
     uint32_t p[ACVM_LIMBS];   // modulus
     uint32_t r[ACVM_LIMBS];   // R mod p: the Montgomery form of 1
     uint32_t n0;              // -p^-1 mod 2^32
 };
 
+struct WideField {
+    static constexpr bool wide = true;
+    uint32_t p[ACVM_LIMBS];
+    uint32_t r[ACVM_LIMBS];
+    uint32_t n0;
+};
+
 // Host side: the wrapper passes 17 words [p | r | n0].
-static inline Field field_from_words(const uint32_t* w) {
-    Field f;
+template <class F>
+static inline F field_from_words_as(const uint32_t* w) {
+    F f;
     for (int i = 0; i < ACVM_LIMBS; ++i) {
         f.p[i] = w[i];
         f.r[i] = w[ACVM_LIMBS + i];
@@ -28,6 +47,16 @@ static inline Field field_from_words(const uint32_t* w) {
     f.n0 = w[2 * ACVM_LIMBS];
     return f;
 }
+
+static inline Field field_from_words(const uint32_t* w) { return field_from_words_as<Field>(w); }
+
+// The field type of a source built in both modes (mul, pow, batch_inv):
+// `-DACVM_WIDE` selects the wide one.
+#ifdef ACVM_WIDE
+typedef WideField KernelField;
+#else
+typedef Field KernelField;
+#endif
 
 // Two 16-byte loads / stores per element (elements are 32-byte aligned).
 __device__ __forceinline__ void load_fe(uint32_t x[ACVM_LIMBS], const uint32_t* src) {
@@ -101,6 +130,18 @@ __device__ __forceinline__ void cond_sub(uint32_t x[ACVM_LIMBS], const Field& f)
     for (int i = 0; i < ACVM_LIMBS; ++i) x[i] = borrow ? x[i] : d[i];
 }
 
+// Wide mode: the value is top * 2^256 + x with top in {0, 1} and the value
+// < 2p.  Where top is set the value is >= 2^256 > p, and the difference mod
+// 2^256 is the value less p.
+__device__ __forceinline__ void cond_sub(uint32_t x[ACVM_LIMBS], uint32_t top,
+                                         const WideField& f) {
+    uint32_t d[ACVM_LIMBS];
+    const uint32_t borrow = sub_limbs(d, x, f.p);
+    const bool keep = borrow && !top;
+#pragma unroll
+    for (int i = 0; i < ACVM_LIMBS; ++i) x[i] = keep ? x[i] : d[i];
+}
+
 // r = a + b mod p for canonical a, b.  a + b < 2p < 2^256: no carry out.
 __device__ __forceinline__ void add_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
                                         const uint32_t b[ACVM_LIMBS], const Field& f) {
@@ -108,9 +149,18 @@ __device__ __forceinline__ void add_mod(uint32_t r[ACVM_LIMBS], const uint32_t a
     cond_sub(r, f);
 }
 
-// r = a - b mod p for canonical a, b.
+// Wide mode: a + b < 2p may pass 2^256; the carry goes to the subtract.
+__device__ __forceinline__ void add_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
+                                        const uint32_t b[ACVM_LIMBS], const WideField& f) {
+    const uint32_t carry = add_limbs(r, a, b);
+    cond_sub(r, carry, f);
+}
+
+// r = a - b mod p for canonical a, b (either mode: the difference plus p
+// where it borrowed is < p, and the sum's carry out is the borrow's 2^256).
+template <class F>
 __device__ __forceinline__ void sub_mod(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
-                                        const uint32_t b[ACVM_LIMBS], const Field& f) {
+                                        const uint32_t b[ACVM_LIMBS], const F& f) {
     uint32_t d[ACVM_LIMBS], e[ACVM_LIMBS];
     const uint32_t borrow = sub_limbs(d, a, b);
     add_limbs(e, d, f.p);
@@ -255,6 +305,113 @@ __device__ __forceinline__ void mont_mul(uint32_t r[ACVM_LIMBS], const uint32_t 
     // The last row ran with the names swapped: `odd` holds positions 0..7.
     merge_rows(r, even, odd);
     if (reduce) cond_sub(r, f);
+}
+
+// ---------------------------------------------------------------------------
+// The wide product.  The same rows, and one more word: for p > 2^255 the
+// running sum (< (a + p) * 2^32 before a row's division) may pass the nine
+// limb positions 0..8 of the two accumulators, so a word `top` holds position
+// 9.  Every chain that ended at position 8 now carries into it, and the shift
+// moves it down to position 8, the top of the new odd accumulator.  The sum is
+// < 2^289, so `top` is 0 or 1 and nothing leaves it.
+// ---------------------------------------------------------------------------
+
+// mad_even_top, with the carry out of acc_top passed on to `top`.
+__device__ __forceinline__ void mad_even_top_w(uint32_t acc[8], uint32_t& acc_top,
+                                               uint32_t& top, const uint32_t* x, uint32_t y) {
+    asm("mad.lo.cc.u32 %0, %10, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %10, %14, %1;\n\t"
+        "madc.lo.cc.u32 %2, %11, %14, %2;\n\t"
+        "madc.hi.cc.u32 %3, %11, %14, %3;\n\t"
+        "madc.lo.cc.u32 %4, %12, %14, %4;\n\t"
+        "madc.hi.cc.u32 %5, %12, %14, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, %14, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %14, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+          "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(acc_top), "+r"(top)
+        : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// shift_mad_odd, with position 9 moving down onto the top product's high word
+// and that word's carry becoming the new `top`.
+__device__ __forceinline__ void shift_mad_odd_w(uint32_t& hi0, uint32_t lo[8], uint32_t& top,
+                                                const uint32_t* x, uint32_t y) {
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "madc.lo.cc.u32 %1, %10, %14, %3;\n\t"
+        "madc.hi.cc.u32 %2, %10, %14, %4;\n\t"
+        "madc.lo.cc.u32 %3, %11, %14, %5;\n\t"
+        "madc.hi.cc.u32 %4, %11, %14, %6;\n\t"
+        "madc.lo.cc.u32 %5, %12, %14, %7;\n\t"
+        "madc.hi.cc.u32 %6, %12, %14, %8;\n\t"
+        "madc.lo.cc.u32 %7, %13, %14, 0;\n\t"
+        "madc.hi.cc.u32 %8, %13, %14, %9;\n\t"
+        "addc.u32 %9, 0, 0;"
+        : "+r"(hi0), "+r"(lo[0]), "+r"(lo[1]), "+r"(lo[2]), "+r"(lo[3]),
+          "+r"(lo[4]), "+r"(lo[5]), "+r"(lo[6]), "+r"(lo[7]), "+r"(top)
+        : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// One wide row: mont_row with `top` threaded through.  The odd chain's carry
+// out of position 8 goes to `top`: mad_even_top_w on the odd accumulator with
+// `top` as its top word and a zero word, `none`, above that (the bound keeps
+// it zero).
+template <bool FIRST>
+__device__ __forceinline__ void mont_row_w(uint32_t even[8], uint32_t odd[8], uint32_t& top,
+                                           const uint32_t a[ACVM_LIMBS], uint32_t bi,
+                                           const WideField& f) {
+    if (FIRST) {
+#pragma unroll
+        for (int j = 0; j < ACVM_LIMBS; j += 2) {
+            const uint64_t e = (uint64_t)a[j] * bi, o = (uint64_t)a[j + 1] * bi;
+            even[j] = (uint32_t)e;
+            even[j + 1] = (uint32_t)(e >> 32);
+            odd[j] = (uint32_t)o;
+            odd[j + 1] = (uint32_t)(o >> 32);
+        }
+        top = 0;
+    } else {
+        shift_mad_odd_w(even[0], odd, top, a + 1, bi);
+        mad_even_top_w(even, odd[7], top, a, bi);
+    }
+    const uint32_t m = even[0] * f.n0;
+    uint32_t none = 0;
+    mad_even_top_w(odd, top, none, f.p + 1, m);
+    mad_even_top_w(even, odd[7], top, f.p, m);
+}
+
+// Montgomery product a * b * R^-1 over a wide field, canonical: any a < p and
+// any 256-bit b give a result < a + p < 2p, which the conditional subtract
+// (with the ninth word) brings below p.  r may alias a or b.
+__device__ __forceinline__ void mont_mul(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
+                                         const uint32_t b[ACVM_LIMBS], const WideField& f) {
+    uint32_t even[8], odd[8], top;
+    mont_row_w<true>(even, odd, top, a, b[0], f);
+    mont_row_w<false>(odd, even, top, a, b[1], f);
+#pragma unroll
+    for (int i = 2; i < ACVM_LIMBS; i += 2) {
+        mont_row_w<false>(even, odd, top, a, b[i], f);
+        mont_row_w<false>(odd, even, top, a, b[i + 1], f);
+    }
+    // r, r8 = even + (odd >> 32) + top * 2^256.
+    uint32_t r8;
+    asm("add.cc.u32 %0, %9, %17;\n\t"
+        "addc.cc.u32 %1, %10, %18;\n\t"
+        "addc.cc.u32 %2, %11, %19;\n\t"
+        "addc.cc.u32 %3, %12, %20;\n\t"
+        "addc.cc.u32 %4, %13, %21;\n\t"
+        "addc.cc.u32 %5, %14, %22;\n\t"
+        "addc.cc.u32 %6, %15, %23;\n\t"
+        "addc.cc.u32 %7, %16, 0;\n\t"
+        "addc.u32 %8, %24, 0;"
+        : "=&r"(r[0]), "=&r"(r[1]), "=&r"(r[2]), "=&r"(r[3]),
+          "=&r"(r[4]), "=&r"(r[5]), "=&r"(r[6]), "=&r"(r[7]), "=&r"(r8)
+        : "r"(even[0]), "r"(even[1]), "r"(even[2]), "r"(even[3]),
+          "r"(even[4]), "r"(even[5]), "r"(even[6]), "r"(even[7]),
+          "r"(odd[1]), "r"(odd[2]), "r"(odd[3]), "r"(odd[4]),
+          "r"(odd[5]), "r"(odd[6]), "r"(odd[7]), "r"(top));
+    cond_sub(r, r8, f);
 }
 
 // r = (sum over the terms t in LIVE of a[t] * b[t]) * R^-1: a sum of products

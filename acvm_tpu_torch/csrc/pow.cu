@@ -6,11 +6,13 @@
 // on the host and passed in the constant bank.  About 311 products per 64 bytes
 // moved: bound by the integer pipes once the card is full (n above ~2^15), by
 // one chain's latency below that.  With e = p - 2 this is the field inverse.
+// Built twice: as `pow` over the narrow field and, with -DACVM_WIDE, as
+// `pow_wide` over a wide one (ECDSA's s^-1 mod n and Z^-1 mod p).
 #include "pow.cuh"
 
 __global__ void __launch_bounds__(ACVM_POW_THREADS)
 mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n,
-                const __grid_constant__ PowSchedule s, const Field f) {
+                const __grid_constant__ PowSchedule s, const KernelField f) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     uint32_t base[ACVM_LIMBS], acc[ACVM_LIMBS];
@@ -31,6 +33,6 @@ extern "C" int acvm_mont_pow(const void* a, void* out, long long n,
     const long long blocks = (n + threads - 1) / threads;
     mont_pow_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (uint32_t*)out, n, pow_schedule_from_words(schedule_words),
-        field_from_words(field_words));
+        field_from_words_as<KernelField>(field_words));
     return (int)cudaGetLastError();
 }

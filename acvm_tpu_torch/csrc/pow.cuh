@@ -50,8 +50,10 @@ __device__ __forceinline__ void copy_fe(uint32_t dst[ACVM_LIMBS], const uint32_t
 
 // acc = a^e for the schedule s of e; a canonical, acc canonical, acc != a.
 // e = 0 gives R (a^0 = 1) whatever a is: callers that map 0 to 0 mask after.
+// F is Field or WideField: the chain is the same, the product is the mode's.
+template <class F>
 __device__ __forceinline__ void pow_chain(uint32_t acc[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
-                                          const PowSchedule& s, const Field& f) {
+                                          const PowSchedule& s, const F& f) {
     if (s.first < 0) {
 #pragma unroll
         for (int j = 0; j < ACVM_LIMBS; ++j) acc[j] = f.r[j];

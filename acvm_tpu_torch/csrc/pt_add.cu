@@ -47,7 +47,7 @@ pt_add_kernel(const PointView P, const PointView Q, uint32_t* out, long long o_p
     load_fe(x, p);
     load_fe(y, p + P.coord);
     load_fe(z, p + 2 * P.coord);
-    ec_add(x, y, z, q, q + Q.coord, q + 2 * Q.coord, f);
+    ec_add<0>(x, y, z, q, q + Q.coord, q + 2 * Q.coord, f);
     store_fe(o, x);
     store_fe(o + o_coord, y);
     store_fe(o + 2 * o_coord, z);

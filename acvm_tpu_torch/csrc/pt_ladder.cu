@@ -42,8 +42,8 @@ pt_ladder_kernel(const uint32_t* __restrict__ base, long long b_coord, long long
         const uint32_t word = k[limb];
 #pragma unroll 1
         for (int bit = 31; bit >= 0; --bit) {
-            ec_dbl(x, y, z, f);
-            if ((word >> bit) & 1u) ec_add(x, y, z, q, q + b_coord, q + 2 * b_coord, f);
+            ec_dbl<0>(x, y, z, f);
+            if ((word >> bit) & 1u) ec_add<0>(x, y, z, q, q + b_coord, q + 2 * b_coord, f);
         }
     }
     uint32_t* o = out + b * o_inst;

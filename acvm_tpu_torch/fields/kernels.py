@@ -36,6 +36,13 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
   products of quadratic terms multiplied before the call by ``mont_mul_v1``.
   Same bound as ``mont_dot``; its extra cost is the product panel's trip
   through device memory.
+
+``mont_mul``, ``mont_pow`` and ``mont_batch_inv`` serve both field modes:
+a narrow field (2p < 2^256: BN254 Fr, BLS12-381 Fr) launches ``mul`` /
+``pow`` / ``batch_inv``, a wide one (2^255 < p < 2^256: the base fields and
+group orders of secp256k1 and secp256r1) the ``*_wide`` build of the same
+source, whose sums and products keep a ninth word.  Every other kernel here
+is narrow only and refuses a wide field (:func:`require_narrow`).
 """
 
 from __future__ import annotations
@@ -92,19 +99,33 @@ def n0_inv32(params: FieldParams) -> int:
     return (-pow(params.modulus, -1, 1 << 32)) % (1 << 32)
 
 
+def is_wide(params: FieldParams) -> bool:
+    """2p >= 2^256: sums and Montgomery products need a ninth word (the wide
+    mode of the JAX ``LimbContext``)."""
+    return 2 * params.modulus >= 1 << 256
+
+
 @lru_cache(maxsize=None)
 def field_words(params: FieldParams) -> np.ndarray:
-    """The 17 uint32 words [p | R mod p | n0] every C launcher takes."""
-    if 2 * params.modulus >= 1 << 256:
-        raise NotImplementedError(
-            f"field {params.name}: moduli with 2p >= 2^256 (the wide mode of "
-            "the JAX LimbContext) are not ported"
-        )
+    """The 17 uint32 words [p | R mod p | n0] every C launcher takes.  Which
+    mode a field needs (:func:`is_wide`) the launcher picks; a narrow-only
+    kernel refuses a wide field with :func:`require_narrow`."""
+    if not params.modulus % 2 or params.modulus >= 1 << 256:
+        raise ValueError(f"field {params.name}: the kernels need an odd modulus < 2^256")
     words = np.zeros(2 * LIMBS + 1, dtype=np.uint32)
     words[:LIMBS] = int_to_limbs32(params.modulus).view(np.uint32)
     words[LIMBS : 2 * LIMBS] = int_to_limbs32(params.r).view(np.uint32)
     words[2 * LIMBS] = n0_inv32(params)
     return words
+
+
+def require_narrow(params: FieldParams, kernel: str) -> None:
+    """Refuse a wide field for a narrow-only kernel, on either device."""
+    if is_wide(params):
+        raise NotImplementedError(
+            f"{kernel}: field {params.name} has 2p >= 2^256, and this kernel is narrow "
+            "only (the wide fields run mul, pow, batch_inv and ecdsa_mul)"
+        )
 
 
 def _host_ptr(words: np.ndarray) -> int:
@@ -211,10 +232,15 @@ class HalfField:
     """One field's arithmetic over (..., 16) int64 half-limbs: the working
     form of every plain version.  No CUDA kernel on any device, and no loop
     over limb positions: each operation is a fixed, short sequence of tensor
-    ops (what counts where every op is a dispatch or a launch)."""
+    ops (what counts where every op is a dispatch or a launch).
+
+    For a wide field (:func:`is_wide`) a sum of two elements and the
+    Montgomery product's (T + m p) / R may reach 2^256: both keep the carry
+    out of the top half-limb and hand it to the conditional subtract."""
 
     def __init__(self, params: FieldParams, device: torch.device):
-        field_words(params)  # refuses wide moduli
+        field_words(params)  # an odd modulus < 2^256
+        self.wide = is_wide(params)
 
         def half(v: int) -> torch.Tensor:
             return torch.tensor(
@@ -227,12 +253,18 @@ class HalfField:
         # -p^-1 mod 2^256: the Montgomery constant of the whole-word reduction
         self.n_prime = half((-pow(params.modulus, -1, 1 << 256)) % (1 << 256))
 
-    def cond_sub(self, a: torch.Tensor) -> torch.Tensor:
-        """a - p where a >= p, else a.  a normalized, a < 2p."""
+    def cond_sub(self, a: torch.Tensor, top: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """a - p where a >= p, else a.  a normalized, a < 2p.  A wide field
+        passes ``top``, the value's bit 256 (0 or 1, shape a.shape[:-1]):
+        where it is set the value passed p and the difference mod 2^256 is
+        the value less p."""
         diff, geq = sub_half(a, self.p)
-        return torch.where((geq != 0)[..., None], diff, a)
+        take = geq != 0 if top is None else (geq | top) != 0
+        return torch.where(take[..., None], diff, a)
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.wide:
+            return self.cond_sub(*_ripple_half(a + b))
         return self.cond_sub(carry_half(a + b, bits=17))
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -246,11 +278,18 @@ class HalfField:
         T = a * b, m = (T mod R) * (-p^-1) mod R, result = (T + m * p) / R,
         which is < 2p; canonical with ``reduce``.  int64 has the headroom to
         hold a product's whole column sums, so each of the three products is
-        one outer product and each normalization one carry pass."""
+        one outer product and each normalization one carry pass.  A wide
+        field keeps the result's bit 256 in a 17th half-limb and always
+        reduces."""
         T = _column_sums(a, b, 2 * HALF - 1)
         m = carry_half(_column_sums(carry_half(T[..., :HALF], bits=36), self.n_prime, HALF), bits=36)
-        U = torch.nn.functional.pad(T + _column_sums(m, self.p, 2 * HALF - 1), (0, 1))
+        top = 2 if self.wide else 1
+        U = torch.nn.functional.pad(T + _column_sums(m, self.p, 2 * HALF - 1), (0, top))
         t = carry_half(U, bits=37)[..., HALF:]  # the low half is zero by construction
+        if self.wide:
+            if not reduce:
+                raise ValueError("HalfField.mont_mul: a wide field's product always reduces")
+            return self.cond_sub(t[..., :HALF], t[..., HALF])
         return self.cond_sub(t) if reduce else t
 
     @staticmethod
@@ -282,11 +321,14 @@ def mont_mul(
     reduce: bool = True, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """a * b * R^-1 mod p, elementwise with broadcasting over the leading
-    axes.  ``reduce=False`` returns the redundant representative < 2p.
-    ``out`` (contiguous, of the broadcast shape; may be ``a``) receives the
-    result on the CUDA route."""
+    axes.  ``reduce=False`` returns the redundant representative < 2p (narrow
+    fields only).  ``out`` (contiguous, of the broadcast shape; may be ``a``)
+    receives the result on the CUDA route.  A wide field launches
+    ``mul_wide``; a must be canonical there (b may be any 256-bit value)."""
     _check(a, "mont_mul a")
     _check(b, "mont_mul b")
+    if not reduce and is_wide(params):
+        raise ValueError(f"mont_mul: the product over {params.name} always reduces")
     if not a.is_cuda:
         r = mont_mul_plain(a, b, params, reduce)
         if out is not None:
@@ -309,7 +351,7 @@ def mont_mul(
     n = out.numel() // LIMBS
     if n:
         build.launch(
-            "mul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            "mul_wide" if is_wide(params) else "mul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
             int(b_broadcast), int(reduce), _host_ptr(field_words(params)), _stream(a),
         )
     return out
@@ -423,8 +465,9 @@ def mont_pow(
     n = a.numel() // LIMBS
     if n:
         build.launch(
-            "pow", a.data_ptr(), out.data_ptr(), n, _host_ptr(pow_schedule_words(exponent)),
-            _host_ptr(field_words(params)), _stream(a),
+            "pow_wide" if is_wide(params) else "pow", a.data_ptr(), out.data_ptr(), n,
+            _host_ptr(pow_schedule_words(exponent)), _host_ptr(field_words(params)),
+            _stream(a),
         )
     return out
 
@@ -506,8 +549,8 @@ def mont_batch_inv(
     L = a_m.numel() // (G * LIMBS) if G else 0
     if L:
         build.launch(
-            "batch_inv", a_m.data_ptr(), out.data_ptr(), G, L, min(G, max_scan),
-            _host_ptr(pow_schedule_words(params.modulus - 2)),
+            "batch_inv_wide" if is_wide(params) else "batch_inv", a_m.data_ptr(), out.data_ptr(), G, L,
+            min(G, max_scan), _host_ptr(pow_schedule_words(params.modulus - 2)),
             _host_ptr(field_words(params)), _stream(a_m),
         )
     return torch.movedim(out, 0, axis)
@@ -566,6 +609,7 @@ def mont_dot(
     mul_vals* (E, T2, B, 8); coeffs (E, T*, 8); qc / scale (E, 8).  Returns
     (E, B, 8) canonical.  A panel with no terms passes ``None`` for it; at
     least one of the two must be present."""
+    require_narrow(params, "mont_dot")
     some = lin_vals if lin_vals is not None else mul_vals1
     if some is None:
         raise ValueError("mont_dot: a panel needs linear or product terms")
@@ -656,6 +700,7 @@ def mont_dot_v1(
 
     ``vals`` (E, T, B, 8) with T >= 1, ``coeff`` (E, T, 8), ``qc`` / ``scale``
     (E, 8); returns (E, B, 8) canonical.  ``qc`` is added as given."""
+    require_narrow(params, "mont_dot_v1")
     for name, t in (("vals", vals), ("coeff", coeff), ("qc", qc), ("scale", scale)):
         if t is not None:
             _check(t, f"mont_dot_v1 {name}")

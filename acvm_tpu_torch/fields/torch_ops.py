@@ -11,6 +11,11 @@ kernels for CUDA tensors and to their plain versions for CPU tensors
 predicates are plain tensor ops on either device: they have no kernel in the
 JAX package either.
 
+A field with 2p >= 2^256 (the secp256k1 / secp256r1 base fields and group
+orders of the ECDSA gadgets) runs in *wide* mode, as the JAX ``LimbContext``
+does: its sums and products carry a ninth word, and its kernels are the
+``*_wide`` builds (:func:`acvm_tpu_torch.fields.kernels.is_wide`).
+
 Semantics mirror the host ``FieldElement``
 (:mod:`acvm_tpu_torch.fields.field`), the bit-exactness oracle.
 """
@@ -42,14 +47,9 @@ class LimbContext:
                 "LimbContext: device 'cuda' requested but no CUDA device is "
                 "available (pass device='cpu' for the plain versions)"
             )
-        # Moduli >= 2^255 need a ninth limb in add/sub/mul intermediates (the
-        # wide mode of the JAX LimbContext): not ported.
-        self.wide = 2 * params.modulus >= 1 << 256
-        if self.wide:
-            raise NotImplementedError(
-                f"LimbContext: field {params.name} needs the wide mode "
-                "(p >= 2^255), which is not ported"
-            )
+        # Moduli >= 2^255 need a ninth limb in add/sub/mul intermediates: the
+        # wide mode, which picks the *_wide kernels.
+        self.wide = kernels.is_wide(params)
 
         def limbs(v: int) -> torch.Tensor:
             return torch.from_numpy(int_to_limbs32(v).copy()).to(self.device)
@@ -144,6 +144,30 @@ class LimbContext:
     @staticmethod
     def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return (a == b).all(dim=-1)
+
+    # ---- bit views (range checks) -------------------------------------------
+    @staticmethod
+    def num_bits_leq(a: torch.Tensor, num_bits: int) -> torch.Tensor:
+        """value < 2^num_bits, elementwise (the RANGE constraint)."""
+        full, rem = divmod(num_bits, 32)
+        ok = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+        if full < LIMBS:
+            start = full
+            if rem:
+                ok = ok & ((a[..., full].to(torch.int64) & 0xFFFFFFFF) < (1 << rem))
+                start += 1
+            if start < LIMBS:
+                ok = ok & (a[..., start:] == 0).all(dim=-1)
+        return ok
+
+    @staticmethod
+    def mask_bits(a: torch.Tensor, num_bits: int) -> torch.Tensor:
+        """a mod 2^num_bits on limbs."""
+        full, rem = divmod(num_bits, 32)
+        mask = [-1 if i < full else 0 for i in range(LIMBS)]
+        if rem and full < LIMBS:
+            mask[full] = (1 << rem) - 1
+        return a & torch.tensor(mask, dtype=torch.int32, device=a.device)
 
 
 def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -44,10 +44,13 @@ length, hash-to-field) run a level's gates of one kind and message length as
 one launch of their kernel (:func:`acvm_tpu_torch.gpu.gadgets.hash_rows`):
 the bytes read off the panel, the digest written back as canonical rows.
 
-Anything else a plan can hold — ECDSA planned for the device — and every
-scaling option not listed in :meth:`BatchSolver.solve` raises
-``NotImplementedError`` naming what is missing, at construction where it can
-be known then.
+ECDSA verifications (secp256k1, secp256r1) run a level's gates of one curve
+together: the bytes read off the panel, the scalars and the key's checks in
+the wide field ops of :mod:`acvm_tpu_torch.gpu.ecdsa`, R = u1 G + u2 Q as one
+``ecdsa_mul`` launch, the valid bit written back.
+
+Every scaling option not listed in :meth:`BatchSolver.solve` raises
+``NotImplementedError`` naming what is missing, at construction.
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ from ..pwg.brillig_solver import BrilligSolver
 from ..pwg.directives import solve_directives
 from ..pwg.errors import OpcodeResolutionError
 from ..utils.profiling import SolveStats, Timer
-from . import ec, gadgets, host_batch, intops
+from . import ec, ecdsa, gadgets, host_batch, intops
 from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
 from .brillig_vm_device import run_brillig_vm_batch
 from .fused_level import fused_level_call, pack_level_desc
@@ -97,13 +100,6 @@ from .planner import ExprPlan, HostStage, Level, MemoryInitStage, Plan
 # failing opcode index, which BatchResult resolves to an OpcodeLocation +
 # assert message.
 FAIL_NONE = np.int32(2**31 - 1)
-
-# Level fields this package does not run on the device yet: what each holds,
-# and the route that solves it today.
-_UNPORTED_LEVEL_FIELDS = {
-    "ecdsa": ("ECDSA verification", ""),
-}
-
 
 # Gates per chunk of a level's batch inversion: one `batch_inv` launch, a
 # thread a chunk of one instance (a lane).  A level of E gates over B instances
@@ -423,21 +419,23 @@ def run_ec_pedersen(ctx, W, ok, gate_buf):
     return W, ok
 
 
+def _bytes_of(W, idx):
+    """(G, n) witness indices -> (G * B, n) bytes, gate-major: to_u8_vec
+    semantics, the last BE byte of each witness == the low byte of limb 0."""
+    G, B = idx.shape[0], W.shape[1]
+    low = W.index_select(0, idx.reshape(-1))[..., 0] & 0xFF  # (G * n, B)
+    return low.reshape(G, -1, B).permute(0, 2, 1).reshape(G * B, -1)
+
+
 def run_schnorr(ctx, W, ok, buf):
     """Grouped Schnorr verifications with identical message length."""
     B = W.shape[1]
     G = buf["pub_x"].shape[0]
-
-    def bytes_of(idx):  # (G, n) witness indices -> (G * B, n) bytes
-        # to_u8_vec semantics: last BE byte of each witness == low byte of limb 0.
-        low = W.index_select(0, idx.reshape(-1))[..., 0] & 0xFF  # (G * n, B)
-        return low.reshape(G, -1, B).permute(0, 2, 1).reshape(G * B, -1)
-
     pub_x = W.index_select(0, buf["pub_x"]).reshape(G * B, LIMBS)
     pub_y = W.index_select(0, buf["pub_y"]).reshape(G * B, LIMBS)
-    sig = bytes_of(buf["sig_idx"])
+    sig = _bytes_of(W, buf["sig_idx"])
     if buf["msg_idx"].numel():
-        msg = bytes_of(buf["msg_idx"])
+        msg = _bytes_of(W, buf["msg_idx"])
     else:
         msg = torch.zeros((G * B, 0), dtype=torch.int32, device=W.device)
     valid = ec.schnorr_verify_batched(
@@ -447,6 +445,27 @@ def run_schnorr(ctx, W, ok, buf):
     out[..., 0] = valid
     W.index_copy_(0, buf["out_idx"], out)
     return W, ok
+
+
+def run_ecdsa(W, ok, fail, buf):
+    """Grouped ECDSA verifications on one curve: one ``ecdsa_mul`` launch.
+
+    Each input witness gives one byte, the low byte of limb 0 (the reference's
+    ``to_u8_vec``, signature/mod.rs:5-18).  An instance the host verifier
+    would raise on (a coordinate >= p, an off-curve key, r or s zero or >= n,
+    z >= n) fails at the gate's opcode; the output is the valid bit in limb
+    0, 0 where the instance errs."""
+    B = W.shape[1]
+    G = buf["op_idx"].shape[0]
+    valid, err = ecdsa.ecdsa_verify_batched(
+        buf["curve"], *(_bytes_of(W, buf[k]) for k in ("pub_x", "pub_y", "sig", "msg")))
+    err = err.reshape(G, B)
+    ok = ok & ~err.any(dim=0)
+    fail = note_failures(fail, err, buf["op_idx"])
+    out = torch.zeros((G, B, LIMBS), dtype=torch.int32, device=W.device)
+    out[..., 0] = valid.reshape(G, B)
+    W.index_copy_(0, buf["out_idx"], out)
+    return W, ok, fail
 
 
 def run_memory_init(W, blocks, buf):
@@ -602,11 +621,6 @@ class BatchSolver:
 
     # -- packing ------------------------------------------------------------
     def _pack_level(self, level: Level) -> dict:
-        for field, (what, route) in _UNPORTED_LEVEL_FIELDS.items():
-            if getattr(level, field):
-                raise NotImplementedError(
-                    f"BatchSolver: {what} (Level.{field}) are not ported{route}"
-                )
         dev = self.device
         packed: dict = {"kinds": []}
 
@@ -784,6 +798,23 @@ class BatchSolver:
                     gen_table=ec.window_table(grumpkin.generator(), device=dev),
                 )
                 for gates in groups.values()
+            ]
+        if level.ecdsa:
+            groups: Dict[str, list] = {}
+            for gate in level.ecdsa:
+                groups.setdefault(gate.curve, []).append(gate)
+            packed["kinds"].append("ecdsa")
+            packed["ecdsa"] = [
+                dict(
+                    curve=curve,
+                    op_idx=idx_tensor((g.opcode_index for g in gates), torch.int32),
+                    pub_x=torch.tensor([g.pub_x for g in gates], dtype=torch.int64, device=dev),
+                    pub_y=torch.tensor([g.pub_y for g in gates], dtype=torch.int64, device=dev),
+                    sig=torch.tensor([g.signature for g in gates], dtype=torch.int64, device=dev),
+                    msg=torch.tensor([g.hashed_msg for g in gates], dtype=torch.int64, device=dev),
+                    out_idx=idx_tensor((g.output for g in gates), torch.int64),
+                )
+                for curve, gates in groups.items()
             ]
         if level.zero_out:
             packed["kinds"].append("zero_out")
@@ -983,6 +1014,9 @@ class BatchSolver:
             elif kind == "schnorr":
                 for group_buf in packed[kind]:
                     W, ok = run_schnorr(ctx, W, ok, group_buf)
+            elif kind == "ecdsa":
+                for group_buf in packed[kind]:
+                    W, ok, fail = run_ecdsa(W, ok, fail, group_buf)
             elif kind == "zero_out":
                 W.index_fill_(0, packed[kind], 0)
             elif kind == "memory":

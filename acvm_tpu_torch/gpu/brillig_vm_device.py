@@ -52,6 +52,7 @@ from ..fields.kernels import (
     mont_mul_plain,
     mont_pow_plain,
     pow_schedule_words,
+    require_narrow,
     split_half,
     wrap_i32,
 )
@@ -172,6 +173,7 @@ def program_for(brillig: ops.Brillig, p: int) -> Program:
 @lru_cache(maxsize=None)
 def _vm_words(params: FieldParams) -> np.ndarray:
     """[p | R | n0 | R^2 | p's bit length]: what the launcher takes."""
+    require_narrow(params, "brillig_vm")
     return np.concatenate([field_words(params), int_to_limbs32(params.r2).view(np.uint32),
                            np.array([params.modulus.bit_length()], dtype=np.uint32)])
 

@@ -101,6 +101,7 @@ def pt_add_panels(
     ``out`` may be a fresh panel, or exactly ``P`` or exactly ``Q`` (the same
     view): a thread reads its two points before it writes.  Any other overlap
     with an operand is refused."""
+    fk.require_narrow(params, "pt_add_panels")
     _check_panel(P, "pt_add_panels P")
     _check_panel(Q, "pt_add_panels Q")
     if P.shape != Q.shape or P.device != Q.device:
@@ -194,6 +195,7 @@ def scalar_mul_fused(ctx, point, scalar_limbs: torch.Tensor):
     thread an instance, the accumulator in registers); on CPU tensors
     :func:`scalar_mul_fused_plain` runs.  X, Y and Z are the same limbs either
     way."""
+    fk.require_narrow(ctx.params, "scalar_mul_fused")
     if scalar_limbs.dtype != torch.int32 or scalar_limbs.dim() != 2 or scalar_limbs.shape[1] != LIMBS:
         raise TypeError(
             f"scalar_mul_fused: scalars must be (B, {LIMBS}) int32, got "

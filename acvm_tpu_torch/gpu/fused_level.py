@@ -132,6 +132,7 @@ def fused_level_call(
     W: (NW, B, 8) int32, contiguous; desc: (E, DW) int32 on the same device
     (see :func:`pack_level_desc`).  Returns ``W`` (updated in place).  A CUDA
     panel launches the level kernel; a CPU panel runs the plain version."""
+    fk.require_narrow(params, "fused_level_call")
     if W.dtype != torch.int32 or W.dim() != 3 or W.shape[2] != L:
         raise TypeError(f"fused_level_call: panel must be (NW, B, 8) int32, got {tuple(W.shape)} {W.dtype}")
     if desc.dtype != torch.int32 or desc.dim() != 2 or desc.shape[1] != desc_width(t1, t2):

@@ -602,9 +602,9 @@ def build_gadget_circuit(
     kinds: "sha256" / "blake2s" / "keccak256" (per gadget: ``msg_len``
     byte-witness inputs -> 32 byte-witness outputs), "pedersen" (2 field
     inputs -> commitment point x, y), "fixed_base" (2 u128-limb inputs ->
-    point x, y) and "schnorr" (pub x/y + 64 sig bytes + ``msg_len`` message
-    bytes -> bool).  The ECDSA kinds of the JAX package's generator wait for
-    their gadget.
+    point x, y), "schnorr" (pub x/y + 64 sig bytes + ``msg_len`` message
+    bytes -> bool), and "ecdsa_k1" / "ecdsa_r1" (32+32 pubkey bytes + 64 sig
+    bytes + 32 hashed-message bytes -> bool).
     """
     opcodes: List[ops.Opcode] = []
     next_witness = 1
@@ -649,6 +649,20 @@ def build_gadget_circuit(
                 message=[ops.FunctionInput(w, 8) for w in msg],
                 output=fresh(),
             )
+        elif kind in ("ecdsa_k1", "ecdsa_r1"):
+            px = fresh_n(32)
+            py = fresh_n(32)
+            sig = fresh_n(64)
+            hashed = fresh_n(32)
+            input_witnesses.extend(px + py + sig + hashed)
+            cls = ops.BBEcdsaSecp256k1 if kind == "ecdsa_k1" else ops.BBEcdsaSecp256r1
+            call = cls(
+                public_key_x=[ops.FunctionInput(w, 8) for w in px],
+                public_key_y=[ops.FunctionInput(w, 8) for w in py],
+                signature=[ops.FunctionInput(w, 8) for w in sig],
+                hashed_message=[ops.FunctionInput(w, 8) for w in hashed],
+                output=fresh(),
+            )
         elif kind in HASH_KINDS:
             ins = fresh_n(msg_len)
             input_witnesses.extend(ins)
@@ -659,7 +673,7 @@ def build_gadget_circuit(
         else:
             raise NotImplementedError(
                 f"build_gadget_circuit: kind {kind!r} is not ported (sha256, blake2s, "
-                "keccak256, pedersen, fixed_base and schnorr are)"
+                "keccak256, pedersen, fixed_base, schnorr, ecdsa_k1 and ecdsa_r1 are)"
             )
         opcodes.append(ops.OpcodeBlackBoxFuncCall(call))
 
@@ -736,12 +750,189 @@ def gadget_inputs_columnar(circuit: Circuit, batch: int, kind: str, seed: int = 
             for j, fi in enumerate(call.message):
                 cols[int(fi.witness)] = np.full(batch, msg[j], dtype=np.uint8)
         return cols
+    if kind in ("ecdsa_k1", "ecdsa_r1"):
+        from ..blackbox.ec import secp256k1, secp256r1
+
+        curve = secp256k1 if kind == "ecdsa_k1" else secp256r1
+        pyrng = random.Random(seed)
+        n = curve.params.n
+        d = pyrng.randrange(1, n)
+        Q = curve.mul(d, curve.generator())
+        cols = {}
+        for opcode in circuit.opcodes:
+            call = opcode.call
+            z_bytes = bytes(pyrng.randrange(256) for _ in range(32))
+            z = int.from_bytes(z_bytes, "big")
+            while True:
+                k = pyrng.randrange(1, n)
+                r = curve.mul(k, curve.generator())[0] % n
+                if r == 0:
+                    continue
+                s = pow(k, -1, n) * (z + r * d) % n
+                if s == 0:
+                    continue
+                if s > n // 2:
+                    s = n - s  # low-S (blackbox_solver/src/lib.rs:101-210)
+                break
+            sig = r.to_bytes(32, "big") + s.to_bytes(32, "big")
+            qx = Q[0].to_bytes(32, "big")
+            qy = Q[1].to_bytes(32, "big")
+            for j, fi in enumerate(call.public_key_x):
+                cols[int(fi.witness)] = np.full(batch, qx[j], dtype=np.uint8)
+            for j, fi in enumerate(call.public_key_y):
+                cols[int(fi.witness)] = np.full(batch, qy[j], dtype=np.uint8)
+            for j, fi in enumerate(call.signature):
+                cols[int(fi.witness)] = np.full(batch, sig[j], dtype=np.uint8)
+            for j, fi in enumerate(call.hashed_message):
+                cols[int(fi.witness)] = np.full(batch, z_bytes[j], dtype=np.uint8)
+        return cols
     if kind in HASH_KINDS:
         return {w: rng.integers(0, 256, size=batch, dtype=np.uint8) for w in witnesses}
     raise NotImplementedError(
         f"gadget_inputs_columnar: kind {kind!r} is not ported (sha256, blake2s, "
-        "keccak256, pedersen, fixed_base and schnorr are)"
+        "keccak256, pedersen, fixed_base, schnorr, ecdsa_k1 and ecdsa_r1 are)"
     )
+
+
+ECDSA_CURVES = {"ecdsa_k1": "secp256k1", "ecdsa_r1": "secp256r1"}
+
+
+def _ecdsa_curve(kind: str):
+    from ..blackbox.ec import secp256k1, secp256r1
+
+    return {"ecdsa_k1": secp256k1, "ecdsa_r1": secp256r1}[kind]
+
+
+def _ecdsa_sign(curve, rng: random.Random, d: int, z: int):
+    """A low-S signature (r, s) of the scalar z under key d."""
+    n = curve.params.n
+    while True:
+        k = rng.randrange(1, n)
+        r = curve.mul(k, curve.generator())[0] % n
+        s = pow(k, -1, n) * (z + r * d) % n
+        if r and s:
+            return r, min(s, n - s)
+
+
+def _sqrt_mod(a: int, p: int):
+    """A square root mod p (p = 3 mod 4, as both curves' p), or None."""
+    y = pow(a, (p + 1) // 4, p)
+    return y if y * y % p == a % p else None
+
+
+def ecdsa_planted(kind: str, seed: int = 5):
+    """The edge cases of ECDSA verification, each a ``(label, (x, y, r, s,
+    z), valid, err)`` of Python ints (x, y the key, z the hashed message) and
+    what the reference verifier says of it: ``err`` where it raises (a
+    coordinate >= p, an off-curve key, r or s zero or >= n, z >= n), else
+    ``valid``.
+
+    valid; tampered s; high S; off-curve key; r = 0, r = n, s = 0, z = n;
+    z = 0 (u1 G at infinity, valid); z = -r d (u1 G = -u2 Q: R at infinity);
+    z = r d with s = 2 r d / k (u1 G = u2 Q: the doubling branch, valid);
+    x(R) >= n (R with x in [n, p), Q = c R, z = 0, s = r c, the sign of c
+    picked for low S: the conditional subtract of x(R) mod n, valid)."""
+    curve = _ecdsa_curve(kind)
+    cp = curve.params
+    n, p = cp.n, cp.p
+    rng = random.Random(seed)
+    d = rng.randrange(1, n)
+    Q = curve.mul(d, curve.generator())
+    z = rng.randrange(n)
+    r, s = _ecdsa_sign(curve, rng, d, z)
+    cases = [
+        ("valid", (*Q, r, s, z), True, False),
+        ("tampered_s", (*Q, r, s - 1 if s > 1 else s + 1, z), False, False),
+        ("high_s", (*Q, r, n - s, z), False, False),
+        ("off_curve_key", (Q[0], (Q[1] + 1) % p, r, s, z), False, True),
+        ("r_zero", (*Q, 0, s, z), False, True),
+        ("r_n", (*Q, n, s, z), False, True),
+        ("s_zero", (*Q, r, 0, z), False, True),
+        ("z_n", (*Q, r, s, n), False, True),
+    ]
+    r0, s0 = _ecdsa_sign(curve, rng, d, 0)
+    cases.append(("z_zero", (*Q, r0, s0, 0), True, False))
+    r1, s1 = _ecdsa_sign(curve, rng, d, 1)
+    cases.append(("r_at_infinity", (*Q, r1, s1, (-r1 * d) % n), False, False))
+    while True:  # u1 G = u2 Q = (k / 2) G
+        k = rng.randrange(1, n)
+        r2 = curve.mul(k, curve.generator())[0] % n
+        s2 = 2 * r2 * d * pow(k, -1, n) % n
+        if r2 and s2:
+            break
+    cases.append(("u1G_eq_u2Q", (*Q, r2, min(s2, n - s2), r2 * d % n), True, False))
+    t = 1  # R = (n + t, y): x(R) mod n = t = r
+    while (y_big := _sqrt_mod(pow(n + t, 3, p) + cp.a * (n + t) + cp.b, p)) is None:
+        t += 1
+    c = rng.randrange(1, n)
+    if t * c % n > n // 2:
+        c = n - c
+    Qc = curve.mul(c, (n + t, y_big))  # u2 = r / s = 1 / c: u2 Q = R
+    cases.append(("x_of_R_ge_n", (*Qc, t, t * c % n, 0), True, False))
+    return cases
+
+
+def ecdsa_instance_bytes(values) -> Dict[str, bytes]:
+    """(x, y, r, s, z) -> the gadget's byte strings, big-endian."""
+    x, y, r, s, z = values
+    return {"pub_x": x.to_bytes(32, "big"), "pub_y": y.to_bytes(32, "big"),
+            "sig": r.to_bytes(32, "big") + s.to_bytes(32, "big"), "msg": z.to_bytes(32, "big")}
+
+
+def ecdsa_inputs(circuit: Circuit, batch: int, kind: str, seed: int = 7, pool: int = 256):
+    """Columnar uint16 inputs for an ECDSA gadget circuit over ``batch``
+    instances, and what each gadget of each instance must give.
+
+    Each gadget draws from its own pool of up to ``pool`` distinct (key,
+    message, low-S signature) tuples, made from ``seed`` and tiled over the
+    batch, so neighbouring instances run different scalars.  The k cases of
+    :func:`ecdsa_planted` come first: instance i < k holds case i on gadget
+    0 and case i + 1 (mod k) on gadget 1 (so an instance fails at opcode 0 or
+    at opcode 1, whichever gadget errs first), and instance k has the
+    signature byte 63 of gadget 0 raised by 256 (only the low byte is read).
+
+    Returns ``(cols, valid, err)``: ``{witness: (B,) uint16}`` and two
+    ``(G, B)`` bool arrays."""
+    import numpy as np
+
+    curve = _ecdsa_curve(kind)
+    n = curve.params.n
+    rng = random.Random(seed)
+    G = len(circuit.opcodes)
+    per_gadget = []
+    for _ in range(G):
+        tuples = []
+        for _ in range(min(pool, batch)):
+            d = rng.randrange(1, n)
+            Q = curve.mul(d, curve.generator())
+            z = rng.randrange(n)
+            r, s = _ecdsa_sign(curve, rng, d, z)
+            tuples.append((*Q, r, s, z))
+        per_gadget.append(tuples)
+    rows = [[per_gadget[g][b % len(per_gadget[g])] for b in range(batch)] for g in range(G)]
+    valid = np.ones((G, batch), dtype=bool)
+    err = np.zeros((G, batch), dtype=bool)
+    cases = ecdsa_planted(kind, seed)
+    for b in range(min(len(cases), batch)):
+        for g in range(min(G, 2)):
+            _, values, ok, bad = cases[(b + g) % len(cases)]
+            rows[g][b] = values
+            valid[g, b], err[g, b] = ok and not bad, bad
+    cols = {}
+    for g, opcode in enumerate(circuit.opcodes):
+        call = opcode.call
+        raw = np.zeros((batch, 160), dtype=np.uint16)
+        for b, values in enumerate(rows[g]):
+            parts = ecdsa_instance_bytes(values)
+            raw[b] = np.frombuffer(parts["pub_x"] + parts["pub_y"] + parts["sig"] + parts["msg"],
+                                   dtype=np.uint8)
+        witnesses = [*call.public_key_x, *call.public_key_y, *call.signature,
+                     *call.hashed_message]
+        for j, fi in enumerate(witnesses):
+            cols[int(fi.witness)] = raw[:, j].copy()
+    if G and batch > len(cases):
+        cols[int(circuit.opcodes[0].call.signature[63].witness)][len(cases)] += 256
+    return cols, valid, err
 
 
 def columnar_instance(columnar, index: int) -> Dict[int, int]:

@@ -7,7 +7,8 @@
                                      # time by kernel, device busy share (and
                                      # the SHA-256 path traced block by block;
                                      # path_host's and path_vm's solves with
-                                     # their host stages; path_hash's solves)
+                                     # their host stages; path_hash's and
+                                     # path_ecdsa's solves)
     python3 chip_smoke.py --level-variants  # also the level kernel built with
                                      # its measurement switches: loads only,
                                      # products only, the other block order,
@@ -16,15 +17,21 @@
                                      # into 2-32 rows at 2^14-2^20 values, the
                                      # measurement behind mont_inv_grouped's
                                      # FOLD_LANES
-    python3 chip_smoke.py --vm-variants [--vm-parent=DIR]  # also brillig_vm
+    python3 chip_smoke.py --vm-variants [--parent=DIR]  # also brillig_vm
                                      # built with and without regrouping
                                      # (VM_REGROUP), its state on chip as
                                      # planned or all in device memory, on
                                      # path_vm's three blocks; with
-                                     # --vm-parent, the kernel of
+                                     # --parent, the kernel of
                                      # the tree unpacked at DIR (the
                                      # earlier launcher: no launch plan) on
                                      # the same state
+    python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv, pt_add
+                                     # and pt_ladder built from the tree
+                                     # unpacked at DIR (git archive <commit>
+                                     # acvm_tpu_torch/csrc | tar -x -C DIR)
+                                     # beside this tree's, equal outputs,
+                                     # timed parent, change, change, parent
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -129,7 +136,28 @@ build, a failed launch or a failed comparison raises and the exit code is not
                Keccak on 512, three witness maps against the sequential engine,
                the hashes as host stages the same on 256, no plain digest on the
                card, ``membership_solves_per_sec`` with the ``SolveStats`` split;
-16. ``kernels`` every kernel against its plain PyTorch version at the main
+16. ``path_ecdsa``  ECDSA verification: the JAX package's gadget circuits
+               (``build_gadget_circuit`` ecdsa_k1 and ecdsa_r1: 2 gadgets, 322
+               witnesses) over 4,096 instances (8,192 verifications), a pool of
+               256 signatures a gadget tiled over the batch, the planted edges
+               of ``utils.ecdsa_planted`` first (tampered and high S, an
+               off-curve key, r or s zero or n, z = n, z = 0, R at infinity,
+               u1 G = u2 Q, x(R) >= n, a byte witness of 256 + b): every
+               instance's valid bits, flag and first failure against its
+               construction, 8 witness maps against the sequential engine, one
+               ``ecdsa_mul`` launch a solve and no narrow kernel,
+               ``ecdsa_k1_solves_per_sec`` / ``ecdsa_r1_solves_per_sec`` (device
+               solve and through ``solve()``); ecdsa_k1 once more over 16,384
+               instances, where the inversions of 32,768 values fold
+               (``batch_inv_wide`` in place of ``pow_wide``); then ``mul_wide``
+               at 2^20, ``pow_wide`` at the s^-1 shape (8,192, e = n - 2) and on
+               the schedule's edge exponents, ``batch_inv_wide`` at the folded
+               solve's 32,768 values in 2 rows, on both curves' p and n, and
+               ``ecdsa_mul`` on
+               each solve's own operands (X, Y and Z against its plain version,
+               64 lanes' affine R against the Python-int curve), with its bound
+               and the latency floor of its longest chain;
+17. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; the hash kernels on path_hash's groups
@@ -140,8 +168,8 @@ build, a failed launch or a failed comparison raises and the exit code is not
                by kind that its bound counts, and the isqrt and inverse blocks
                as shapes of it (their divisions counted from their operands,
                the inverse's Fermat chain's latency beside its bound);
-17. the raw ``nvidia-smi`` name and power limit;
-18. ``{"ok": true, "device": {...}}``.
+18. the raw ``nvidia-smi`` name and power limit;
+19. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -998,6 +1026,7 @@ def main() -> int:
                                  if port_kernel.search(k)]}
 
     want_profile = "--profile" in sys.argv
+    parent_tree = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--parent=")), None)
     # The port's own kernels, by their symbols in the sources of build.KERNELS.
     port_kernel = re.compile(r"\b(%s)\b" % "|".join(sorted({sym for name in build.KERNELS for sym in re.findall(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)", build.source_path(name).read_text())})))
@@ -1996,7 +2025,7 @@ def main() -> int:
     if "--vm-variants" in sys.argv:
         # brillig_vm rebuilt with its measurement switch (csrc/brillig_vm.cu:
         # VM_REGROUP) and run under another plan, and the parent tree's kernel
-        # (--vm-parent=DIR, its own launcher), on each block's state; every
+        # (--parent=DIR, its own launcher), on each block's state; every
         # one bit-exact against the plain run.
         from concurrent.futures import ThreadPoolExecutor
 
@@ -2011,13 +2040,12 @@ def main() -> int:
         with ThreadPoolExecutor(len(switches)) as pool:  # one nvcc a build, all started together
             built = dict(zip(switches, pool.map(lambda d: build.load_variant("brillig_vm", d), switches)))
         fns = {k: built[v[0]] for k, v in variants.items() if v}
-        parent = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--vm-parent=")), None)
-        if parent:
+        if parent_tree:
             # The earlier launcher: prog, n_pc, regs, mem, status, steps, B,
             # mem_cap, max_steps, field words, p - 2's chain, stream.
             _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fns["parent_tree"] = build.load_variant(
-                "brillig_vm", [], source=f"{parent}/acvm_tpu_torch/csrc/brillig_vm.cu",
+                "brillig_vm", [], source=f"{parent_tree}/acvm_tpu_torch/csrc/brillig_vm.cu",
                 signature=("acvm_brillig_vm", [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P]))
             variants["parent_tree"] = ([], None)
         times = {}
@@ -2446,11 +2474,330 @@ def main() -> int:
     del res, solver, state, memb_W, hash_states
     torch.cuda.empty_cache()
 
-    # -- 16. kernels, 17. card, 18. verdict -------------------------------------------
+    # -- 16. path_ecdsa ---------------------------------------------------------------
+    # ECDSA verification on both curves: the JAX package's gadget circuits
+    # (build_gadget_circuit ecdsa_k1 / ecdsa_r1: 2 gadgets of 32 + 32 + 64 + 32
+    # byte witnesses, 322 witnesses) over 4,096 instances (8,192 verifications a
+    # solve).  Each gadget draws from a pool of 256 distinct (key, message,
+    # low-S signature) tuples made from the seed and tiled over the batch; the
+    # planted cases of utils.ecdsa_planted come first (instance i: case i on
+    # gadget 0, case i + 1 on gadget 1; instance k: a signature byte of 256 +
+    # b).  Every instance's valid bits, flag and first failure against its
+    # construction, 8 witness maps against the sequential engine; one
+    # ecdsa_mul launch a solve.  ecdsa_k1 once more over 16,384 instances: its
+    # inversions (s^-1, Z^-1) of 32,768 values fold, so batch_inv_wide runs on
+    # the path where the 4,096-instance solves run pow_wide.  Then the wide
+    # kernels against their plain versions on both curves' p and n, and
+    # ecdsa_mul on the solves' own operands.
+    from acvm_tpu_torch.gpu import ecdsa as gpu_ecdsa
+    from acvm_tpu_torch.utils import ecdsa_inputs, ecdsa_planted
+
+    ecdsa_B, ecdsa_seed = 4096, 7
+    fold_B = LimbContext.FOLD_LANES  # 2 gadgets: 2 x FOLD_LANES values to invert
+    ecdsa_launches, ecdsa_report, ecdsa_operands = {}, {}, {}
+    real_ecdsa_mul = gpu_ecdsa.ecdsa_mul
+
+    for label, kind, curve_name, B_run in (("ecdsa_k1", "ecdsa_k1", "secp256k1", ecdsa_B),
+                                           ("ecdsa_r1", "ecdsa_r1", "secp256r1", ecdsa_B),
+                                           (f"ecdsa_k1_b{fold_B}", "ecdsa_k1", "secp256k1", fold_B)):
+        def recording_ecdsa_mul(curve_name, u1, u2, Q, table, label=label):
+            ecdsa_operands[label] = (u1.clone(), u2.clone(), Q.clone(), table)
+            return real_ecdsa_mul(curve_name, u1, u2, Q, table)
+
+        inv_kernel = "batch_inv_wide" if 2 * B_run >= 2 * LimbContext.FOLD_LANES else "pow_wide"
+        circuit = build_gadget_circuit(kind, 2)
+        t0 = time.perf_counter()
+        cols, want_valid, want_err = ecdsa_inputs(circuit, B_run, kind, seed=ecdsa_seed, pool=256)
+        inputs_seconds = time.perf_counter() - t0
+        k = len(ecdsa_planted(kind, ecdsa_seed))
+        t0 = time.perf_counter()
+        solver = BatchSolver(plan_circuit(circuit))
+        plan_seconds = time.perf_counter() - t0
+        gpu_ecdsa.ecdsa_mul = recording_ecdsa_mul
+        build.reset_launches()
+        try:
+            res = solver.solve(cols)
+            torch.cuda.synchronize()
+        finally:
+            gpu_ecdsa.ecdsa_mul = real_ecdsa_mul
+        launches = dict(build.LAUNCHES)
+        assert launches["ecdsa_mul"] == 1 and launches["mul_wide"] > 0 and launches[inv_kernel] > 0, launches
+        assert all(launches[name] == 0 for name in build.KERNELS
+                   if name not in ("ecdsa_mul", "mul_wide", inv_kernel)), launches
+        outs = np.array([res.witness_ints(int(op.call.output)) for op in circuit.opcodes], dtype=bool)
+        assert np.array_equal(outs, want_valid & ~want_err), kind
+        want_fail = np.where(want_err[0], 0, np.where(want_err[1], 1, int(FAIL_NONE)))
+        assert np.array_equal(res.fail, want_fail) and np.array_equal(res.ok, ~want_err.any(0)), kind
+        assert int(want_err.any(0).sum()) > 0 and int((~want_valid).sum()) > 0
+        maps = [0, 3, 4, 9, 10, 11, k, B_run - 1]  # valid, off-curve key, r = 0, the edges, 256 + b
+        for b in maps:
+            status, acvm = sequential_solve(circuit, columnar_instance(cols, b), None)
+            if status == "solved":
+                got = res.instance_ints(b)
+                solved = list(acvm.finalize())
+                assert res.ok[b] and len(solved) == circuit.num_vars() - 1, b
+                assert all(got[int(w)] == int(v) for w, v in solved), b
+            else:
+                location = getattr(acvm.error, "opcode_location", None)
+                assert status == "failure" and int(res.fail[b]) == (
+                    acvm.instruction_pointer if location is None else location.acir_index), (b, status)
+        state = solver.initial_state(cols)
+        rate, secs = timed_rate(device_solve_of(solver, state, torch), 2 * B_run, reps=3)
+        stats = SolveStats()
+        solver.solve(cols, stats=stats)
+        rate_full, secs_full = timed_rate(lambda: solver.solve(cols), 2 * B_run, reps=3)
+        if want_profile:
+            emit({f"profile_{label}": profile(device_solve_of(solver, state, torch), secs)})
+        ecdsa_launches[label] = launches
+        ecdsa_report[label] = {
+            "gadgets": 2, "batch": B_run, "verifications": 2 * B_run, "pool": 256,
+            "inversions_by": inv_kernel, "panel_bytes": solver.panel_bytes(B_run),
+            "planted": [label for label, _, _, _ in ecdsa_planted(kind, ecdsa_seed)],
+            "valid": int(outs.sum()), "err": int(want_err.sum()), "ok_instances": int(res.ok.sum()),
+            "checked_instances": B_run, "witness_maps_against_pwg": maps,
+            "launches": {name: n for name, n in launches.items() if n},
+            "launches_a_solve": sum(launches.values()),
+            "inputs_seconds": inputs_seconds, "plan_seconds": plan_seconds,
+            f"{kind}_solves_per_sec": rate, "solve_seconds": secs,
+            f"{kind}_solves_per_sec_with_packing": rate_full, "solve_seconds_with_packing": secs_full,
+            "solve_stats": stats.summary()}
+        del state, res, solver
+        torch.cuda.empty_cache()
+    emit({"path_ecdsa": {"card": smi, **ecdsa_report}})
+
+    # The wide kernels against their plain versions, tolerance 0, on both
+    # curves' p and n: mul_wide at N = 2^20 (b any 256-bit value on a
+    # quarter), pow_wide at the s^-1 shape (8,192 values, e = n - 2) and on the
+    # schedule's edge exponents, batch_inv_wide at the folded solve's 32,768
+    # values (mont_inv_grouped folds them into 2 rows).  A wide product is the same 136
+    # multiply-adds as a narrow one (its ninth word costs adds only).
+    wide_fields = [f for name in ("secp256k1", "secp256r1") for f in gpu_ecdsa.curve_fields(name)]
+    k1_p, k1_n = wide_fields[0], wide_fields[1]
+    n_mul = 1 << 20
+    errs = []
+    for params in wide_fields:
+        a = random_elements((n_mul,), params, 61, zeros=3)
+        b = random_elements((n_mul,), params, 62)
+        b[: n_mul // 4] = torch.from_numpy(
+            np.random.default_rng(63).integers(0, 1 << 32, size=(n_mul // 4, 8), dtype=np.uint64)
+            .astype(np.uint32).view(np.int32)).to(dev)
+        got = fk.mont_mul(a, b, params)
+        want = torch.cat([fk.mont_mul_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)], params)
+                          for i in range(0, n_mul, 1 << 18)])
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, want))
+        r2 = torch.from_numpy(fk.int_to_limbs32(params.r2).copy()).to(dev)
+        errs.append(max_abs_err(fk.mont_mul(a, r2, params), fk.mont_mul_plain(a, r2, params)))
+    a = random_elements((n_mul,), k1_p, 61)
+    b = random_elements((n_mul,), k1_p, 62)
+    a_bn, b_bn = random_elements((n_mul,), BN254_FR, 61), random_elements((n_mul,), BN254_FR, 62)
+    out = torch.empty_like(a)
+    b_ms, b_by = bound(96 * n_mul, MADDS_PER_MONT_MUL * n_mul)
+    kernels["mul_wide"] = dict(
+        name="mul_wide", route="cuda", source="acvm_tpu_torch/csrc/mul.cu (-DACVM_WIDE)",
+        replaces="acvm_tpu/fields/jnp_ops.py:153", shape=f"N={n_mul}, secp256k1 p",
+        fields=[f.name for f in wide_fields], max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_mul(a, b, k1_p, out=out)),
+        ms_queued=time_ms(lambda: fk.mont_mul(a, b, k1_p, out=out), calls=10),
+        narrow_bn254_ms_same_call=time_ms(lambda: fk.mont_mul(a_bn, b_bn, BN254_FR, out=out)),
+        plain_ms=time_ms(lambda: [fk.mont_mul_plain(a[i : i + (1 << 18)], b[i : i + (1 << 18)], k1_p)
+                                  for i in range(0, n_mul, 1 << 18)], 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, b, a_bn, b_bn, out, got, want
+
+    n_inv = 2 * ecdsa_B
+    errs = []
+    for params in wide_fields:
+        a = random_elements((n_inv,), params, 64, zeros=5)
+        a[5] = torch.from_numpy(fk.int_to_limbs32(params.modulus - 1).copy()).to(dev)
+        for e in (0, 1, 2, 15, 16, params.modulus - 2, (1 << 256) - 1):
+            errs.append(max_abs_err(fk.mont_pow(a, e, params), fk.mont_pow_plain(a, e, params)))
+        r_one = torch.from_numpy(fk.int_to_limbs32(params.r).copy()).to(dev)
+        inv = fk.mont_pow(a, params.modulus - 2, params)
+        errs.append(max_abs_err(fk.mont_mul(a[5:], inv[5:], params), r_one.expand_as(a[5:])))
+    a = random_elements((n_inv,), k1_n, 64)
+    chain_n = fk.pow_chain_products(k1_n.modulus - 2)
+    b_ms, b_by = bound(64 * n_inv, chain_n * MADDS_PER_MONT_MUL * n_inv)
+    kernels["pow_wide"] = dict(
+        name="pow_wide", route="cuda", source="acvm_tpu_torch/csrc/pow.cu (-DACVM_WIDE)",
+        replaces="acvm_tpu/fields/jnp_ops.py:235",
+        shape=f"N={n_inv} (the s^-1 of a solve), e = n - 2 of secp256k1, {chain_n} products a chain",
+        fields=[f.name for f in wide_fields], max_abs_err=max(errs),
+        ms=time_ms(lambda: fk.mont_pow(a, k1_n.modulus - 2, k1_n)),
+        ms_queued=time_ms(lambda: fk.mont_pow(a, k1_n.modulus - 2, k1_n), calls=10),
+        latency_floor_ms=chain_n * candidates["carry_flag_even_odd"]["us_per_product_in_chain"] * 1e-3,
+        plain_ms=time_ms(lambda: fk.mont_pow_plain(a, k1_n.modulus - 2, k1_n), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, inv
+
+    n_fold = 2 * fold_B
+    errs = []
+    for params in wide_fields:
+        x = random_elements((n_fold,), params, 65, zeros=2)
+        x[n_fold - 1] = x[n_fold // 4] = 0  # zeros at chunk edges
+        ctx_w = LimbContext(params, dev)
+        build.reset_launches()
+        got = ctx_w.mont_inv_grouped(x)
+        assert build.LAUNCHES["batch_inv_wide"] == 1 and build.LAUNCHES["pow_wide"] == 0
+        errs.append(max_abs_err(got, fk.mont_batch_inv_plain(x.reshape(2, fold_B, 8), params, 0, 2)
+                                .reshape(n_fold, 8)))
+        errs.append(max_abs_err(got, fk.mont_pow(x, params.modulus - 2, params)))
+    x = random_elements((n_fold,), k1_p, 65).reshape(2, fold_B, 8)
+    chain_p = fk.pow_chain_products(k1_p.modulus - 2)
+    needed = fold_B * chain_p + 3 * (n_fold - fold_B)
+    b_ms, b_by = bound(64 * n_fold, needed * MADDS_PER_MONT_MUL)
+    kernels["batch_inv_wide"] = dict(
+        name="batch_inv_wide", route="cuda", source="acvm_tpu_torch/csrc/batch_inv.cu (-DACVM_WIDE)",
+        replaces="acvm_tpu/fields/jnp_ops.py:259",
+        shape=f"G=2, L={fold_B}, chunk 2 (mont_inv_grouped of {n_fold} values: the s^-1 and Z^-1 "
+              f"of the {fold_B}-instance solve), secp256k1 p",
+        fields=[f.name for f in wide_fields], max_abs_err=max(errs), products_needed=needed,
+        ms=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2)),
+        ms_queued=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2), calls=10),
+        pow_ms_same_values=time_ms(lambda: fk.mont_pow(x, k1_p.modulus - 2, k1_p)),
+        plain_ms=time_ms(lambda: fk.mont_batch_inv_plain(x, k1_p, 0, 2), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del x, got
+
+    # ecdsa_mul on the operands of each 4,096-instance solve above (8,192
+    # lanes: u1, u2, Q as the path gives them): X, Y and Z against the plain
+    # version, which runs the same chain; the affine R of 64 lanes against the
+    # Python-int curve.  Products counted from the scalars: each nonzero
+    # window of u1 after the first a mixed addition of 11 (the table's entries
+    # have Z = one), each bit of u2 after its top bit a doubling (7 for a = 0,
+    # 8 for a = -3) and each set bit after the top one a mixed addition of 11
+    # (Q has Z = one), the final addition of two Jacobian points 16 where both
+    # parts are finite (the few planted lanes whose branches differ, a
+    # doubling or infinity inside, are counted as generic).  Bytes: u1, u2,
+    # Q's X and Y and the table read once, R written.
+    from acvm_tpu_torch.blackbox.ec import Curve
+
+    ecdsa_rows = {}
+    for curve_name in ("secp256k1", "secp256r1"):
+        u1, u2, Q, table = ecdsa_operands["ecdsa_k1" if curve_name == "secp256k1" else "ecdsa_r1"]
+        B2 = u1.shape[0]
+        got = gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table)
+        t0 = time.perf_counter()
+        want = gpu_ecdsa.ecdsa_mul_plain(curve_name, u1, u2, Q, table)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+        err = max_abs_err(got, want)
+        curve = Curve(gpu_ecdsa.CURVES[curve_name])
+        cp = curve.params
+        fp, _ = gpu_ecdsa.curve_fields(curve_name)
+        ctx_p = LimbContext(fp, dev)
+        ax, ay = (fk.limbs32_to_ints(c.cpu().numpy()) for c in ec.pt_to_affine(ctx_p, ec.point_of(got)))
+        inf = ec.pt_is_inf(ec.point_of(got)).tolist()
+        k1s, k2s = fk.limbs32_to_ints(u1.cpu().numpy()), fk.limbs32_to_ints(u2.cpu().numpy())
+        qx, qy = (fk.limbs32_to_ints(fk.mont_mul(c, ctx_p.one_limbs, fp).cpu().numpy()) for c in (Q[0], Q[1]))
+        for lane in list(range(32)) + list(range(B2 - 32, B2)):
+            q = (qx[lane], qy[lane])
+            if not curve.is_on_curve(q):
+                continue
+            want_pt = curve.add(curve.mul(k1s[lane], curve.generator()), curve.mul(k2s[lane], q))
+            assert (None if inf[lane] else (ax[lane], ay[lane])) == want_pt, (curve_name, lane)
+        dbl = 8 if gpu_ecdsa._a_minus_3(curve_name) else 7
+        products = 0
+        longest = 0
+        for s1, s2 in zip(k1s, k2s):
+            nz = sum(1 for w in range(64) if (s1 >> (4 * w)) & 15)
+            lane = 11 * max(nz - 1, 0)
+            if s2:
+                lane += dbl * (s2.bit_length() - 1) + 11 * (bin(s2).count("1") - 1)
+            lane += 16 if s1 and s2 else 0
+            products += lane
+            longest = max(longest, lane)
+        b_ms, b_by = bound(B2 * (32 + 32 + 64 + 96) + table.numel() * 4, products * MADDS_PER_MONT_MUL)
+        ecdsa_rows[curve_name] = dict(
+            shape=f"B={B2} (the operands of path_ecdsa's solve), {curve_name}", max_abs_err=err,
+            affine_checked_lanes=64, products_per_lane=products / B2, longest_chain_products=longest,
+            ms=time_ms(lambda: gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table), reps=5),
+            ms_queued=time_ms(lambda: gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table), reps=3, calls=5),
+            latency_floor_ms=longest * candidates["carry_flag_even_odd"]["us_per_product_in_chain"] * 1e-3,
+            plain_ms=plain_seconds * 1e3, bound_ms=b_ms, bound_by=b_by)
+        del got, want
+    first = ecdsa_rows.pop("secp256k1")
+    # The same kernel on the folded solve's 32,768 lanes: four times the warps.
+    u1, u2, Q, table = ecdsa_operands[f"ecdsa_k1_b{fold_B}"]
+    first[f"ms_lanes_{u1.shape[0]}"] = time_ms(lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table),
+                                               reps=5)
+    del u1, u2, Q, table
+    kernels["ecdsa_mul"] = dict(
+        name="ecdsa_mul", route="cuda", source="acvm_tpu_torch/csrc/ecdsa_mul.cu",
+        replaces="acvm_tpu/tpu/ecdsa.py:147", **first, library_ms=None,
+        secp256r1=ecdsa_rows["secp256r1"],
+        also_replaces=["acvm_tpu/tpu/ec.py:336", "acvm_tpu/tpu/ec.py:273"],
+        bound_counts="bytes: u1, u2, Q's X and Y and the table read, R written; products from the "
+                     "scalars, 11 a mixed addition (a table entry or Q), 16 the last addition (above)",
+        latency_floor_from="longest chain x us_per_product_in_chain of the narrow carry-flag product (int32 line)")
+    assert kernels["ecdsa_mul"]["max_abs_err"] == 0 and ecdsa_rows["secp256r1"]["max_abs_err"] == 0
+    del ecdsa_operands
+    torch.cuda.empty_cache()
+
+    # The narrow kernels under the sources this tree's wide mode touched
+    # (field.cuh, ec.cuh, pow.cuh, mul.cu, pow.cu, batch_inv.cu, pt_add.cu,
+    # pt_ladder.cu), built from the parent tree at --parent=DIR beside this
+    # tree's and timed in one call, parent, change, change, parent, at their
+    # rows' shapes; each pair of outputs equal.
+    if parent_tree:
+        shape_rng = np.random.default_rng(71)
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+        words = fk._host_ptr(fk.field_words(BN254_FR))
+        a = random_elements((1 << 20,), BN254_FR, 72)
+        b = random_elements((1 << 20,), BN254_FR, 73)
+        inv_in = random_elements((2048, 2048), BN254_FR, 74)
+        ex = torch.from_numpy(exceptional_panel(2048)).to(dev)
+        P_pts, Q_pts = ex[0][None].repeat(64, 1, 1, 1), ex[1][None].repeat(64, 1, 1, 1)
+        k_lad = torch.from_numpy(shape_rng.integers(0, 1 << 32, size=(2048, 8), dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).to(dev)
+        sched = fk._host_ptr(fk.pow_schedule_words(P - 2))
+
+        def out_like(t):
+            return torch.empty_like(t)
+
+        cases = {  # kernel: (output, C arguments after the output is made)
+            "mul": (out_like(a), lambda o: (a.data_ptr(), b.data_ptr(), o.data_ptr(), 1 << 20, 0, 1, words,
+                                            stream())),
+            "pow": (out_like(a[: 1 << 16]), lambda o: (a.data_ptr(), o.data_ptr(), 1 << 16, sched, words,
+                                                       stream())),
+            "batch_inv": (out_like(inv_in), lambda o: (inv_in.data_ptr(), o.data_ptr(), 2048, 2048, 128,
+                                                       sched, words, stream())),
+            "pt_add": (out_like(P_pts), lambda o: (*ec_fused._view_args(P_pts, "P"),
+                                                   *ec_fused._view_args(Q_pts, "Q"),
+                                                   *ec_fused._view_args(o, "out"), 64, 2048, words,
+                                                   stream())),
+            "pt_ladder": (torch.empty((3, 2048, 8), dtype=torch.int32, device=dev),
+                          lambda o: (ex[0].data_ptr(), 2048 * 8, 8, k_lad.data_ptr(), o.data_ptr(),
+                                     2048 * 8, 8, 2048, words, stream())),
+        }
+        compare = {}
+        for name, (out0, args) in cases.items():
+            fns = {"parent": build.load_variant(
+                       name, [], source=f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu"),
+                   "change": build.load_variant(name, [])}
+            outs = {}
+            for side, fn in fns.items():
+                outs[side] = out_like(out0)
+                assert fn(*args(outs[side])) == 0, (name, side)
+            torch.cuda.synchronize()
+            assert torch.equal(outs["parent"], outs["change"]), name
+            row = {"parent_ms": [], "change_ms": [], "parent_ms_queued": [], "change_ms_queued": []}
+            for side in ("parent", "change", "change", "parent"):
+                o = outs[side]
+                run = lambda fn=fns[side], o=o: fn(*args(o))  # noqa: E731
+                row[f"{side}_ms"].append(time_ms(run))
+                row[f"{side}_ms_queued"].append(time_ms(run, calls=10))
+            compare[name] = row
+        emit({"parent_compare": {"card": smi, "parent": parent_tree, "equal_outputs": True,
+                                 "order": "parent, change, change, parent", "kernels": compare}})
+        del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases
+        torch.cuda.empty_cache()
+
+    # -- 17. kernels, 18. card, 19. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
              "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches,
-             "hash": hash_launches}
+             "hash": hash_launches, **ecdsa_launches}
     rows = []
     for name in build.KERNELS:
         row = kernels[name]

@@ -238,10 +238,20 @@ def test_batch_inv_chunks_and_axes(name, axis, max_scan, zeros):
 
 
 def test_wide_modulus_is_refused():
+    """A wide modulus (2p >= 2^256) runs in the wide mode of LimbContext (the
+    ECDSA fields, tests/test_torch_ecdsa.py); the narrow-only kernels, and a
+    product left unreduced, refuse it."""
     secp = tparams.FieldParams(
         "secp256k1", 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F)
-    with pytest.raises(NotImplementedError, match="wide"):
-        LimbContext(secp, device="cpu")
+    assert LimbContext(secp, device="cpu").wide
+    assert fk.limbs32_to_ints(fk.field_words(secp)[:8]) == [secp.modulus]
+    with pytest.raises(NotImplementedError, match="narrow only"):
+        fk.require_narrow(secp, "level")
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="narrow only"):
+        fk.mont_dot(z[None, None], z[None], None, None, None, z, params=secp)
+    with pytest.raises(ValueError, match="always reduces"):
+        fk.mont_mul(z, z, secp, reduce=False)
 
 
 def test_default_device_needs_a_card():

@@ -212,7 +212,8 @@ def test_schnorr_circuit_matches_sequential_engine():
     assert_equals_sequential(jcircuit, inputs, res, 77)
 
 
-@pytest.mark.parametrize("kind", ["pedersen", "fixed_base", "schnorr", "sha256", "blake2s", "keccak256"])
+@pytest.mark.parametrize("kind", ["pedersen", "fixed_base", "schnorr", "sha256", "blake2s", "keccak256",
+                                  "ecdsa_k1", "ecdsa_r1"])
 def test_gadget_circuits_and_inputs_equal_the_jax_package_s(kind):
     circuit = bench.build_gadget_circuit(kind, 2, msg_len=5)
     jcircuit = jbench.build_gadget_circuit(kind, 2, msg_len=5)
@@ -224,7 +225,7 @@ def test_gadget_circuits_and_inputs_equal_the_jax_package_s(kind):
     assert all(np.array_equal(cols[w], jcols[w]) and cols[w].dtype == jcols[w].dtype for w in cols)
     assert bench.columnar_instance(cols, 2) == jbench.columnar_instance(jcols, 2)
     with pytest.raises(NotImplementedError, match="not ported"):
-        bench.build_gadget_circuit("ecdsa_k1", 1)
+        bench.build_gadget_circuit("ecdsa_k2", 1)
 
 
 # ---------------------------------------------------------------------------

@@ -571,3 +571,90 @@ def test_hash_solver_on_card_equals_solver_on_cpu(card):
         assert torch.equal(gpu.panel.cpu(), cpu.panel)
         assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
     assert gpu is not None and cpu.ok.all()
+
+
+# ---------------------------------------------------------------------------
+# The wide field and ECDSA (secp256k1, secp256r1)
+# ---------------------------------------------------------------------------
+
+WIDE_FIELDS = [(curve, i) for curve in ("secp256k1", "secp256r1") for i in (0, 1)]
+
+
+@pytest.mark.parametrize("curve,which", WIDE_FIELDS, ids=lambda v: str(v))
+def test_wide_field_kernels_equal_plain_versions(card, curve, which):
+    """mul_wide (b any 256-bit value, and broadcast), pow_wide on the
+    exponents the schedule treats apart, batch_inv_wide on zeros at chunk
+    edges and a ragged last chunk: each against its plain version."""
+    from acvm_tpu_torch.gpu import ecdsa
+
+    params = ecdsa.curve_fields(curve)[which]
+    a, b = elements(1000, params, 1), elements(1000, params, 2)
+    b[7:20] = -1  # 2^256 - 1 in every limb
+    build.reset_launches()
+    assert torch.equal(fk.mont_mul(a.to(card), b.to(card), params).cpu(), fk.mont_mul_plain(a, b, params))
+    assert torch.equal(fk.mont_mul(a.to(card), b[5].to(card), params).cpu(),
+                       fk.mont_mul_plain(a, b[5], params))
+    for exponent in (0, 1, 2, 15, 16, 12345, params.modulus - 2, (1 << 256) - 1):
+        assert torch.equal(fk.mont_pow(a[:70].to(card), exponent, params).cpu(),
+                           fk.mont_pow_plain(a[:70], exponent, params))
+    x = a[:70 * 12].reshape(70, 12, 8).clone()
+    x[16, 1] = x[31, 1] = x[69, 2] = 0
+    x[32:48, 3] = 0
+    for max_scan in (16, 7, 1):
+        assert torch.equal(fk.mont_batch_inv(x.to(card), params, 0, max_scan).cpu(),
+                           fk.mont_batch_inv_plain(x, params, 0, max_scan))
+    assert build.LAUNCHES["mul_wide"] == 2 and build.LAUNCHES["pow_wide"] == 8
+    assert build.LAUNCHES["batch_inv_wide"] == 3 and build.LAUNCHES["mul"] == build.LAUNCHES["pow"] == 0
+
+
+@pytest.mark.parametrize("kind", ["ecdsa_k1", "ecdsa_r1"])
+def test_ecdsa_mul_kernel_equals_plain_version(card, kind):
+    """One launch against its plain version, X, Y and Z: scalars 0, 1, n - 1,
+    n (which the kernel takes as it comes), u1 G = u2 Q and u1 G = -u2 Q, a
+    ragged batch."""
+    from acvm_tpu_torch.blackbox.ec import secp256k1, secp256r1
+    from acvm_tpu_torch.gpu import ecdsa
+
+    curve = secp256k1 if kind == "ecdsa_k1" else secp256r1
+    name = curve.params.name
+    fp, _ = ecdsa.curve_fields(name)
+    n, p, R = curve.params.n, curve.params.p, fp.r
+    rng = np.random.default_rng(17)
+    B = 70
+    d = [int(rng.integers(1, 1 << 62)) for _ in range(B)]
+    k1 = [int.from_bytes(rng.bytes(32), "little") % n for _ in range(B)]
+    k2 = [int.from_bytes(rng.bytes(32), "little") % n for _ in range(B)]
+    k1[:4], k2[:4] = [0, 1, n - 1, n], [5, 0, n - 1, 1]
+    k1[4], k2[4], d[4] = 6, 3, 2  # u1 G = 6 G = 3 (2 G) = u2 Q
+    k1[5], k2[5], d[5] = n - 6, 3, 2  # u1 G = -u2 Q: infinity
+    pts = [curve.mul(di, curve.generator()) for di in d]
+    Q = torch.from_numpy(np.stack([fk.ints_to_limbs32([pt[c] * R % p for pt in pts]) for c in (0, 1)]
+                                  + [fk.ints_to_limbs32([R % p] * B)]))
+    u1 = torch.from_numpy(fk.ints_to_limbs32(k1).copy())
+    u2 = torch.from_numpy(fk.ints_to_limbs32(k2).copy())
+    table = ecdsa.gen_table(name, "cpu")
+    build.reset_launches()
+    got = ecdsa.ecdsa_mul(name, u1.to(card), u2.to(card), Q.to(card), table.to(card))
+    assert build.LAUNCHES["ecdsa_mul"] == 1
+    want = ecdsa.ecdsa_mul_plain(name, u1, u2, Q, table)
+    assert torch.equal(got.cpu(), want)
+    assert (got[2, 5] == 0).all() and not (got[2, 4] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["ecdsa_k1", "ecdsa_r1"])
+def test_ecdsa_solver_on_card_equals_solver_on_cpu(card, kind):
+    """The planted cases and a pool of valid signatures: the same panel, flags
+    and first failures on the card (one ecdsa_mul launch) and on the CPU."""
+    from acvm_tpu_torch.utils import ecdsa_inputs
+
+    circuit = build_gadget_circuit(kind, 2)
+    cols, valid, err = ecdsa_inputs(circuit, 20, kind, pool=4)
+    plan = plan_circuit(circuit)
+    build.reset_launches()
+    gpu = BatchSolver(plan).solve(cols)
+    assert build.LAUNCHES["ecdsa_mul"] == 1 and build.LAUNCHES["mul_wide"] > 0, build.LAUNCHES
+    cpu = BatchSolver(plan, device="cpu").solve(cols)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel)
+    assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
+    outs = np.array([gpu.witness_ints(int(op.call.output)) for op in circuit.opcodes], dtype=bool)
+    assert np.array_equal(outs, valid & ~err) and np.array_equal(gpu.ok, ~err.any(0))

@@ -242,7 +242,8 @@ def unported_opcode(kind):
                                        ("brillig_jump", "host stages"),
                                        ("brillig_foreign_call", "host stages")])
 def test_other_unported_kinds_still_raise(kind, what):
-    """ECDSA planned for the device still raises.  The SHA-256 opcode solves
+    """ECDSA planned for the device packs its level as an ECDSA group (its
+    solves are held to the JAX package in tests/test_torch_ecdsa.py).  The SHA-256 opcode solves
     on the device's hash level (the plain digest here) and equals pwg.ACVM.
     The two Brillig blocks are host stages: the jump runs on the device
     Brillig VM (its plain version here), as the JAX package's host path runs
@@ -276,8 +277,11 @@ def test_other_unported_kinds_still_raise(kind, what):
         res = BatchSolver(plan_circuit(circuit), device="cpu").solve([{1: 3}, {1: 4}])
         assert not res.ok.any() and res.fail.tolist() == [0, 0]
         return
-    with pytest.raises(NotImplementedError, match=rf"^BatchSolver: {what} \(Level.{kind}\) are not ported"):
-        BatchSolver(plan_circuit(circuit), device="cpu")
+    assert kind == "ecdsa" and what == "ECDSA verification"
+    groups = [g for seg in BatchSolver(plan_circuit(circuit), device="cpu").segments
+              for lv in seg.levels for g in lv.get(kind, [])]
+    assert [g["curve"] for g in groups] == ["secp256k1"]
+    assert groups[0]["sig"].tolist() == [[1] * 64] and groups[0]["out_idx"].tolist() == [2]
 
 
 def test_to_le_radix_of_other_radices_and_permutation_sort_raise():
