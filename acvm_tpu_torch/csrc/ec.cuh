@@ -25,9 +25,10 @@
 // (Z1 + Z2)^2 - Z1Z1 - Z2Z2 = 2 Z1, so the same chain gives the same
 // canonical X3, Y3 and Z3 for 11 products where ec_add takes 16.
 //
-// All three work in place on P.  Q is read through pointers, each coordinate
-// when the formula first needs it, so a caller whose Q never changes (a
-// ladder's base) holds none of it in registers between additions.
+// All three work in place on P.  Q is read through pointers (ec_add: or any
+// source of its three coordinates, ec_add_from), each coordinate when the
+// formula first needs it, so a caller whose Q never changes (a ladder's base)
+// holds none of it in registers between additions.
 #pragma once
 
 #include "field.cuh"
@@ -111,18 +112,33 @@ __device__ __forceinline__ void ec_dbl(uint32_t x[ACVM_LIMBS], uint32_t y[ACVM_L
     }
 }
 
-// P <- P + Q, complete.  Q's coordinates lie 8 limbs each at qx, qy, qz.
-template <int A, class F>
-__device__ __forceinline__ void ec_add(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM_LIMBS],
-                                       uint32_t z1[ACVM_LIMBS], const uint32_t* qx,
-                                       const uint32_t* qy, const uint32_t* qz, const F& f) {
+// Where ec_add reads Q from: three coordinates in memory, 8 contiguous limbs
+// each.  A caller with Q elsewhere (ecdsa_mul's lane table in shared memory)
+// passes its own source with the same three loads.
+struct PointAt {
+    const uint32_t* px;
+    const uint32_t* py;
+    const uint32_t* pz;
+    template <class F>
+    __device__ __forceinline__ void x(uint32_t r[ACVM_LIMBS], const F&) const { load_fe(r, px); }
+    template <class F>
+    __device__ __forceinline__ void y(uint32_t r[ACVM_LIMBS], const F&) const { load_fe(r, py); }
+    template <class F>
+    __device__ __forceinline__ void z(uint32_t r[ACVM_LIMBS], const F&) const { load_fe(r, pz); }
+};
+
+// P <- P + Q, complete, Q read from `q` (a PointAt or a source like it), each
+// coordinate when the formula first needs it.
+template <int A, class F, class Src>
+__device__ __forceinline__ void ec_add_from(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM_LIMBS],
+                                            uint32_t z1[ACVM_LIMBS], const Src& q, const F& f) {
     uint32_t z2[ACVM_LIMBS], t[ACVM_LIMBS];
-    load_fe(z2, qz);
+    q.z(z2, f);
     // Identities first (the reference's last selects: Q at infinity wins).
     if (is_zero(z2)) return;
     if (is_zero(z1)) {
-        load_fe(x1, qx);
-        load_fe(y1, qy);
+        q.x(x1, f);
+        q.y(y1, f);
 #pragma unroll
         for (int i = 0; i < ACVM_LIMBS; ++i) z1[i] = z2[i];
         return;
@@ -133,12 +149,12 @@ __device__ __forceinline__ void ec_add(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM
     mont_mul(z1z1, z1, z1, f);
     mont_mul(z2z2, z2, z2, f);
     mont_mul(u1, x1, z2z2, f);
-    load_fe(t, qx);
+    q.x(t, f);
     mont_mul(t, t, z1z1, f);         // U2
     sub_mod(h, t, u1, f);            // H = U2 - U1
     mont_mul(s1, y1, z2, f);
     mont_mul(s1, s1, z2z2, f);       // S1
-    load_fe(t, qy);
+    q.y(t, f);
     mont_mul(t, t, z1, f);
     mont_mul(t, t, z1z1, f);         // S2
     sub_mod(rr, t, s1, f);           // r = S2 - S1
@@ -170,6 +186,14 @@ __device__ __forceinline__ void ec_add(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM
     sub_mod(t, t, z1z1, f);
     sub_mod(t, t, z2z2, f);
     mont_mul(z1, t, h, f);           // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+}
+
+// P <- P + Q, complete.  Q's coordinates lie 8 limbs each at qx, qy, qz.
+template <int A, class F>
+__device__ __forceinline__ void ec_add(uint32_t x1[ACVM_LIMBS], uint32_t y1[ACVM_LIMBS],
+                                       uint32_t z1[ACVM_LIMBS], const uint32_t* qx,
+                                       const uint32_t* qy, const uint32_t* qz, const F& f) {
+    ec_add_from<A>(x1, y1, z1, PointAt{qx, qy, qz}, f);
 }
 
 // P <- P + Q for a finite Q with Z = one (R mod p): madd-2007-bl, the branches

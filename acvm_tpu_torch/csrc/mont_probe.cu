@@ -6,7 +6,8 @@
 // 256 the latency of one product, which is what a ladder's lone warp waits for.  Variants: 0 the C product with 64-bit partial sums (one serial carry
 // chain), 1 the carry-flag product over even and odd limbs, 2 the unreduced
 // 512-bit product followed by one wide reduction.  All three give the same
-// canonical values.
+// canonical values.  3 the wide carry-flag product (WideField, 2^255 < p) in
+// the same chain: the time of a product in ecdsa_mul's chains.
 #include "field.cuh"
 
 // ---------------------------------------------------------------------------
@@ -166,16 +167,38 @@ __global__ void mont_probe_kernel(const uint32_t* __restrict__ a, const uint32_t
     store_fe(out + i * ACVM_LIMBS, x);
 }
 
+// ---------------------------------------------------------------------------
+// Variant 3: the wide product (field.cuh's mont_mul over a WideField) in the
+// same chain, x = x * b[i].
+__global__ void mont_probe_wide_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                                       uint32_t* __restrict__ out, long long n, int chain,
+                                       const WideField f) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    uint32_t x[ACVM_LIMBS], y[ACVM_LIMBS];
+    load_fe(x, a + i * ACVM_LIMBS);
+    load_fe(y, b + i * ACVM_LIMBS);
+#pragma unroll 1
+    for (int k = 0; k < chain; ++k) mont_mul(x, x, y, f);
+    store_fe(out + i * ACVM_LIMBS, x);
+}
+
 extern "C" int acvm_mont_probe(const void* a, const void* b, void* out, long long n, int chain,
                                int variant, int threads, const uint32_t* field_words,
                                void* stream) {
-    if (n <= 0 || threads <= 0 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || threads <= 0 || variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    const Field f = field_from_words(field_words);
     const uint32_t *pa = (const uint32_t*)a, *pb = (const uint32_t*)b;
+    uint32_t* po = (uint32_t*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    if (variant == 0) mont_probe_kernel<0><<<blocks, threads, 0, s>>>(pa, pb, (uint32_t*)out, n, chain, f);
-    if (variant == 1) mont_probe_kernel<1><<<blocks, threads, 0, s>>>(pa, pb, (uint32_t*)out, n, chain, f);
-    if (variant == 2) mont_probe_kernel<2><<<blocks, threads, 0, s>>>(pa, pb, (uint32_t*)out, n, chain, f);
+    if (variant == 3) {
+        mont_probe_wide_kernel<<<blocks, threads, 0, s>>>(pa, pb, po, n, chain,
+                                                         field_from_words_as<WideField>(field_words));
+        return (int)cudaGetLastError();
+    }
+    const Field f = field_from_words(field_words);
+    if (variant == 0) mont_probe_kernel<0><<<blocks, threads, 0, s>>>(pa, pb, po, n, chain, f);
+    if (variant == 1) mont_probe_kernel<1><<<blocks, threads, 0, s>>>(pa, pb, po, n, chain, f);
+    if (variant == 2) mont_probe_kernel<2><<<blocks, threads, 0, s>>>(pa, pb, po, n, chain, f);
     return (int)cudaGetLastError();
 }

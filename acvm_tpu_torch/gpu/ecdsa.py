@@ -11,10 +11,14 @@ card).
 R = u1 G + u2 Q is ONE launch of ``csrc/ecdsa_mul.cu`` (:func:`ecdsa_mul`), a
 thread a verification, where the reference gathers the generator's window
 entries into a tree of complete additions, scans 256 double-and-add steps for
-u2 Q and adds the two, each a long sequence of limb ops.  Its plain version
-:func:`ecdsa_mul_plain` runs the kernel's own chain one field operation at a
-time (``ec.pt_double``, the mixed addition :func:`pt_madd` and ``ec.pt_add``
-over half-limbs), so X, Y and Z agree limb for limb; the reference's chain is
+u2 Q and adds the two, each a long sequence of limb ops.  The kernel sums u1 G
+over the generator's 64 window entries, builds each lane's table of 1Q ... 8Q,
+runs u2 Q over signed 4-bit windows (:func:`signed_windows`: 256 doublings and
+64 complete additions, every lane adding at the same steps) and adds the two.
+Its plain version :func:`ecdsa_mul_plain` runs that chain one field operation
+at a time over half-limbs (``ec.pt_double``, the mixed addition :func:`pt_madd`
+and ``ec.pt_add``, whose canonical values are those of ``csrc/ec.cuh``'s
+formulas), so X, Y and Z agree limb for limb; the reference's chain is
 another one, with the same affine R.
 """
 
@@ -29,7 +33,7 @@ import torch
 from .. import build
 from ..blackbox.ec import SECP256K1, SECP256R1, Curve
 from ..fields import kernels as fk
-from ..fields.kernels import LIMBS, int_to_limbs32
+from ..fields.kernels import LIMBS, M32, int_to_limbs32
 from ..fields.params import FieldParams
 from ..fields.torch_ops import LimbContext, geq
 from . import ec, intops
@@ -120,6 +124,19 @@ def _sub_once(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def mul_operands(curve_name: str, u1s, u2s, points):
+    """Python ints -> the operands of :func:`ecdsa_mul` on the CPU: u1 and u2
+    (B, 8) standard-form limbs of each scalar mod 2^256, Q (3, B, 8) with X =
+    x R, Y = y R and Z = R mod p for each affine (x, y) of ``points``."""
+    fp, _ = curve_fields(curve_name)
+    p, R = fp.modulus, fp.r
+    Q = np.stack([fk.ints_to_limbs32([pt[c] * R % p for pt in points]) for c in (0, 1)]
+                 + [fk.ints_to_limbs32([R % p] * len(points))])
+    return tuple(torch.from_numpy(np.ascontiguousarray(v)) for v in (
+        fk.ints_to_limbs32([k % (1 << 256) for k in u1s]),
+        fk.ints_to_limbs32([k % (1 << 256) for k in u2s]), Q))
+
+
 def _check_mul_operands(u1, u2, Q, table) -> int:
     for name, t in (("u1", u1), ("u2", u2), ("Q", Q), ("table", table)):
         if t.dtype != torch.int32 or t.shape[-1] != LIMBS:
@@ -134,6 +151,21 @@ def _check_mul_operands(u1, u2, Q, table) -> int:
     if table.shape != (NUM_WINDOWS, 1 << WINDOW_BITS, 3, LIMBS):
         raise ValueError(f"ecdsa_mul: the generator's full window table, got {tuple(table.shape)}")
     return B
+
+
+def _a_mont_half(curve_name: str, device):
+    """The curve's a in Montgomery half-limbs for ``ec.pt_double`` where a =
+    -3, None where a = 0."""
+    if not _a_minus_3(curve_name):
+        return None
+    return fk.split_half(_curve_consts(curve_name, str(device))[1])
+
+
+def _dbl(hf, p, a_mont):
+    """2P as ``csrc/ec.cuh::ec_dbl`` gives it: ``ec.pt_double``, P at
+    infinity kept as it is, limb for limb."""
+    keep = ec.pt_is_inf(p)[..., None]
+    return tuple(torch.where(keep, a, d) for a, d in zip(p, ec.pt_double(hf, p, a_mont)))
 
 
 def pt_madd(hf, p, q, a_mont=None):
@@ -168,20 +200,60 @@ def pt_madd(hf, p, q, a_mont=None):
     return (torch.where(p_inf, x2, x3), torch.where(p_inf, y2, y3), torch.where(p_inf, one, z3))
 
 
+LANE_ENTRIES = 8  # the lane's table: 1Q ... 8Q, the magnitudes of a signed 4-bit digit
+
+
+def signed_windows(u: torch.Tensor) -> torch.Tensor:
+    """(B, 8) standard-form scalars -> (B, 65) int64 digits s_0 ... s_64 with
+    sum s_i 16^i = u, s_i in [-8, 8) for i < 64 and s_64 in {0, 1}: the
+    nibbles of u + 0x888...8 (64 eights) less 8, and the sum's carry, the
+    kernel's recoding."""
+    v = u.to(torch.int64) & M32
+    carry = torch.zeros_like(v[:, 0])
+    digits = []
+    for limb in range(LIMBS):
+        s = v[:, limb] + 0x88888888 + carry
+        carry = s >> 32
+        digits += [((s >> (4 * k)) & 15) - 8 for k in range(8)]
+    return torch.stack(digits + [carry], dim=1)
+
+
+def _lane_table(hf, base, a_mont):
+    """The lane's table (e + 1) Q for e = 0 .. 7 as half-limb triples: Q with
+    Z = one, 2Q a doubling, 3Q ... 8Q mixed additions of Q."""
+    table = [(base[0], base[1], hf.one.expand_as(base[0]))]
+    table.append(_dbl(hf, table[0], a_mont))
+    for _ in range(2, LANE_ENTRIES):
+        table.append(pt_madd(hf, table[-1], base, a_mont))
+    return table
+
+
+def lane_table_plain(curve_name: str, Q: torch.Tensor) -> torch.Tensor:
+    """The table each lane of ``ecdsa_mul`` builds from its Q ((3, B, 8)
+    Montgomery, Z = R mod p; the Z plane is not read): (8, 3, B, 8), entry e
+    = (e + 1) Q, Jacobian Montgomery."""
+    fp, _ = curve_fields(curve_name)
+    hf = fk.half_field(fp, Q.device)
+    base = fk.split_half(Q)
+    table = _lane_table(hf, (base[0], base[1]), _a_mont_half(curve_name, Q.device))
+    return torch.stack([fk.join_half(torch.stack(entry)) for entry in table])
+
+
 def ecdsa_mul_plain(curve_name: str, u1: torch.Tensor, u2: torch.Tensor, Q: torch.Tensor,
                     table: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`ecdsa_mul` (any device): the kernel's chain one
     field operation at a time over int64 half-limbs.  u1 G as the sum of
     T[w][d_w] over the 64 windows of u1 in order, each a mixed addition
-    (:func:`pt_madd`; a zero digit adds nothing); u2 Q MSB first,
-    ``acc = 2 acc`` (infinity kept as it is, limb for limb) and, for a set
-    bit, ``acc = acc + Q`` (mixed); then R = u2 Q + u1 G (``ec.pt_add``)."""
+    (:func:`pt_madd`; a zero digit adds nothing); the lane's table of 1Q ...
+    8Q; u2 Q from its top digit (Q or infinity) over the 64 signed windows
+    (:func:`signed_windows`) MSB first, four doublings (infinity kept as it
+    is, limb for limb) and, for a nonzero digit s, ``acc + sign(s) |s| Q``
+    (``ec.pt_add``, a negative entry (X, p - Y, Z)); then R = u2 Q + u1 G
+    (``ec.pt_add``)."""
     B = _check_mul_operands(u1, u2, Q, table)
     fp, _ = curve_fields(curve_name)
     hf = fk.half_field(fp, u1.device)
-    a_mont = None
-    if _a_minus_3(curve_name):
-        a_mont = fk.split_half(_curve_consts(curve_name, str(u1.device))[1])
+    a_mont = _a_mont_half(curve_name, u1.device)
     zero = torch.zeros((B, fk.HALF), dtype=torch.int64, device=u1.device)
     digits = ec._window_digits(u1)  # (B, 64)
     flat = table.reshape(NUM_WINDOWS << WINDOW_BITS, 3, LIMBS)
@@ -192,14 +264,19 @@ def ecdsa_mul_plain(curve_name: str, u1: torch.Tensor, u2: torch.Tensor, Q: torc
         take = (digits[:, w] != 0)[:, None]
         g1 = tuple(torch.where(take, n, o) for n, o in zip(added, g1))
     base = fk.split_half(Q)
-    base = (base[0], base[1])
-    acc = (zero, zero, zero)
-    bits = ec.scalar_bits(u2)
-    for i in range(LIMBS * 32 - 1, -1, -1):
-        keep = ec.pt_is_inf(acc)[:, None]
-        acc = tuple(torch.where(keep, a, d) for a, d in zip(acc, ec.pt_double(hf, acc, a_mont)))
-        added = pt_madd(hf, acc, base, a_mont)
-        take = bits[i][:, None]
+    lane_table = torch.stack([torch.stack(e) for e in _lane_table(hf, (base[0], base[1]), a_mont)])
+    lanes = torch.arange(B, device=u1.device)
+    s = signed_windows(u2)
+    top = (s[:, NUM_WINDOWS] != 0)[:, None]
+    acc = tuple(torch.where(top, c, zero) for c in lane_table[0])
+    for w in range(NUM_WINDOWS - 1, -1, -1):
+        for _ in range(WINDOW_BITS):
+            acc = _dbl(hf, acc, a_mont)
+        d = s[:, w]
+        entry = lane_table[(d.abs() - 1).clamp(min=0), :, lanes]  # (B, 3, 16)
+        y = torch.where((d < 0)[:, None], hf.sub(zero, entry[:, 1]), entry[:, 1])
+        added = ec.pt_add(hf, acc, (entry[:, 0], y, entry[:, 2]), a_mont)
+        take = (d != 0)[:, None]
         acc = tuple(torch.where(take, n, o) for n, o in zip(added, acc))
     return fk.join_half(torch.stack(ec.pt_add(hf, acc, g1, a_mont)))
 

@@ -872,6 +872,37 @@ def ecdsa_planted(kind: str, seed: int = 5):
     return cases
 
 
+def ecdsa_mul_edges(kind: str, seed: int = 5):
+    """Lanes of R = u1 G + u2 Q at the edges of ``ecdsa_mul``'s chain, each a
+    ``(label, u1, u2, Q)`` of Python ints (Q an affine pair; the scalars
+    taken as they come, all 256 bits): u2 = 0, 1, 7, 8, 15, 16 (the low
+    window's digit and carry), n - 1, 2^255 and 2^256 - 1 (every nibble 15:
+    a top window that carries); u1 = 0; u1 G = u2 Q and u1 G = -u2 Q (the
+    last addition's doubling and infinity); u2 = n + 2 s_0 (the accumulator
+    equals the last window's entry: the doubling inside the ladder) and u2 =
+    n (its negative: infinity there); an off-curve Q with Y = 0 (its lane is
+    run all the same: 2Q has Z = 0)."""
+    curve = _ecdsa_curve(kind)
+    n, p = curve.params.n, curve.params.p
+    rng = random.Random(seed)
+    d = rng.randrange(1, n)
+    Q = curve.mul(d, curve.generator())
+    lanes = [(f"u2_{label}", rng.randrange(n), k2, Q) for label, k2 in (
+        ("0", 0), ("1", 1), ("7", 7), ("8", 8), ("15", 15), ("16", 16), ("n-1", n - 1),
+        ("2^255", 1 << 255), ("2^256-1", (1 << 256) - 1))]
+    k2 = rng.randrange(1, n)
+    lanes += [("u1_0", 0, k2, Q), ("u1G_eq_u2Q", k2 * d % n, k2, Q),
+              ("u1G_eq_minus_u2Q", -k2 * d % n, k2, Q)]
+    s0 = (8 - n) % 16 - 8  # the low digit s of n + 2s is s itself
+    assert s0 != 0
+    lanes += [("acc_eq_entry", rng.randrange(n), n + 2 * s0, Q),
+              ("acc_eq_minus_entry", rng.randrange(n), n, Q)]
+    x = rng.randrange(1, p)
+    assert not curve.is_on_curve((x, 0))
+    lanes.append(("off_curve_y_0", rng.randrange(n), rng.randrange(n), (x, 0)))
+    return lanes
+
+
 def ecdsa_instance_bytes(values) -> Dict[str, bytes]:
     """(x, y, r, s, z) -> the gadget's byte strings, big-endian."""
     x, y, r, s, z = values

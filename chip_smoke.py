@@ -26,12 +26,14 @@
                                      # the tree unpacked at DIR (the
                                      # earlier launcher: no launch plan) on
                                      # the same state
-    python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv, pt_add
-                                     # and pt_ladder built from the tree
+    python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv (and
+                                     # their wide modes), pt_add, pt_ladder
+                                     # and ecdsa_mul built from the tree
                                      # unpacked at DIR (git archive <commit>
                                      # acvm_tpu_torch/csrc | tar -x -C DIR)
-                                     # beside this tree's, equal outputs,
-                                     # timed parent, change, change, parent
+                                     # beside this tree's, equal outputs
+                                     # (ecdsa_mul's affine R), timed parent,
+                                     # change, change, parent
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -43,7 +45,7 @@ build, a failed launch or a failed comparison raises and the exit code is not
                reaches on this card, and the candidate Montgomery products of
                ``csrc/field.cuh`` side by side: products a second at N = 2^20
                with 1 and with 32 products a thread, and microseconds a product
-               in one warp's chain of 256;
+               in one warp's chain of 256; the wide product in such a chain;
 4. ``path_static``  the 2^16-gate BN254 circuit (8 levels x 8,192 gates) over
                2,048 instances through ``plan_circuit`` -> ``BatchSolver`` ->
                ``solve``: flags, two full witness maps against a Python-int
@@ -154,9 +156,12 @@ build, a failed launch or a failed comparison raises and the exit code is not
                the schedule's edge exponents, ``batch_inv_wide`` at the folded
                solve's 32,768 values in 2 rows, on both curves' p and n, and
                ``ecdsa_mul`` on
-               each solve's own operands (X, Y and Z against its plain version,
-               64 lanes' affine R against the Python-int curve), with its bound
-               and the latency floor of its longest chain;
+               each solve's own operands and the edge lanes of
+               ``utils.ecdsa_mul_edges`` (X, Y and Z against its plain version,
+               the affine R of 64 path lanes and of the edge lanes against the
+               Python-int curve), with its bound (the products this kernel
+               runs), the longest warp's chain of products and its floor,
+               shared memory and blocks an SM, and its time at 32,768 lanes;
 17. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
@@ -183,6 +188,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Data sheet of the H100 SXM: 3.35 TB/s of device memory; 132 SMs x 64 int32
 # lanes x 1.98 GHz boost = one multiply-add per lane per clock at best.
@@ -502,11 +508,30 @@ def main() -> int:
                             "products_per_s_chain_32": 32 * n_mul / (busy_ms * 1e-3),
                             "chain_256_ms": chain_ms, "us_per_product_in_chain": chain_ms * 1e3 / chain}
     del pa, pb, want_one, got_one
+    # The wide product (secp256k1's p) in one warp's chain of 256 a thread:
+    # the time of a product in ecdsa_mul's chains (its latency floor).
+    from acvm_tpu_torch.gpu.ecdsa import curve_fields
+
+    k1_field = curve_fields("secp256k1")[0]
+    wa = random_elements((32,), k1_field, 3)
+    wb = random_elements((32,), k1_field, 4)
+    wide_out = torch.empty_like(wa)
+    wide_ms = time_ms(lambda: build.launch(
+        "mont_probe", wa.data_ptr(), wb.data_ptr(), wide_out.data_ptr(), 32, chain, 3, 32,
+        fk._host_ptr(fk.field_words(k1_field)), torch.cuda.current_stream().cuda_stream), calls=10)
+    want_x = wa
+    for _ in range(chain):
+        want_x = fk.mont_mul_plain(want_x, wb, k1_field)
+    wide_chain = {"field": k1_field.name, "max_abs_err": max_abs_err(wide_out, want_x), "chain": chain,
+                  "chain_ms": wide_ms, "us_per_product_in_chain": wide_ms * 1e3 / chain}
+    assert wide_chain["max_abs_err"] == 0, wide_chain
+    del wa, wb, wide_out, want_x
     emit({"int32": {"bound_madds_per_s": INT32_MADDS_PER_S,
                     "bound_from": "data sheet: 132 SMs x 64 int32 lanes x 1.98 GHz",
                     "probe_madds_per_s": blocks * threads * iters * 8 / (probe_ms * 1e-3),
                     "probe": "acvm_tpu_torch/csrc/imad_rate.cu",
                     "mont_mul_candidates": candidates,
+                    "wide_mont_mul_chain": wide_chain,
                     "candidates_probe": "acvm_tpu_torch/csrc/mont_probe.cu",
                     "field_cuh_mont_mul_is": "carry_flag_even_odd"}})
 
@@ -2660,67 +2685,109 @@ def main() -> int:
     del x, got
 
     # ecdsa_mul on the operands of each 4,096-instance solve above (8,192
-    # lanes: u1, u2, Q as the path gives them): X, Y and Z against the plain
-    # version, which runs the same chain; the affine R of 64 lanes against the
-    # Python-int curve.  Products counted from the scalars: each nonzero
-    # window of u1 after the first a mixed addition of 11 (the table's entries
-    # have Z = one), each bit of u2 after its top bit a doubling (7 for a = 0,
-    # 8 for a = -3) and each set bit after the top one a mixed addition of 11
-    # (Q has Z = one), the final addition of two Jacobian points 16 where both
-    # parts are finite (the few planted lanes whose branches differ, a
-    # doubling or infinity inside, are counted as generic).  Bytes: u1, u2,
-    # Q's X and Y and the table read once, R written.
+    # lanes: u1, u2, Q as the path gives them) and the edge lanes of
+    # utils.ecdsa_mul_edges after them, in one launch: X, Y and Z against the
+    # plain version, which runs the same chain; the affine R of 64 path lanes
+    # and of every edge lane on the curve against the Python-int curve.  Timed
+    # on the path's 8,192 lanes alone.
+    #
+    # Products counted from the scalars as this kernel runs them
+    # (ecdsa_chain_counts): u1 G a mixed addition of 11 for each nonzero window
+    # after the first, the lane's table 73 / 74, four doublings a window once
+    # the accumulator is finite, 16 a nonzero window's addition to a finite
+    # accumulator, 16 the last addition.  Bytes: u1, u2, Q's X and Y and the
+    # table read once, R written.  A warp runs a step's products where any of
+    # its lanes does, so warp_chain_products, the most any warp's sum over the
+    # steps of the most its 32 lanes run there, sets the latency floor at the
+    # wide product's time in a chain (int32 line).
     from acvm_tpu_torch.blackbox.ec import Curve
+    from acvm_tpu_torch.utils import ecdsa_mul_edges
 
-    ecdsa_rows = {}
-    for curve_name in ("secp256k1", "secp256r1"):
-        u1, u2, Q, table = ecdsa_operands["ecdsa_k1" if curve_name == "secp256k1" else "ecdsa_r1"]
+    lib_ecdsa = build.load("ecdsa_mul")
+    lib_ecdsa.acvm_ecdsa_mul_blocks_per_sm.argtypes = [ctypes.c_int]
+    ecdsa_rows, ecdsa_parent = {}, {}
+    for curve_name, kind in (("secp256k1", "ecdsa_k1"), ("secp256r1", "ecdsa_r1")):
+        u1, u2, Q, table = ecdsa_operands[kind]
         B2 = u1.shape[0]
-        got = gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table)
+        edges = ecdsa_mul_edges(kind)
+        e1, e2, eq = (t.to(dev) for t in gpu_ecdsa.mul_operands(curve_name, *zip(*[e[1:] for e in edges])))
+        a1, a2, aq = torch.cat([u1, e1]), torch.cat([u2, e2]), torch.cat([Q, eq], dim=1)
+        got = gpu_ecdsa.ecdsa_mul(curve_name, a1, a2, aq, table)
         t0 = time.perf_counter()
-        want = gpu_ecdsa.ecdsa_mul_plain(curve_name, u1, u2, Q, table)
+        want = gpu_ecdsa.ecdsa_mul_plain(curve_name, a1, a2, aq, table)
         torch.cuda.synchronize()
         plain_seconds = time.perf_counter() - t0
         err = max_abs_err(got, want)
         curve = Curve(gpu_ecdsa.CURVES[curve_name])
-        cp = curve.params
         fp, _ = gpu_ecdsa.curve_fields(curve_name)
         ctx_p = LimbContext(fp, dev)
-        ax, ay = (fk.limbs32_to_ints(c.cpu().numpy()) for c in ec.pt_to_affine(ctx_p, ec.point_of(got)))
-        inf = ec.pt_is_inf(ec.point_of(got)).tolist()
-        k1s, k2s = fk.limbs32_to_ints(u1.cpu().numpy()), fk.limbs32_to_ints(u2.cpu().numpy())
-        qx, qy = (fk.limbs32_to_ints(fk.mont_mul(c, ctx_p.one_limbs, fp).cpu().numpy()) for c in (Q[0], Q[1]))
-        for lane in list(range(32)) + list(range(B2 - 32, B2)):
+
+        def affine(R):
+            ax, ay = (fk.limbs32_to_ints(c.cpu().numpy()) for c in ec.pt_to_affine(ctx_p, ec.point_of(R)))
+            return [None if inf else (x, y) for x, y, inf in zip(ax, ay, ec.pt_is_inf(ec.point_of(R)).tolist())]
+
+        got_pts = affine(got)
+        k1s, k2s = fk.limbs32_to_ints(a1.cpu().numpy()), fk.limbs32_to_ints(a2.cpu().numpy())
+        qx, qy = (fk.limbs32_to_ints(fk.mont_mul(c, ctx_p.one_limbs, fp).cpu().numpy()) for c in (aq[0], aq[1]))
+        checked = 0
+        for lane in list(range(32)) + list(range(B2 - 32, B2 + len(edges))):
             q = (qx[lane], qy[lane])
             if not curve.is_on_curve(q):
                 continue
             want_pt = curve.add(curve.mul(k1s[lane], curve.generator()), curve.mul(k2s[lane], q))
-            assert (None if inf[lane] else (ax[lane], ay[lane])) == want_pt, (curve_name, lane)
-        dbl = 8 if gpu_ecdsa._a_minus_3(curve_name) else 7
-        products = 0
-        longest = 0
-        for s1, s2 in zip(k1s, k2s):
-            nz = sum(1 for w in range(64) if (s1 >> (4 * w)) & 15)
-            lane = 11 * max(nz - 1, 0)
-            if s2:
-                lane += dbl * (s2.bit_length() - 1) + 11 * (bin(s2).count("1") - 1)
-            lane += 16 if s1 and s2 else 0
-            products += lane
-            longest = max(longest, lane)
-        b_ms, b_by = bound(B2 * (32 + 32 + 64 + 96) + table.numel() * 4, products * MADDS_PER_MONT_MUL)
+            assert got_pts[lane] == want_pt, (curve_name, lane)
+            checked += 1
+        del got, want, a1, a2, aq
+        a3 = gpu_ecdsa._a_minus_3(curve_name)
+        design = ecdsa_chain_counts(u1.cpu().numpy(), gpu_ecdsa.signed_windows(u2).cpu().numpy(),
+                                    8 if a3 else 7)
+        b_ms, b_by = bound(B2 * (32 + 32 + 64 + 96) + table.numel() * 4,
+                           design["products"] * MADDS_PER_MONT_MUL)
         ecdsa_rows[curve_name] = dict(
             shape=f"B={B2} (the operands of path_ecdsa's solve), {curve_name}", max_abs_err=err,
-            affine_checked_lanes=64, products_per_lane=products / B2, longest_chain_products=longest,
+            edge_lanes=[label for label, _, _, _ in edges], affine_checked_lanes=checked,
+            products_per_lane=design["products"] / B2, longest_chain_products=design["longest_lane"],
+            warp_chain_products=design["warp_chain"],
             ms=time_ms(lambda: gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table), reps=5),
             ms_queued=time_ms(lambda: gpu_ecdsa.ecdsa_mul(curve_name, u1, u2, Q, table), reps=3, calls=5),
-            latency_floor_ms=longest * candidates["carry_flag_even_odd"]["us_per_product_in_chain"] * 1e-3,
+            latency_floor_ms=design["warp_chain"] * wide_chain["us_per_product_in_chain"] * 1e-3,
+            shared_bytes_a_block=lib_ecdsa.acvm_ecdsa_mul_shared_bytes(),
+            blocks_per_sm=lib_ecdsa.acvm_ecdsa_mul_blocks_per_sm(int(a3)),
             plain_ms=plain_seconds * 1e3, bound_ms=b_ms, bound_by=b_by)
-        del got, want
+        # The warp's chain is the lane's: every lane adds at the same windows.
+        assert design["warp_chain"] <= design["longest_lane"] + 100, ecdsa_rows[curve_name]
+        if parent_tree:
+            # The parent tree's kernel on the same operands, compared on the
+            # affine R (its X, Y and Z come from another chain), timed parent,
+            # change, change, parent.
+            fns = {"parent": build.load_variant(
+                       "ecdsa_mul", [], source=f"{parent_tree}/acvm_tpu_torch/csrc/ecdsa_mul.cu"),
+                   "change": build.load_variant("ecdsa_mul", [])}
+            field_ptr = fk._host_ptr(fk.field_words(fp))
+            outs = {side: torch.empty((3, B2, 8), dtype=torch.int32, device=dev) for side in fns}
+
+            def run(side):
+                assert fns[side](u1.data_ptr(), u2.data_ptr(), Q.data_ptr(), table.data_ptr(),
+                                 outs[side].data_ptr(), B2, int(a3), field_ptr,
+                                 torch.cuda.current_stream().cuda_stream) == 0, side
+
+            for side in fns:
+                run(side)
+            torch.cuda.synchronize()
+            assert affine(outs["parent"]) == affine(outs["change"]) == got_pts[:B2], curve_name
+            row = {"parent_ms": [], "change_ms": [], "parent_ms_queued": [], "change_ms_queued": []}
+            for side in ("parent", "change", "change", "parent"):
+                row[f"{side}_ms"].append(time_ms(lambda: run(side), reps=5))
+                row[f"{side}_ms_queued"].append(time_ms(lambda: run(side), reps=3, calls=5))
+            ecdsa_parent[curve_name] = {"lanes": B2, "equal_affine_R": True, **row}
+            del outs
     first = ecdsa_rows.pop("secp256k1")
     # The same kernel on the folded solve's 32,768 lanes: four times the warps.
     u1, u2, Q, table = ecdsa_operands[f"ecdsa_k1_b{fold_B}"]
     first[f"ms_lanes_{u1.shape[0]}"] = time_ms(lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table),
                                                reps=5)
+    first[f"ms_queued_lanes_{u1.shape[0]}"] = time_ms(
+        lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table), reps=3, calls=5)
     del u1, u2, Q, table
     kernels["ecdsa_mul"] = dict(
         name="ecdsa_mul", route="cuda", source="acvm_tpu_torch/csrc/ecdsa_mul.cu",
@@ -2728,17 +2795,18 @@ def main() -> int:
         secp256r1=ecdsa_rows["secp256r1"],
         also_replaces=["acvm_tpu/tpu/ec.py:336", "acvm_tpu/tpu/ec.py:273"],
         bound_counts="bytes: u1, u2, Q's X and Y and the table read, R written; products from the "
-                     "scalars, 11 a mixed addition (a table entry or Q), 16 the last addition (above)",
-        latency_floor_from="longest chain x us_per_product_in_chain of the narrow carry-flag product (int32 line)")
+                     "scalars as this kernel runs them (ecdsa_chain_counts)",
+        latency_floor_from="warp_chain_products x us_per_product_in_chain of the wide product "
+                           "(int32 line, wide_mont_mul_chain)")
     assert kernels["ecdsa_mul"]["max_abs_err"] == 0 and ecdsa_rows["secp256r1"]["max_abs_err"] == 0
     del ecdsa_operands
     torch.cuda.empty_cache()
 
-    # The narrow kernels under the sources this tree's wide mode touched
-    # (field.cuh, ec.cuh, pow.cuh, mul.cu, pow.cu, batch_inv.cu, pt_add.cu,
-    # pt_ladder.cu), built from the parent tree at --parent=DIR beside this
-    # tree's and timed in one call, parent, change, change, parent, at their
-    # rows' shapes; each pair of outputs equal.
+    # The kernels built over field.cuh and ec.cuh (mul, pow, batch_inv, their
+    # wide modes on secp256k1's p, pt_add, pt_ladder), built from the parent
+    # tree at --parent=DIR beside this tree's and timed in one call, parent,
+    # change, change, parent, at their rows' shapes; each pair of outputs
+    # equal.  ecdsa_mul's pair (above, compared on the affine R) joins the line.
     if parent_tree:
         shape_rng = np.random.default_rng(71)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -2751,6 +2819,12 @@ def main() -> int:
         k_lad = torch.from_numpy(shape_rng.integers(0, 1 << 32, size=(2048, 8), dtype=np.uint64)
                                  .astype(np.uint32).view(np.int32)).to(dev)
         sched = fk._host_ptr(fk.pow_schedule_words(P - 2))
+        k1_p = gpu_ecdsa.curve_fields("secp256k1")[0]
+        wide_words = fk._host_ptr(fk.field_words(k1_p))
+        wide_sched = fk._host_ptr(fk.pow_schedule_words(k1_p.modulus - 2))
+        wa = random_elements((1 << 20,), k1_p, 75)
+        wb = random_elements((1 << 20,), k1_p, 76)
+        wide_inv_in = random_elements((2, fold_B), k1_p, 77)
 
         def out_like(t):
             return torch.empty_like(t)
@@ -2769,28 +2843,40 @@ def main() -> int:
             "pt_ladder": (torch.empty((3, 2048, 8), dtype=torch.int32, device=dev),
                           lambda o: (ex[0].data_ptr(), 2048 * 8, 8, k_lad.data_ptr(), o.data_ptr(),
                                      2048 * 8, 8, 2048, words, stream())),
+            "mul_wide": (out_like(wa), lambda o: (wa.data_ptr(), wb.data_ptr(), o.data_ptr(), 1 << 20, 0, 1,
+                                                  wide_words, stream())),
+            "pow_wide": (out_like(wa[:8192]), lambda o: (wa.data_ptr(), o.data_ptr(), 8192, wide_sched,
+                                                         wide_words, stream())),
+            "batch_inv_wide": (out_like(wide_inv_in), lambda o: (wide_inv_in.data_ptr(), o.data_ptr(), 2,
+                                                                 fold_B, 2, wide_sched, wide_words,
+                                                                 stream())),
         }
         compare = {}
         for name, (out0, args) in cases.items():
-            fns = {"parent": build.load_variant(
-                       name, [], source=f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu"),
+            source = f"{parent_tree}/acvm_tpu_torch/csrc/{build.VARIANTS.get(name, (name,))[0]}.cu"
+            fns = {"parent": build.load_variant(name, [], source=source),
                    "change": build.load_variant(name, [])}
+            sass = [sass_instructions(build.lib_path(name, [], Path(source))),
+                    sass_instructions(build.lib_path(name))]
             outs = {}
             for side, fn in fns.items():
                 outs[side] = out_like(out0)
                 assert fn(*args(outs[side])) == 0, (name, side)
             torch.cuda.synchronize()
             assert torch.equal(outs["parent"], outs["change"]), name
-            row = {"parent_ms": [], "change_ms": [], "parent_ms_queued": [], "change_ms_queued": []}
+            row = {"parent_ms": [], "change_ms": [], "parent_ms_queued": [], "change_ms_queued": [],
+                   "sass_instructions": [None if t is None else len(t) for t in sass],
+                   "sass_identical": None if None in sass else sass[0] == sass[1]}
             for side in ("parent", "change", "change", "parent"):
                 o = outs[side]
                 run = lambda fn=fns[side], o=o: fn(*args(o))  # noqa: E731
                 row[f"{side}_ms"].append(time_ms(run))
                 row[f"{side}_ms_queued"].append(time_ms(run, calls=10))
             compare[name] = row
+        compare["ecdsa_mul"] = ecdsa_parent
         emit({"parent_compare": {"card": smi, "parent": parent_tree, "equal_outputs": True,
                                  "order": "parent, change, change, parent", "kernels": compare}})
-        del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases
+        del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases, wa, wb, wide_inv_in
         torch.cuda.empty_cache()
 
     # -- 17. kernels, 18. card, 19. verdict -------------------------------------------
@@ -2817,6 +2903,55 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def sass_instructions(lib):
+    """The instructions of a built kernel library as ``cuobjdump -sass``
+    (beside ``nvcc``) prints them, addresses and encodings left out; None
+    where the tool cannot read it."""
+    from acvm_tpu_torch import build
+
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    done = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    if done.returncode != 0:
+        return None
+    found = (re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);?\s*/\*", line) for line in done.stdout.splitlines())
+    return [m.group(1).strip() for m in found if m]
+
+
+def ecdsa_chain_counts(u1_limbs, digits, dbl: int, warp: int = 32):
+    """The products of ecdsa_mul's chain, from its scalars: ``u1_limbs`` the
+    (B, 8) int32 u1, ``digits`` the (B, 65) signed windows of u2, ``dbl`` the
+    doubling's products (7, or 8 for a = -3).  A lane's steps: u1 G's 64
+    windows (a mixed addition, 11 products, for a nonzero digit after the
+    first), the lane's table (2Q and six mixed additions), u2 Q's 64 windows
+    (4 doublings once the accumulator is finite; an addition, 16, of a
+    nonzero digit's entry to a finite accumulator) and the last addition
+    where both parts are finite.  A warp runs a step where any of its lanes
+    does, so its chain is the sum over the steps of the most its lanes run
+    there (the rare branch inside an addition counted as generic).  Returns
+    the products of all lanes, the longest lane's and the longest warp's."""
+    import numpy as np
+
+    u = u1_limbs.astype(np.int64) & 0xFFFFFFFF
+    nib = ((u[:, :, None] >> (4 * np.arange(8))) & 15).reshape(len(u), 64)
+    nz1 = nib != 0
+    g1_add = nz1 & ((np.cumsum(nz1, axis=1) - nz1) > 0)
+    finite = digits[:, 64] != 0
+    doubles, adds = [], []
+    for w in range(63, -1, -1):
+        doubles.append(finite)
+        nz = digits[:, w] != 0
+        adds.append(nz & finite)
+        finite = finite | nz
+    last = nz1.any(axis=1) & finite
+    B = len(u)
+    table = np.ones((B, 1), dtype=bool)
+    flags = np.concatenate([g1_add, table, np.stack(doubles, 1), np.stack(adds, 1), last[:, None]], axis=1)
+    per_step = flags * np.asarray([11] * 64 + [dbl + 66] + [4 * dbl] * 64 + [16] * 64 + [16])
+    warps = np.concatenate([per_step, np.zeros(((-B) % warp, per_step.shape[1]), per_step.dtype)])
+    return {"products": int(per_step.sum()), "longest_lane": int(per_step.sum(axis=1).max()),
+            "warp_chain": int(warps.reshape(-1, warp, per_step.shape[1]).max(axis=1).sum(axis=1).max())}
 
 
 def division_census(brillig, col_of, batch):

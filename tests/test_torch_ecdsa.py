@@ -10,7 +10,12 @@ package, on the CPU.  Tolerance 0 everywhere: integers.
   `acvm_tpu/tpu/ec.py`'s, un-jitted, over the JAX wide `LimbContext` with each
   field operation its own jitted program (`JitOps`), at infinity, P + P,
   P + (-P) and a generic pair: X, Y and Z.
-* One solve a curve (a module fixture, the file's cost: about 13 s each, the
+* `ecdsa_mul`'s chain in its plain version: the signed 4-bit recoding of u2
+  against Python ints at edge scalars, the lane's table of 1Q ... 8Q and
+  the group law the plain chain runs (`ec.pt_double`, `ec.pt_add`) against
+  the Python-int curve, and R on the edge lanes of `utils.ecdsa_mul_edges` against the
+  Python-int curve.
+* One solve a curve (a module fixture, the file's cost: about 7 s each, the
   plain `ecdsa_mul` chain one field op at a time) of
   `build_gadget_circuit("ecdsa_k1" | "ecdsa_r1", 2)` over the planted edge
   cases of `utils.ecdsa_planted` and a pool of valid signatures
@@ -59,6 +64,7 @@ from acvm_tpu_torch.utils import (
     columnar_instance,
     ecdsa_inputs,
     ecdsa_instance_bytes,
+    ecdsa_mul_edges,
     ecdsa_planted,
 )
 
@@ -267,6 +273,134 @@ def test_mixed_addition_equals_pt_add(kind):
     for g, w in zip(got, want):
         assert ints(fk.join_half(g)) == ints(fk.join_half(w))
     assert ints(fk.join_half(got[2]))[2] == 0 and ints(fk.join_half(got[2]))[1] != 0
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_kernel_formulas_equal_the_group_law(kind):
+    """The doubling and complete addition that `ecdsa_mul_plain` runs for the
+    kernel's `ec_dbl` and `ec_add` (`ec.pt_double`, infinity kept as it is,
+    and `ec.pt_add`) against the Python-int curve, each operand at a random
+    Z: infinity on either side, P + P, P + (-P), a generic pair and an
+    off-curve Q (run, and its sum not infinity)."""
+    name, curve, _ = KINDS[kind]
+    fp, _ = ecdsa.curve_fields(name)
+    cp = curve.params
+    rng = random.Random(9)
+    P = curve.mul(rng.randrange(1, cp.n), curve.generator())
+    Q = curve.mul(rng.randrange(1, cp.n), curve.generator())
+    off = (Q[0], (Q[1] + 1) % cp.p)
+    pairs = [(None, Q), (P, None), (P, P), (P, curve.neg(P)), (P, Q), (P, off)]
+    hf = fk.half_field(fp, torch.device("cpu"))
+    a_mont = ecdsa._a_mont_half(name, "cpu")
+    lhs = [jacobian(curve, u, rng.randrange(1, cp.p), fp) for u, _ in pairs]
+    rhs = [jacobian(curve, v, rng.randrange(1, cp.p), fp) for _, v in pairs]
+    z = rng.randrange(1, cp.p)
+    rhs[-1] = [off[0] * z * z % cp.p * fp.r % cp.p, off[1] * z ** 3 % cp.p * fp.r % cp.p, z * fp.r % cp.p]
+    rhs[1] = [fp.r % cp.p, fp.r % cp.p, 0]  # infinity as an addition leaves it: Z = 0, X and Y not
+    p1 = tuple(fk.split_half(limbs([c[i] for c in lhs])) for i in range(3))
+    p2 = tuple(fk.split_half(limbs([c[i] for c in rhs])) for i in range(3))
+    r_inv = pow(fp.r, -1, cp.p)
+
+    def affine(pt):
+        X, Y, Z = (ints(fk.join_half(c)) for c in pt)
+        out = []
+        for x, y, zz in zip(X, Y, Z):
+            if zz == 0:
+                out.append(None)
+                continue
+            zi = pow(zz * r_inv, -1, cp.p)
+            out.append((x * r_inv * zi * zi % cp.p, y * r_inv * zi ** 3 % cp.p))
+        return out
+
+    sums = affine(ec.pt_add(hf, p1, p2, a_mont))
+    assert sums[:5] == [curve.add(u, v) for u, v in pairs[:5]]
+    assert sums[5] is not None
+    doubled = ecdsa._dbl(hf, p2, a_mont)
+    assert affine(doubled)[2:5] == [curve.add(v, v) for _, v in pairs[2:5]]
+    assert affine(doubled)[1] is None
+    assert [ints(fk.join_half(c))[1] for c in doubled] == [ints(fk.join_half(c))[1] for c in p2]
+
+
+def recode(u: int) -> list:
+    """The signed 4-bit windows of u by their carries: s_i in [-8, 8), then
+    the carry out of the top window."""
+    digits, carry = [], 0
+    for i in range(64):
+        v = (u >> (4 * i) & 15) + carry
+        carry = int(v >= 8)
+        digits.append(v - 16 * carry)
+    return digits + [carry]
+
+
+SCALARS = {"0": 0, "1": 1, "7": 7, "8": 8, "15": 15, "16": 16, "k1_n-1": secp256k1.params.n - 1,
+           "r1_n-1": secp256r1.params.n - 1, "2^255": 1 << 255, "every_nibble_15": (1 << 256) - 1,
+           "carry_bottom_to_top": (1 << 255) - 8}
+
+
+@pytest.mark.parametrize("label", list(SCALARS))
+def test_signed_windows_equal_ints(label):
+    """`ecdsa.signed_windows` (the kernel's recoding: the nibbles of u +
+    0x888...8 less 8, the carry on top) against the carry recoding in Python
+    ints: sum s_i 16^i = u, every digit in range."""
+    u = SCALARS[label]
+    got = ecdsa.signed_windows(limbs([u, u ^ 0x5A5A]))[0].tolist()
+    assert got == recode(u)
+    assert sum(d * 16 ** i for i, d in enumerate(got)) == u
+    assert all(-8 <= d < 8 for d in got[:64]) and got[64] in (0, 1)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_lane_table_equals_the_curve(kind):
+    """The table a lane builds from its Q, entry e = (e + 1) Q, against the
+    Python-int curve; an off-curve Q with Y = 0 (an invalid key's lane, run
+    all the same) gives Q and infinity in turn, and does not raise."""
+    name, curve, _ = KINDS[kind]
+    fp, _ = ecdsa.curve_fields(name)
+    cp = curve.params
+    rng = random.Random(11)
+    points = [curve.mul(rng.randrange(1, cp.n), curve.generator()) for _ in range(3)]
+    points.append(next(e for _, _, _, e in ecdsa_mul_edges(kind) if not curve.is_on_curve(e)))
+    _, _, Q = ecdsa.mul_operands(name, [0] * 4, [0] * 4, points)
+    table = ecdsa.lane_table_plain(name, Q)
+    assert table.shape == (8, 3, 4, 8)
+    r_inv = pow(fp.r, -1, cp.p)
+    X, Y, Z = ([ints(table[e, c]) for e in range(8)] for c in range(3))
+    for lane, pt in enumerate(points[:3]):
+        for e in range(8):
+            zi = pow(Z[e][lane] * r_inv, -1, cp.p)
+            got = (X[e][lane] * r_inv * zi * zi % cp.p, Y[e][lane] * r_inv * zi ** 3 % cp.p)
+            assert got == curve.mul(e + 1, pt), (lane, e)
+    assert [Z[e][3] == 0 for e in range(8)] == [e % 2 == 1 for e in range(8)]
+    assert all([X[e][3], Y[e][3], Z[e][3]] == [X[0][3], Y[0][3], Z[0][3]] for e in range(0, 8, 2))
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_ecdsa_mul_plain_edges_equal_the_curve(kind):
+    """R = u1 G + u2 Q of `ecdsa_mul_plain` on the edge lanes (u2 = 0, 1, 7,
+    8, 15, 16, n - 1, 2^255, 2^256 - 1; u1 = 0; u1 G = +-u2 Q; the
+    accumulator equal to +- the last window's entry) against the Python-int
+    curve; the off-curve lane runs and is not checked."""
+    name, curve, _ = KINDS[kind]
+    fp, _ = ecdsa.curve_fields(name)
+    cp = curve.params
+    lanes = ecdsa_mul_edges(kind)
+    assert len(lanes) <= 16
+    u1, u2, Q = ecdsa.mul_operands(name, *zip(*[lane[1:] for lane in lanes]))
+    R = ecdsa.ecdsa_mul_plain(name, u1, u2, Q, ecdsa.gen_table(name, "cpu"))
+    r_inv = pow(fp.r, -1, cp.p)
+    X, Y, Z = (ints(c) for c in R)
+    infinite = []
+    for i, (label, k1, k2, q) in enumerate(lanes):
+        if not curve.is_on_curve(q):
+            continue
+        want = curve.add(curve.mul(k1, curve.generator()), curve.mul(k2, q))
+        if want is None:
+            infinite.append(label)
+            assert Z[i] == 0, label
+            continue
+        zi = pow(Z[i] * r_inv, -1, cp.p)
+        assert (X[i] * r_inv * zi * zi % cp.p, Y[i] * r_inv * zi ** 3 % cp.p) == want, label
+    assert infinite == ["u1G_eq_minus_u2Q"]
 
 
 # ---------------------------------------------------------------------------

@@ -617,8 +617,7 @@ def test_ecdsa_mul_kernel_equals_plain_version(card, kind):
 
     curve = secp256k1 if kind == "ecdsa_k1" else secp256r1
     name = curve.params.name
-    fp, _ = ecdsa.curve_fields(name)
-    n, p, R = curve.params.n, curve.params.p, fp.r
+    n = curve.params.n
     rng = np.random.default_rng(17)
     B = 70
     d = [int(rng.integers(1, 1 << 62)) for _ in range(B)]
@@ -628,10 +627,7 @@ def test_ecdsa_mul_kernel_equals_plain_version(card, kind):
     k1[4], k2[4], d[4] = 6, 3, 2  # u1 G = 6 G = 3 (2 G) = u2 Q
     k1[5], k2[5], d[5] = n - 6, 3, 2  # u1 G = -u2 Q: infinity
     pts = [curve.mul(di, curve.generator()) for di in d]
-    Q = torch.from_numpy(np.stack([fk.ints_to_limbs32([pt[c] * R % p for pt in pts]) for c in (0, 1)]
-                                  + [fk.ints_to_limbs32([R % p] * B)]))
-    u1 = torch.from_numpy(fk.ints_to_limbs32(k1).copy())
-    u2 = torch.from_numpy(fk.ints_to_limbs32(k2).copy())
+    u1, u2, Q = ecdsa.mul_operands(name, k1, k2, pts)
     table = ecdsa.gen_table(name, "cpu")
     build.reset_launches()
     got = ecdsa.ecdsa_mul(name, u1.to(card), u2.to(card), Q.to(card), table.to(card))
@@ -639,6 +635,25 @@ def test_ecdsa_mul_kernel_equals_plain_version(card, kind):
     want = ecdsa.ecdsa_mul_plain(name, u1, u2, Q, table)
     assert torch.equal(got.cpu(), want)
     assert (got[2, 5] == 0).all() and not (got[2, 4] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["ecdsa_k1", "ecdsa_r1"])
+def test_ecdsa_mul_edge_lanes_equal_plain_version(card, kind):
+    """The edge lanes of `utils.ecdsa_mul_edges` (u2 at the recoding's
+    edges, u1 = 0, u1 G = +-u2 Q, the accumulator equal to +- a window's
+    entry, an off-curve Q with Y = 0) in one launch against the plain
+    version, X, Y and Z."""
+    from acvm_tpu_torch.gpu import ecdsa
+    from acvm_tpu_torch.utils import ecdsa_mul_edges
+
+    name = {"ecdsa_k1": "secp256k1", "ecdsa_r1": "secp256r1"}[kind]
+    lanes = ecdsa_mul_edges(kind)
+    u1, u2, Q = ecdsa.mul_operands(name, *zip(*[lane[1:] for lane in lanes]))
+    table = ecdsa.gen_table(name, "cpu")
+    build.reset_launches()
+    got = ecdsa.ecdsa_mul(name, u1.to(card), u2.to(card), Q.to(card), table.to(card))
+    assert build.LAUNCHES["ecdsa_mul"] == 1
+    assert torch.equal(got.cpu(), ecdsa.ecdsa_mul_plain(name, u1, u2, Q, table))
 
 
 @pytest.mark.parametrize("kind", ["ecdsa_k1", "ecdsa_r1"])
