@@ -12,13 +12,22 @@
 // in constant memory, and the thread absorbs only its own blocks, so the
 // fixed form is the var form with length = M.  The padding (0x01 after the
 // message, 0x80 ending the last rate block, one byte 0x81 where they meet) is
-// made as the lanes are assembled.
+// laid on as the lanes are assembled.
 //
 // Bound.  Bytes: one 32-byte sector a distinct (panel row, instance) the
 // thread reads (the var form reads only its first length bytes), one an
 // output row written.  Operations: gpu/gadgets.py's OPS_PER_BLOCK (its count
 // of these rounds) a permutation, length / 136 + 1 permutations (PERF.md,
-// row 13).
+// row 13).  The bytes bound it on this card at the paths' shapes (0.0115 ms
+// for the membership's var group of 1 x 8,192 x 232), with ~7.5 us of
+// arithmetic a warp.  The first design ran 5.7-8.2 % of that bound: 64
+// blocks of 128 threads on 64 SMs, and every byte two dependent global round
+// trips made behind the data-dependent `j < length`.  So the message comes
+// through hash.cuh's `MessageStage`: one-warp blocks over every SM, the
+// tables in shared memory, each rate block's 136 words copied by `cp.async`
+// all at once (zero-filled past the length, no branch), block k + 1's in
+// flight while block k's permutation runs.  The warp runs as many blocks as
+// its longest message; a lane with fewer permutes none past its own.
 #include "hash.cuh"
 
 #define KECCAK_RATE 136
@@ -79,37 +88,50 @@ __device__ __forceinline__ void keccak_f(uint64_t a[25]) {
     }
 }
 
-__global__ void __launch_bounds__(ACVM_HASH_THREADS) keccak_kernel(HashGroup grp, const int* length) {
-    ByteSource src;
-    RowSink dst;
-    int g;
-    long long b;
-    if (!grp.thread(src, dst, g, b)) return;
-    const int len = length ? __ldg(length + (long long)g * grp.B + b) : grp.M;
+static_assert(4 * (2 * KECCAK_RATE * HASH_WARP + 2 * HASH_TABLE_CAP + 32) <= 48 * 1024,
+              "a block's shared memory must stay under the 48 KB that needs no opt-in");
+
+__global__ void __launch_bounds__(HASH_WARP) keccak_kernel(HashGroup grp, const int* length) {
+    extern __shared__ __align__(16) uint32_t hash_smem[];
+    MessageStage<KECCAK_RATE> st;
+    st.open(grp, hash_smem);
+    const int len = !st.active ? 0 : length ? __ldg(length + (long long)st.g * grp.B + st.b) : grp.M;
     const int blocks = len / KECCAK_RATE + 1;
+    const int warp_blocks = __reduce_max_sync(0xFFFFFFFFu, blocks);
     const int last = blocks * KECCAK_RATE - 1;
     uint64_t a[25];
 #pragma unroll
     for (int i = 0; i < 25; ++i) a[i] = 0;
-    for (int blk = 0; blk < blocks; ++blk) {
+    st.start(0, warp_blocks, len);
+    for (int blk = 0; blk < warp_blocks; ++blk) {
+        st.start(blk + 1, warp_blocks, len);
+        st.wait();
+        if (blk >= blocks) continue;
 #pragma unroll
-        for (int lane = 0; lane < KECCAK_RATE / 8; ++lane) {
+        for (int w = 0; w < KECCAK_RATE / 8; ++w) {
             uint64_t v = 0;
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
-                const int j = blk * KECCAK_RATE + 8 * lane + i;
-                uint32_t byte = j < len ? src.byte(j) : 0u;
+                const int j = blk * KECCAK_RATE + 8 * w + i;
+#ifdef HASH_ROUNDS_ONLY
+                uint32_t byte = (uint32_t)(st.b * 131 + j) & 0xFFu;
+#else
+                uint32_t byte = st.byte(blk, 8 * w + i);  // 0 at or past len
+#endif
                 byte ^= (j == len ? 0x01u : 0u) ^ (j == last ? 0x80u : 0u);
                 v |= (uint64_t)byte << (8 * i);
             }
-            a[lane] ^= v;
+            a[w] ^= v;
         }
+#ifndef HASH_READS_ONLY
         keccak_f(a);
+#endif
     }
+    if (!st.active) return;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst.put_byte(8 * i + k, (uint32_t)(a[i] >> (8 * k)) & 0xFFu);
+        for (int k = 0; k < 8; ++k) st.put_byte(8 * i + k, (uint32_t)(a[i] >> (8 * k)) & 0xFFu);
     }
 }
 
@@ -124,7 +146,13 @@ extern "C" int acvm_keccak(const void* in, long long in_row, long long in_inst, 
     if (G <= 0 || B <= 0) return 0;
     const HashGroup grp = hash_group(in, in_row, in_inst, src_w, src_limb, src_shift, M, out,
                                      out_row, out_inst, out_words, out_idx, 32, B);
-    keccak_kernel<<<hash_grid(G, B), ACVM_HASH_THREADS, 0, (cudaStream_t)stream>>>(
-        grp, (const int*)length);
+    HASH_STAGE_LAUNCH(keccak_kernel, stage_grid(G, B),
+                      stage_shared_bytes(KECCAK_RATE, M, src_w != nullptr), stream, grp,
+                      (const int*)length);
     return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory a block of a launch at M (tables != 0: the panel form).
+extern "C" int acvm_keccak_shared_bytes(int M, int tables) {
+    return stage_shared_bytes(KECCAK_RATE, M, tables != 0);
 }

@@ -4,16 +4,24 @@
 // rounds of `jnp` ops a block, over the whole batch, with the message gathered
 // off the witness tensor before and the digest scattered after).  Here one
 // thread hashes one (gadget, instance) from its first message byte to its last
-// digest byte: the bytes come straight off the panel through the group's
-// tables (hash.cuh), the static padding (0x80, zeros, the bit length) is made
-// in registers as the blocks are assembled, the state and a rolling 16-word
-// message schedule stay in registers, K sits in constant memory (every lane of
-// a warp reads the same word), and every rotate is one funnel shift.
+// digest byte: the state and a rolling 16-word message schedule stay in
+// registers, K sits in constant memory (every lane of a warp reads the same
+// word), every rotate is one funnel shift, and the static padding (0x80,
+// zeros, the bit length) is laid on as the words are assembled.
 //
 // Bound.  Bytes: one 32-byte sector a distinct (panel row, instance) read and
 // one an output row written.  Operations: gpu/gadgets.py's OPS_PER_BLOCK (its
-// count of these rounds) a block, (M + 8) / 64 + 1 blocks.  At the path's
-// 64-byte messages, 64 rows in, the bytes bound it (PERF.md, row 12).
+// count of these rounds) a block, (M + 8) / 64 + 1 blocks.  At the paths'
+// 64-byte messages the bytes bound it (PERF.md, row 12): 0.0075 ms at one
+// gadget x 8,192 instances, where the arithmetic is ~2 us at one warp a
+// scheduler.  What held the first design back there was latency: 128-thread
+// blocks gave 8,192 instances 64 blocks on 64 of the 132 SMs, and each byte
+// cost two dependent global round trips (its table entries, then its word),
+// loaded a few at a time as the words were assembled.  So the message comes
+// through hash.cuh's `MessageStage`: one-warp blocks (8,192 instances = 256
+// blocks over every SM), the tables in shared memory, and each compression
+// block's 64 words copied by `cp.async` all at once, block k + 1's in flight
+// while block k's rounds run.
 #include "hash.cuh"
 
 __constant__ uint32_t SHA_K[64] = {
@@ -29,14 +37,14 @@ __constant__ uint32_t SHA_K[64] = {
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
 
-// Byte j of the padded message: the message, 0x80, zeros, then the message's
-// length in bits as 8 big-endian bytes ending the last block.
-__device__ __forceinline__ uint32_t padded_byte(const ByteSource& src, int M, int total, int j) {
-    if (j < M) return src.byte(j);
+// Byte j of the padded message, given the message's byte (0 past M): 0x80 at
+// M, then zeros, then the message's length in bits as 8 big-endian bytes
+// ending the last block.
+__device__ __forceinline__ uint32_t padded_byte(uint32_t message, int M, int total, int j) {
     if (j == M) return 0x80u;
     const int from_end = total - 1 - j;  // 0 for the last byte
     if (from_end < 8) return (uint32_t)(((unsigned long long)M * 8ull) >> (8 * from_end)) & 0xFFu;
-    return 0u;
+    return message;
 }
 
 __device__ __forceinline__ void compress(uint32_t h[8], uint32_t w[16]) {
@@ -60,31 +68,44 @@ __device__ __forceinline__ void compress(uint32_t h[8], uint32_t w[16]) {
     h[0] += a; h[1] += b; h[2] += c; h[3] += d; h[4] += e; h[5] += f; h[6] += g; h[7] += k;
 }
 
-__global__ void __launch_bounds__(ACVM_HASH_THREADS) sha256_kernel(HashGroup grp) {
-    ByteSource src;
-    RowSink dst;
-    int g;
-    long long b;
-    if (!grp.thread(src, dst, g, b)) return;
+__global__ void __launch_bounds__(HASH_WARP) sha256_kernel(HashGroup grp) {
+    extern __shared__ __align__(16) uint32_t hash_smem[];
+    MessageStage<64> st;
+    st.open(grp, hash_smem);
     const int M = grp.M;
     const int blocks = (M + 8) / 64 + 1;
     const int total = 64 * blocks;
     uint32_t h[8] = {0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
                      0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19};
+    st.start(0, blocks, M);
     for (int blk = 0; blk < blocks; ++blk) {
+        st.start(blk + 1, blocks, M);
+        st.wait();
         uint32_t w[16];
 #pragma unroll
         for (int t = 0; t < 16; ++t) {
-            const int j = 64 * blk + 4 * t;
-            w[t] = (padded_byte(src, M, total, j) << 24) | (padded_byte(src, M, total, j + 1) << 16)
-                 | (padded_byte(src, M, total, j + 2) << 8) | padded_byte(src, M, total, j + 3);
+#ifdef HASH_ROUNDS_ONLY
+            w[t] = (uint32_t)st.b * 0x9E3779B9u + (uint32_t)(16 * blk + t);
+#else
+            uint32_t x = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                x = (x << 8) | padded_byte(st.byte(blk, 4 * t + i), M, total, 64 * blk + 4 * t + i);
+            w[t] = x;
+#endif
         }
+#ifdef HASH_READS_ONLY
+#pragma unroll
+        for (int t = 0; t < 16; ++t) h[t & 7] ^= w[t];
+#else
         compress(h, w);
+#endif
     }
+    if (!st.active) return;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) dst.put_byte(4 * i + k, (h[i] >> (24 - 8 * k)) & 0xFFu);
+        for (int k = 0; k < 4; ++k) st.put_byte(4 * i + k, (h[i] >> (24 - 8 * k)) & 0xFFu);
     }
 }
 
@@ -97,6 +118,10 @@ extern "C" int acvm_sha256(const void* in, long long in_row, long long in_inst, 
     if (G <= 0 || B <= 0) return 0;
     const HashGroup grp = hash_group(in, in_row, in_inst, src_w, src_limb, src_shift, M, out,
                                      out_row, out_inst, out_words, out_idx, 32, B);
-    sha256_kernel<<<hash_grid(G, B), ACVM_HASH_THREADS, 0, (cudaStream_t)stream>>>(grp);
+    HASH_STAGE_LAUNCH(sha256_kernel, stage_grid(G, B), stage_shared_bytes(64, M, src_w != nullptr),
+                      stream, grp);
     return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a block of a launch at M (tables != 0: the panel form).
+extern "C" int acvm_sha256_shared_bytes(int M, int tables) { return stage_shared_bytes(64, M, tables != 0); }

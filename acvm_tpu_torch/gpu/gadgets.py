@@ -371,11 +371,14 @@ def _check_length(length: torch.Tensor, M: int, what: str) -> None:
 
 
 def _launch(kind: str, src, tables, M: int, dst, out_idx, G: int, B: int,
-            length=None, subtrahends=None) -> None:
+            length=None, subtrahends=None, launch=None) -> None:
     """One launch of the kernel of ``kind``.  ``src`` / ``dst``: (tensor, row
     stride, instance stride) in int32 words, ``dst`` with the words a row
     gets (8: a canonical row; 1: one word); ``tables``: the (G, M) row, limb
-    and shift tables, or None for a matrix whose row j is byte j."""
+    and shift tables, or None for a matrix whose row j is byte j.
+    ``launch(name, *args)`` calls the C launcher (:func:`build.launch`, or
+    another build of the same source: ``chip_smoke.py``'s measurement and
+    parent builds)."""
     name = KERNEL_OF[kind]
     stream = torch.cuda.current_stream(src[0].device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -388,17 +391,17 @@ def _launch(kind: str, src, tables, M: int, dst, out_idx, G: int, B: int,
         for i, m in enumerate(subtrahends or ()):
             subs[i] = int_to_limbs32(m).view(np.uint32)
         args += [subs.ctypes.data, len(subtrahends) if subtrahends is not None else -1]
-    build.launch(name, *args, stream)
+    (launch or build.launch)(name, *args, stream)
 
 
-def _digest_on_card(kind: str, message: torch.Tensor, length=None) -> torch.Tensor:
+def _digest_on_card(kind: str, message: torch.Tensor, length=None, launch=None) -> torch.Tensor:
     B, M = message.shape
     msg = message.to(torch.int32).contiguous()
     out = torch.empty((B, 32), dtype=torch.int32, device=message.device)
     if length is not None:
         length = length.to(torch.int32).reshape(1, B).contiguous()
     if B:
-        _launch(kind, (msg, 1, M), None, M, (out, 1, 32, 1), None, 1, B, length=length)
+        _launch(kind, (msg, 1, M), None, M, (out, 1, 32, 1), None, 1, B, length=length, launch=launch)
     return out
 
 

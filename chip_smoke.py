@@ -26,14 +26,21 @@
                                      # the tree unpacked at DIR (the
                                      # earlier launcher: no launch plan) on
                                      # the same state
+    python3 chip_smoke.py --hash-variants   # also sha256 and keccak built
+                                     # with hash.cuh's measurement switches
+                                     # (reads only, rounds only) timed at
+                                     # every hash row's shape
     python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv (and
-                                     # their wide modes), pt_add, pt_ladder
-                                     # and ecdsa_mul built from the tree
-                                     # unpacked at DIR (git archive <commit>
+                                     # their wide modes), pt_add, pt_ladder,
+                                     # ecdsa_mul, sha256, keccak and blake2s
+                                     # built from the tree unpacked at DIR
+                                     # (git archive <commit>
                                      # acvm_tpu_torch/csrc | tar -x -C DIR)
                                      # beside this tree's, equal outputs
-                                     # (ecdsa_mul's affine R), timed parent,
-                                     # change, change, parent
+                                     # (ecdsa_mul's affine R; the hash kernels
+                                     # at every hash row's shape), timed
+                                     # parent, change, change, parent;
+                                     # blake2s the same SASS
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -166,8 +173,13 @@ build, a failed launch or a failed comparison raises and the exit code is not
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
                launches on each path; the hash kernels on path_hash's groups
-               (a panel's row, limb and shift tables) and ``blake2s`` on
-               Schnorr's (2,048, 64) byte matrix; ``batch_inv`` also at four chunk sizes on
+               (a panel's row, limb and shift tables; the membership's
+               second Keccak, of 64 bytes, among them) and ``blake2s`` on
+               Schnorr's (2,048, 64) byte matrix, each shape with its
+               registers, spills, blocks and shared memory a block, and
+               ``sha256`` and ``keccak`` with the time of their rounds alone
+               (``rounds_only_ms``, a build with HASH_ROUNDS_ONLY, the row's
+               latency floor); ``batch_inv`` also at four chunk sizes on
                the dyn path's (2,048, 2,048) panel; ``brillig_vm`` on the sort
                block of 12 over all 8,192 instances, with the opcodes executed
                by kind that its bound counts, and the isqrt and inverse blocks
@@ -450,6 +462,25 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
+
+    def graph_ms(fn, launches=20, reps=7):
+        """Device time of one fn() with the host's launch cost taken out:
+        ``launches`` calls captured in one CUDA graph, the replay timed as
+        time_ms times it, divided.  For kernels shorter than the ~15-20 us a
+        launch takes the host through ctypes, where ``ms_queued`` reads the
+        host.  fn must not synchronise."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        ms = time_ms(graph.replay, reps=reps) / launches
+        del graph
+        return ms
 
     def bound(bytes_moved, madds):
         t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
@@ -2435,12 +2466,63 @@ def main() -> int:
             how += f" + {gadgets.TO_FIELD_OPS} for the subtractions"
         return moved, ops, how + f"; {reads} (row, instance) sectors read"
 
-    def hash_kernel_row(kind, W, buf, length=None, modulus=None):
+    # The measurement builds of the two kernels on hash.cuh's message stage
+    # (HASH_ROUNDS_ONLY at every shape: rounds_only_ms, the row's latency
+    # floor; with --hash-variants HASH_READS_ONLY too), and with --parent=DIR
+    # the parent tree's three hash kernels, all nvcc runs started together.
+    # Their launchers take the same arguments, called here through
+    # gadgets._launch as hash_rows calls the kernel's own.
+    from concurrent.futures import ThreadPoolExecutor
+
+    staged, rows_kernels = ("sha256", "keccak"), ("sha256", "keccak", "blake2s")
+    hash_switches = {"rounds_only": ["HASH_ROUNDS_ONLY"]}
+    if "--hash-variants" in sys.argv:
+        hash_switches["reads_only"] = ["HASH_READS_ONLY"]
+    specs = [(name, label, defines, None) for name in staged for label, defines in hash_switches.items()]
+    if parent_tree:
+        specs += [(name, "parent", [], f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu") for name in rows_kernels]
+    with ThreadPoolExecutor(len(specs)) as pool:
+        built_fns = list(pool.map(lambda sp: build.load_variant(sp[0], sp[2], source=sp[3]), specs))
+    hash_builds = {(sp[0], sp[1]): fn for sp, fn in zip(specs, built_fns)}
+    hash_builds.update({(name, "change"): build.load_variant(name, []) for name in rows_kernels})
+    hash_variant_ms, hash_parent = {}, {}
+
+    def via(fn):  # a launch through another build's launcher
+        def launch(kernel, *args):
+            assert fn(*args) == 0, (kernel, "launch refused")
+        return launch
+
+    def parent_pair(name, label, shape, sides, make_input):
+        """The parent's and the change's build equal on fresh inputs, then
+        timed parent, change, change, parent."""
+        outs = {side: run(make_input()) for side, run in sides.items()}
+        torch.cuda.synchronize()
+        assert torch.equal(outs["parent"], outs["change"]), (name, label)
+        del outs
+        scratch = make_input()
+        timed = {f"{side}_{how}": [] for how in ("ms_queued", "ms_graph") for side in ("parent", "change")}
+        for side in ("parent", "change", "change", "parent"):
+            timed[f"{side}_ms_queued"].append(time_ms(lambda r=sides[side]: r(scratch), calls=10))
+            timed[f"{side}_ms_graph"].append(graph_ms(lambda r=sides[side]: r(scratch)))
+        hash_parent.setdefault(name, {})[label] = {"shape": shape, **timed}
+
+    def hash_kernel_row(kind, W, buf, length=None, modulus=None, label=None):
         G, M = buf["src_w"].shape
         B = W.shape[1]
+        name = gadgets.KERNEL_OF[kind]
         tables = (buf["src_w"], buf["src_limb"], buf["src_shift"], buf["out_idx"])
         run = lambda X: gadgets.hash_rows(kind, X, *tables, length=length, modulus=modulus)  # noqa: E731
         plain = lambda X: gadgets.hash_rows_plain(kind, X, *tables, length, modulus)  # noqa: E731
+        subtrahends = gadgets.to_field_subtrahends(modulus) if modulus is not None else None
+
+        def run_build(fn):  # hash_rows' launch through another build of the source
+            def run_on(X):
+                gadgets._launch(kind, (X, B * fk.LIMBS, fk.LIMBS), tables[:3], M,
+                                (X, B * fk.LIMBS, fk.LIMBS, fk.LIMBS), tables[3], G, B,
+                                length=length, subtrahends=subtrahends, launch=via(fn))
+                return X
+            return run_on
+
         got, want = run(W.clone()), plain(W.clone())
         torch.cuda.synchronize()
         err = 0 if torch.equal(got, want) else max_abs_err(got, want)
@@ -2448,23 +2530,52 @@ def main() -> int:
         scratch = W.clone()
         moved, ops, how = hash_work(kind, buf, B, length)
         b_ms, b_by = bound(moved, ops)
+        # ms_graph: the kernel's own library through hash_rows' launch (no
+        # length check: it synchronises), twenty launches in a CUDA graph.
+        own = run_build(hash_builds[name, "change"])
         row = dict(shape=f"{kind}: G={G} x B={B} x M={M}", max_abs_err=err,
                    ms=time_ms(lambda: run(W)), ms_queued=time_ms(lambda: run(W), calls=10),
+                   ms_graph=graph_ms(lambda: own(W)),
                    plain_ms=time_ms(lambda: plain(scratch), 3, warmup=0),
-                   bound_ms=b_ms, bound_by=b_by, bound_bytes=moved, int32_ops=ops, ops_counted=how)
+                   bound_ms=b_ms, bound_by=b_by, bound_bytes=moved, int32_ops=ops, ops_counted=how,
+                   registers=ptxas[name]["registers"], spill_bytes=ptxas[name]["spill_bytes"])
+        if name in staged:
+            # One warp a block over (ceil(B / 32), G): hash.cuh's stage_grid.
+            row["blocks"] = -(-B // 32) * G
+            row["shared_bytes"] = getattr(build.load(name), f"acvm_{name}_shared_bytes")(M, 1)
+            variant_ms = {"as_built": {"queued": row["ms_queued"], "graph": row["ms_graph"]}}
+            for switch in hash_switches:  # outputs not compared: they are not hashes
+                f = run_build(hash_builds[name, switch])
+                variant_ms[switch] = {"queued": time_ms(lambda: f(scratch), calls=10),
+                                      "graph": graph_ms(lambda: f(scratch))}
+            row["rounds_only_ms"] = row["latency_floor_ms"] = variant_ms["rounds_only"]["graph"]
+            row["rounds_only_ms_queued"] = variant_ms["rounds_only"]["queued"]
+            hash_variant_ms.setdefault(name, {})[label] = variant_ms
+        else:
+            row["blocks"] = -(-B // 128) * G  # hash.cuh's hash_grid
+            row["shared_bytes"] = 0
+        if parent_tree:
+            parent_pair(name, label, row["shape"], {side: run_build(hash_builds[name, side])
+                                                    for side in ("parent", "change")}, W.clone)
         del scratch
         return row
 
-    def matrix_kernel_row(fn, plain_fn, msg):
+    def matrix_kernel_row(fn, plain_fn, msg, label):
         got, want = fn(msg), plain_fn(msg)
         torch.cuda.synchronize()
         B, M = msg.shape
         per = gadgets.OPS_PER_BLOCK["blake2s"]
         b_ms, b_by = bound(B * (M + 32) * 4, B * per * max(1, -(-M // 64)))
-        return dict(shape=f"(B, M) = ({B}, {M}) int32 matrix", max_abs_err=max_abs_err(got, want),
-                    ops_counted=f"{per:,} a block x max(1, ceil(M / 64)) blocks; bytes 4 (M + 32) an instance",
-                    ms=time_ms(lambda: fn(msg)), ms_queued=time_ms(lambda: fn(msg), calls=10),
-                    plain_ms=time_ms(lambda: plain_fn(msg), 3, warmup=0), bound_ms=b_ms, bound_by=b_by)
+        row = dict(shape=f"(B, M) = ({B}, {M}) int32 matrix", max_abs_err=max_abs_err(got, want),
+                   ops_counted=f"{per:,} a block x max(1, ceil(M / 64)) blocks; bytes 4 (M + 32) an instance",
+                   ms=time_ms(lambda: fn(msg)), ms_queued=time_ms(lambda: fn(msg), calls=10),
+                   ms_graph=graph_ms(lambda: fn(msg)),
+                   plain_ms=time_ms(lambda: plain_fn(msg), 3, warmup=0), bound_ms=b_ms, bound_by=b_by)
+        if parent_tree:
+            parent_pair("blake2s", label, row["shape"], {
+                side: (lambda _, f=hash_builds["blake2s", side]: gadgets._digest_on_card(
+                    "blake2s", msg, launch=via(f))) for side in ("parent", "change")}, lambda: None)
+        return row
 
     kv = memb_groups["keccak_var"]
     size = memb_W.index_select(0, kv["size_w"])[..., 0].to(torch.int64) & 0xFFFFFFFF
@@ -2473,7 +2584,8 @@ def main() -> int:
         "sha256": [("gadgets", "sha256", *hash_states["sha256"], None, None),
                    ("membership_level", "sha256", memb_W, memb_groups["sha256"], None, None)],
         "keccak": [("gadgets_fixed_64", "keccak256", *hash_states["keccak256"], None, None),
-                   ("membership_var_232", "keccak_var", memb_W, kv, kv_length, None)],
+                   ("membership_var_232", "keccak_var", memb_W, kv, kv_length, None),
+                   ("membership_fixed_64", "keccak256", memb_W, memb_groups["keccak256"], None, None)],
         "blake2s": [("membership_leaf_32", "blake2s", memb_W, memb_groups["blake2s"], None, None),
                     ("membership_to_field_64", "hash_to_field", memb_W, memb_groups["hash_to_field"],
                      None, P),
@@ -2482,20 +2594,39 @@ def main() -> int:
     replaces = {"sha256": "acvm_tpu/tpu/gadgets.py:74", "keccak": "acvm_tpu/tpu/gadgets.py:244",
                 "blake2s": "acvm_tpu/tpu/gadgets.py:157"}
     for name, shapes in rows.items():
-        measured = {label: hash_kernel_row(kind, W, buf, length, modulus)
+        measured = {label: hash_kernel_row(kind, W, buf, length, modulus, label)
                     for label, kind, W, buf, length, modulus in shapes}
         first = measured.pop(shapes[0][0])
         kernels[name] = dict(name=name, route="cuda", source=f"acvm_tpu_torch/csrc/{name}.cu",
                              replaces=replaces[name], **first, library_ms=None,
                              **{label: row for label, row in measured.items()})
+    # At one gadget x 8,192 instances each launch of the staged kernels spans
+    # every SM: 256 one-warp blocks.
+    for name, label in (("sha256", "membership_level"), ("keccak", "membership_var_232"),
+                        ("keccak", "membership_fixed_64")):
+        assert kernels[name][label]["blocks"] == 256 >= torch.cuda.get_device_properties(0).multi_processor_count
+    if "--hash-variants" in sys.argv:
+        emit({"hash_variants": {"card": smi, "ms": hash_variant_ms}})
     kernels["keccak"]["also_replaces"] = ["acvm_tpu/tpu/gadgets.py:274", "acvm_tpu/tpu/gadgets.py:322"]
     kernels["blake2s"]["also_replaces"] = ["acvm_tpu/tpu/batch_solver.py:451"]
     schnorr_msg = torch.from_numpy(np.random.default_rng(8).integers(0, 256, size=(2048, 64))).to(dev)
     kernels["blake2s"]["schnorr_2048x64"] = matrix_kernel_row(
-        gadgets.blake2s_digest, gadgets.blake2s_digest_plain, schnorr_msg)
+        gadgets.blake2s_digest, gadgets.blake2s_digest_plain, schnorr_msg, "schnorr_2048x64")
     assert all(kernels[name]["max_abs_err"] == 0 and all(
         v["max_abs_err"] == 0 for v in kernels[name].values() if isinstance(v, dict))
         for name in rows), "hash kernel against its plain version"
+    if parent_tree:
+        # The parent's three hash kernels: equal outputs at every row's shape
+        # (above), and blake2s, which this tree leaves on ByteSource, the
+        # same SASS instruction for instruction.
+        for name in rows_kernels:
+            source = Path(f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu")
+            sass = [sass_instructions(build.lib_path(name, [], source)),
+                    sass_instructions(build.lib_path(name))]
+            hash_parent[name] = {"shapes": hash_parent[name],
+                                 "sass_instructions": [None if t is None else len(t) for t in sass],
+                                 "sass_identical": None if None in sass else sass[0] == sass[1]}
+        assert hash_parent["blake2s"]["sass_identical"], hash_parent["blake2s"]["sass_instructions"]
     del res, solver, state, memb_W, hash_states
     torch.cuda.empty_cache()
 
@@ -2806,7 +2937,8 @@ def main() -> int:
     # wide modes on secp256k1's p, pt_add, pt_ladder), built from the parent
     # tree at --parent=DIR beside this tree's and timed in one call, parent,
     # change, change, parent, at their rows' shapes; each pair of outputs
-    # equal.  ecdsa_mul's pair (above, compared on the affine R) joins the line.
+    # equal.  ecdsa_mul's pair (above, compared on the affine R) and the hash
+    # kernels' (path_hash, at every hash row's shape) join the line.
     if parent_tree:
         shape_rng = np.random.default_rng(71)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -2874,6 +3006,7 @@ def main() -> int:
                 row[f"{side}_ms_queued"].append(time_ms(run, calls=10))
             compare[name] = row
         compare["ecdsa_mul"] = ecdsa_parent
+        compare.update(hash_parent)
         emit({"parent_compare": {"card": smi, "parent": parent_tree, "equal_outputs": True,
                                  "order": "parent, change, change, parent", "kernels": compare}})
         del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases, wa, wb, wide_inv_in

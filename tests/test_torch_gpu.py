@@ -573,6 +573,103 @@ def test_hash_solver_on_card_equals_solver_on_cpu(card):
     assert gpu is not None and cpu.ok.all()
 
 
+# The message stage of sha256.cu and keccak.cu (csrc/hash.cuh): one-warp
+# blocks, the tables in shared memory (whole up to 1,024 bytes, staged a
+# block at a time past it: M = 1,500), each compression block's words copied
+# by cp.async into a two-stage ring (it wraps from three blocks on), zero-filled
+# past a keccak_var length.
+STAGED_CASES = ([("sha256", M) for M in (1, 55, 56, 63, 64, 119, 120, 1000, 1500)]
+                + [("keccak", M) for M in (1, 135, 136, 137, 272, 1000, 1500)])
+
+
+def _var_lengths(B, M, seed):
+    """keccak_var lengths 0 ... M, the padding's edges first."""
+    edges = [v for v in (0, 1, 135, 136, 137, M) if v <= M]
+    length = np.random.default_rng(seed).integers(0, M + 1, size=B)
+    length[:min(B, len(edges))] = edges[:B]
+    return torch.from_numpy(length.astype(np.int32))
+
+
+@pytest.mark.parametrize("kernel,M", STAGED_CASES, ids=lambda v: str(v))
+def test_staged_hash_kernels_equal_plain_versions_and_host_hashes(card, kernel, M):
+    """The matrix form at B = 1, 31, 33 and 8,192 (a ragged last block, one
+    block, a full card) against the plain version (tolerance 0) and hashlib /
+    the host Keccak; the panel form through hash_rows at G = 3 x B = 5 and
+    G = 1 x B = 33 against hash_rows_plain."""
+    from acvm_tpu_torch.blackbox.hashes import keccak256
+    from acvm_tpu_torch.gpu import gadgets
+
+    host = hashlib.sha256 if kernel == "sha256" else (
+        lambda m: types.SimpleNamespace(digest=lambda: keccak256(m)))
+    kinds = ("sha256",) if kernel == "sha256" else ("keccak256", "keccak_var")
+    build.reset_launches()
+    for B in (1, 31, 33, 8192):
+        msg = torch.from_numpy(np.random.default_rng(M + B).integers(0, 256, size=(B, M))).to(card)
+        if kernel == "sha256":
+            got = gadgets.sha256_digest(msg)
+            assert torch.equal(got, gadgets.sha256_digest_plain(msg)), B
+            for b in (0, B - 1):
+                assert bytes(got[b].tolist()) == host(bytes(msg[b].tolist())).digest(), (B, b)
+            continue
+        got = gadgets.keccak256_digest(msg)
+        assert torch.equal(got, gadgets.keccak256_digest_plain(msg)), B
+        assert bytes(got[B - 1].tolist()) == keccak256(bytes(msg[B - 1].tolist()))
+        length = _var_lengths(B, M, M + B).to(card)
+        got = gadgets.keccak256_var_digest(msg, length)
+        assert torch.equal(got, gadgets.keccak256_var_digest_plain(msg, length)), B
+        for b in range(min(B, 7)):
+            assert bytes(got[b].tolist()) == keccak256(bytes(msg[b, :int(length[b])].tolist())), (B, b)
+    rng = np.random.default_rng(M)
+    for kind in kinds:
+        for G, B in ((3, 5), (1, 33)):
+            NW = 30 + 32 * G
+            W = torch.from_numpy(rng.integers(-2**31, 2**31, size=(NW, B, 8)).astype(np.int32))
+            tables = [torch.from_numpy(t.astype(np.int32)) for t in (
+                rng.integers(0, 30, size=(G, M)), rng.integers(0, 8, size=(G, M)),
+                8 * rng.integers(0, 4, size=(G, M)))]
+            out_idx = torch.from_numpy((30 + rng.permutation(32 * G)).reshape(G, 32).astype(np.int32))
+            length = (torch.stack([_var_lengths(B, M, M + g) for g in range(G)])
+                      if kind == "keccak_var" else None)
+            want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length)
+            got = gadgets.hash_rows(kind, *(t.to(card) for t in (W, *tables, out_idx)),
+                                    length=None if length is None else length.to(card))
+            assert torch.equal(got.cpu(), want), (kind, G, B)
+    launches = {"sha256": 4 + 2, "keccak": 2 * 4 + 2 * 2}
+    assert build.LAUNCHES[kernel] == launches[kernel], build.LAUNCHES
+
+
+def test_staged_hash_kernels_on_the_membership_groups(card):
+    """The membership program (depth 4) over 8,192 instances solved on the
+    card, then every hash group of its plan again through hash_rows and
+    hash_rows_plain on the solved panel: equal, tolerance 0 (sha256 at
+    1 x 8,192 x 64, keccak_var at 232 bytes with the path's own lengths,
+    keccak256 of 64 bytes, and blake2s's two groups beside them)."""
+    from acvm_tpu_torch.gpu import gadgets
+    from acvm_tpu_torch.utils import build_membership_circuit, membership_inputs
+
+    circuit = build_membership_circuit(4)
+    solver = BatchSolver(plan_circuit(circuit), device=card)
+    res = solver.solve(membership_inputs(circuit, 8192))
+    assert res.ok.all()
+    W = res.panel
+    P = BN254_FR.modulus
+    groups = [g for seg in solver.segments for lv in seg.levels for g in lv.get("hashes", [])]
+    assert sorted({g["kind"] for g in groups}) == [
+        "blake2s", "hash_to_field", "keccak256", "keccak_var", "sha256"]
+    for g in groups:
+        kind = g["kind"]
+        tables = (g["src_w"], g["src_limb"], g["src_shift"], g["out_idx"])
+        length = None
+        if kind == "keccak_var":
+            size = W.index_select(0, g["size_w"])[..., 0].to(torch.int64) & 0xFFFFFFFF
+            length = size.clamp(max=g["src_w"].shape[1]).to(torch.int32)
+        modulus = P if kind == "hash_to_field" else None
+        got = gadgets.hash_rows(kind, W.clone(), *tables, length=length, modulus=modulus)
+        want = gadgets.hash_rows_plain(kind, W.clone(), *tables, length, modulus)
+        assert torch.equal(got, want), kind
+        assert torch.equal(got, W), kind  # the solve wrote the same rows
+
+
 # ---------------------------------------------------------------------------
 # The wide field and ECDSA (secp256k1, secp256r1)
 # ---------------------------------------------------------------------------
