@@ -66,8 +66,9 @@ _SIGNATURES = {
     # Base view (pointer, coordinate stride, instance stride), scalars, output
     # view, instances, field, stream.
     "pt_ladder": ("acvm_pt_ladder", [_P, _LL, _LL, _P, _P, _LL, _LL, _LL, _P, _P]),
-    # a, out, rows G, columns L, rows a chunk, schedule words, field, stream.
-    "batch_inv": ("acvm_batch_inv", [_P, _P, _LL, _LL, _I, _P, _P, _P]),
+    # a, out, rows G, columns L, rows a chunk, chunks a block, schedule words,
+    # field, stream (fields/kernels.py::batch_inv_plan).
+    "batch_inv": ("acvm_batch_inv", [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]),
     # a, b, q, r, elements, bits of a to read, stream.
     "divmod": ("acvm_divmod", [_P, _P, _P, _P, _LL, _I, _P]),
     # The instruction table, opcodes, registers, memory, status, steps,

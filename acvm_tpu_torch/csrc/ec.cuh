@@ -27,8 +27,8 @@
 //
 // All three work in place on P.  Q is read through pointers (ec_add: or any
 // source of its three coordinates, ec_add_from), each coordinate when the
-// formula first needs it, so a caller whose Q never changes (a ladder's base)
-// holds none of it in registers between additions.
+// formula first needs it, so a caller whose Q never changes holds none of it
+// in registers between additions.
 #pragma once
 
 #include "field.cuh"

@@ -40,7 +40,7 @@ static inline PowSchedule pow_schedule_from_words(const uint32_t* w) {
     return s;
 }
 
-// The threads of a block of `pow` and `batch_inv`.
+// The threads of a block of `pow`.
 #define ACVM_POW_THREADS 128
 
 __device__ __forceinline__ void copy_fe(uint32_t dst[ACVM_LIMBS], const uint32_t src[ACVM_LIMBS]) {

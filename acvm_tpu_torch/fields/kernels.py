@@ -22,8 +22,11 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
 * ``mont_batch_inv`` — ``fields/jnp_ops.py::LimbContext.mont_batch_inv`` (the
   prefix/suffix scans over the multiply kernel around one pow chain).  One
   launch: a thread runs a chunk of g values of one column forward (prefix
-  products), through the chain, and back; 3(g - 1) products and one chain a
-  chunk, about 160 bytes moved a value.  Bound by the integer pipes.
+  products) and back, 3(g - 1) products; the block's chunk totals share ONE
+  chain through a second level of the trick (:func:`batch_inv_plan`).  Bound
+  by the integer pipes and, below a card's worth of lanes, by the chain's
+  latency.  A value is read twice and its prefix written to the output,
+  read back and overwritten: ~160 bytes a value where the function needs 64.
 * ``mont_dot``  — ``fields/pallas_mul_v2.py::_make_dot_kernel_v2``.  32 bytes
   per operand against 136 multiply-adds per product: integer pipes at the usual
   2-3 terms; one launch per expression panel keeps every intermediate out of
@@ -49,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -527,6 +530,37 @@ def mont_batch_inv_plain(
     return torch.movedim(inv, 0, axis)
 
 
+# batch_inv.cu's INV_MAX_LANES: the most chunks a block.
+BATCH_INV_MAX_LANES = 256
+
+
+class BatchInvPlan(NamedTuple):
+    g: int              # rows a chunk (a lane)
+    lanes: int          # chunks a block: neighbouring columns of one chunk
+    blocks: int         # one Fermat chain each
+
+
+def batch_inv_plan(G: int, L: int, max_scan: int, sms: int) -> BatchInvPlan:
+    """The launch of one ``batch_inv`` over a (G, L) panel along axis 0 on a
+    card of ``sms`` multiprocessors.
+
+    Chunks of g = min(G, max_scan) rows.  A block's lanes are the fewest (a
+    power of two from 32 to 256) that leave at most two blocks, two chains, an
+    SM: a chain is one thread's ~305 dependent products, and where more blocks
+    share an SM their chains meet on a scheduler (on an H100, 65,536 values in
+    2 rows: 0.21 ms at 512 blocks, 0.16 at 256; `chip_smoke.py` row 9's
+    `fold_2x32768_ms_by_lanes`).  Every lane's prefixes wait in the output
+    through its block's chain."""
+    if G < 1 or L < 1 or max_scan < 1 or sms < 1:
+        raise ValueError("batch_inv_plan: G, L, max_scan and sms must be positive")
+    g = min(G, max_scan)
+    chunks = -(-G // g)
+    lanes = 32
+    while lanes < min(BATCH_INV_MAX_LANES, 32 * -(-L // 32)) and chunks * -(-L // lanes) > 2 * sms:
+        lanes *= 2
+    return BatchInvPlan(g, lanes, chunks * -(-L // lanes))
+
+
 def mont_batch_inv(
     a: torch.Tensor, params: FieldParams = BN254_FR, axis: int = 0, max_scan: int = 256
 ) -> torch.Tensor:
@@ -544,16 +578,26 @@ def mont_batch_inv(
     if not a.is_cuda:
         return mont_batch_inv_plain(a, params, axis, max_scan)
     a_m = torch.movedim(a, axis, 0).contiguous()
-    out = torch.empty_like(a_m)
     G = a_m.shape[0]
     L = a_m.numel() // (G * LIMBS) if G else 0
-    if L:
+    sms = torch.cuda.get_device_properties(a_m.device).multi_processor_count
+    plan = batch_inv_plan(G, L, max_scan, sms) if L else None
+    return torch.movedim(batch_inv_launch(a_m, params, plan), 0, axis)
+
+
+def batch_inv_launch(a_m: torch.Tensor, params: FieldParams, plan: Optional[BatchInvPlan]) -> torch.Tensor:
+    """One ``batch_inv`` launch along axis 0 of a contiguous CUDA tensor with
+    the given plan (:func:`mont_batch_inv` passes :func:`batch_inv_plan`'s;
+    a measurement may force another).  ``plan`` None: an empty panel."""
+    out = torch.empty_like(a_m)
+    if plan is not None:
         build.launch(
-            "batch_inv_wide" if is_wide(params) else "batch_inv", a_m.data_ptr(), out.data_ptr(), G, L,
-            min(G, max_scan), _host_ptr(pow_schedule_words(params.modulus - 2)),
-            _host_ptr(field_words(params)), _stream(a_m),
+            "batch_inv_wide" if is_wide(params) else "batch_inv", a_m.data_ptr(), out.data_ptr(),
+            a_m.shape[0], a_m.numel() // (a_m.shape[0] * LIMBS), plan.g, plan.lanes,
+            _host_ptr(pow_schedule_words(params.modulus - 2)), _host_ptr(field_words(params)),
+            _stream(a_m),
         )
-    return torch.movedim(out, 0, axis)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -104,12 +104,13 @@ class LimbContext:
         launch on CUDA tensors (:func:`kernels.mont_batch_inv`)."""
         return kernels.mont_batch_inv(a, self.params, axis, max_scan)
 
-    # Lanes (chunks) from which an H100 is full of Fermat chains: on one
-    # `batch_inv` launch of n values in chunks of g, n / g = 2^14 lanes was the
-    # best split at every n from 2^16 to 2^20 measured (`chip_smoke.py
-    # --fold-sweep`), and at n = 2^14 the pow kernel beat every split.  The
-    # gadget paths' affine conversions (2,048-16,384 values) stay below 2^15
-    # and call the pow kernel directly.
+    # Lanes (chunks) from which folding pays: on one `batch_inv` launch of n
+    # values in chunks of g (a Fermat chain a block of chunks), n / g = 2^14 to
+    # 2^15 lanes was the best split at every n from 2^16 to 2^20 measured, and
+    # at n = 2^14 the pow kernel beat every split (0.173 ms against 0.196 at
+    # g = 4; at 2^16 0.400 against 0.197; `chip_smoke.py --fold-sweep`, H100).
+    # The gadget paths' affine conversions (2,048-16,384 values) stay below
+    # 2^15 and call the pow kernel directly.
     FOLD_LANES = 1 << 14
 
     def mont_inv_grouped(self, a: torch.Tensor, group: int = 32) -> torch.Tensor:
@@ -119,11 +120,12 @@ class LimbContext:
         the value count n (no padding), at most ``group``; any g gives the same
         bits.
 
-        Folding turns n chains into n / g chains and 3n products in one
-        launch.  While n / g chains fill the card the launch is bound by the
-        products, so g doubles only while n / (2g) >= FOLD_LANES; below that a
-        chain's depth sets the time, which folding only lengthens (by 3g), and
-        the values go to the pow kernel directly."""
+        Folding turns n chains into 3n products and a chain a block of chunks
+        (``kernels.batch_inv_plan``) in one launch.  While the n / g chunks
+        fill the card the launch is bound by the products, so g doubles only
+        while n / (2g) >= FOLD_LANES; below that a chain's depth sets the time,
+        which folding only lengthens, and the values go to the pow kernel
+        directly."""
         n = a.numel() // LIMBS
         g = 1
         while g < group and n % (g * 2) == 0 and n // (g * 2) >= self.FOLD_LANES:

@@ -102,14 +102,15 @@ from .planner import ExprPlan, HostStage, Level, MemoryInitStage, Plan
 FAIL_NONE = np.int32(2**31 - 1)
 
 # Gates per chunk of a level's batch inversion: one `batch_inv` launch, a
-# thread a chunk of one instance (a lane).  A level of E gates over B instances
-# has E * B / g lanes, each 3(g - 1) products plus one Fermat chain of ~311.
-# Small g leaves many chains (throughput-bound: ~400 products a lane at g = 32);
-# large g leaves too few lanes to hide a lane's dependent depth of ~3g + 305
-# products (latency-bound).  On an H100 at E = B = 2,048 (`chip_smoke.py`,
-# `ms_by_chunk`): g = 32 1.03 ms, 64 0.69, 128 0.53, 256 0.63.  Any chunking
-# gives the same bits.
-_DYN_INV_CHUNK = 128
+# thread a chunk of one instance (a lane), a Fermat chain a block of lanes
+# (`fields/kernels.py::batch_inv_plan`).  A level of E gates over B instances
+# has E * B / g lanes, each 3(g - 1) products; every lane's prefixes wait in
+# the output through one chain period.  Small g makes more lanes than the card
+# holds at once (a second wave, a second chain period); large g lengthens a
+# lane's dependent depth of ~3g products.  On an H100 at E = B = 2,048
+# (`chip_smoke.py`, `ms_by_chunk`): g = 32 0.60 ms, 64 0.43, 128 0.45, 256
+# 0.60.  Any chunking gives the same bits.
+_DYN_INV_CHUNK = 64
 
 
 def note_failures(fail: torch.Tensor, bad: torch.Tensor, op_idx: torch.Tensor) -> torch.Tensor:

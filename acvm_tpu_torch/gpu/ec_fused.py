@@ -169,6 +169,20 @@ def tree_reduce_fused(ctx, P: torch.Tensor):
     return ec.point_of(P[0])
 
 
+# The ladder kernel's geometry (csrc/pt_ladder.cu): a team of four threads an
+# instance, eight teams a one-warp block.
+LADDER_TEAM_THREADS = 4
+LADDER_TEAMS = 8
+
+
+def ladder_geometry(B: int):
+    """(blocks, threads a block, masked teams) of one ``pt_ladder`` launch over
+    B instances: instance b is team b % 8 of block b // 8, threads 4 (b % 8)
+    to 4 (b % 8) + 3; the last block's teams past B are masked."""
+    blocks = -(-B // LADDER_TEAMS)
+    return blocks, LADDER_TEAMS * LADDER_TEAM_THREADS, blocks * LADDER_TEAMS - B
+
+
 def scalar_mul_fused_plain(ctx, point, scalar_limbs: torch.Tensor):
     """Plain version of :func:`scalar_mul_fused`: the 256 steps of the
     reference ladder, MSB-first, each ``acc + acc`` (the complete addition's
@@ -191,8 +205,9 @@ def scalar_mul_fused(ctx, point, scalar_limbs: torch.Tensor):
 
     ``point``: (x, y, z) Montgomery Jacobian (B, 8) tensors; ``scalar_limbs``
     (B, 8) standard form, all 256 bits used as they come.  MSB-first, the group-law semantics of ``ec.scalar_mul``.  On
-    CUDA tensors the whole ladder is ONE launch of ``csrc/pt_ladder.cu`` (a
-    thread an instance, the accumulator in registers); on CPU tensors
+    CUDA tensors the whole ladder is ONE launch of ``csrc/pt_ladder.cu`` (four
+    threads an instance, a step's products in rounds over shared memory:
+    :func:`ladder_geometry`); on CPU tensors
     :func:`scalar_mul_fused_plain` runs.  X, Y and Z are the same limbs either
     way."""
     fk.require_narrow(ctx.params, "scalar_mul_fused")

@@ -31,7 +31,8 @@
                                      # (reads only, rounds only) timed at
                                      # every hash row's shape
     python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv (and
-                                     # their wide modes), pt_add, pt_ladder,
+                                     # their wide modes), pt_add, pt_ladder
+                                     # (also at the Schnorr shape),
                                      # ecdsa_mul, sha256, keccak and blake2s
                                      # built from the tree unpacked at DIR
                                      # (git archive <commit>
@@ -39,7 +40,8 @@
                                      # beside this tree's, equal outputs
                                      # (ecdsa_mul's affine R; the hash kernels
                                      # at every hash row's shape), timed
-                                     # parent, change, change, parent;
+                                     # parent, change, change, parent (one
+                                     # call, queued and in a CUDA graph);
                                      # blake2s the same SASS
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
@@ -179,8 +181,15 @@ build, a failed launch or a failed comparison raises and the exit code is not
                registers, spills, blocks and shared memory a block, and
                ``sha256`` and ``keccak`` with the time of their rounds alone
                (``rounds_only_ms``, a build with HASH_ROUNDS_ONLY, the row's
-               latency floor); ``batch_inv`` also at four chunk sizes on
-               the dyn path's (2,048, 2,048) panel; ``brillig_vm`` on the sort
+               latency floor); ``batch_inv`` with its plan
+               (``fields/kernels.py::batch_inv_plan``: chunk, lanes a block,
+               chains), with its plan and with 32 lanes forced on the edge
+               cases, at four chunk sizes and four tile widths on the dyn
+               path's (2,048, 2,048) panel, and at four tile widths on 65,536
+               values in 2 rows; ``pt_ladder`` also on batches of 1, 3 and
+               33 and at the Schnorr path's own shape (affine keys, scalars
+               below n), with the rounds of its longest warp and their
+               floor; ``brillig_vm`` on the sort
                block of 12 over all 8,192 instances, with the opcodes executed
                by kind that its bound counts, and the isqrt and inverse blocks
                as shapes of it (their divisions counted from their operands,
@@ -637,24 +646,32 @@ def main() -> int:
     del a, a_small, got, want
 
     # -- 6b'. batch_inv ---------------------------------------------------------
-    # Against the plain version on both fields: zeros at the first and last row
-    # of a chunk, a chunk of all zeros, columns of p - 1, G not a multiple of
-    # the chunk, G = 1 and 2, axes other than 0; the result times the input is
-    # R.  Then the dyn path's panel (2,048 gates x 2,048 instances) at the
-    # solver's chunk, timed at four chunk sizes.
+    # Against the plain version on both fields, through the plan and with 32
+    # lanes a block forced: zeros at the first and last row of a chunk, a
+    # chunk and a whole tile of zeros, columns of p - 1, G not a multiple of
+    # the chunk and L of the tile, G = 1 and 2, axes other than 0; the result
+    # times the input is R.  Then the dyn path's panel (2,048 gates x 2,048
+    # instances) at the solver's chunk, timed at four chunk sizes through the
+    # plan and at four tile widths; and 65,536 values in 2 rows
+    # (mont_inv_grouped's fold) at four tile widths.
     from acvm_tpu_torch.gpu.batch_solver import _DYN_INV_CHUNK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = []
     for params in (BN254_FR, BLS12_381_FR):
         pm1 = torch.from_numpy(fk.int_to_limbs32(params.modulus - 1).copy()).to(dev)
         r_p = torch.from_numpy(fk.int_to_limbs32(params.r).copy()).to(dev)
-        a = random_elements((300, 96), params, 51)   # chunks of 32: the last holds 12
+        a = random_elements((300, 100), params, 51)   # chunks of 32: the last holds 12
         a[0, 0] = a[31, 1] = a[32, 1] = a[299, 3] = a[288, 6] = 0
         a[64:96, 2] = 0
+        a[96:128, 32:64] = 0                           # a tile of 32 lanes, all zero
         a[:, 4] = pm1
         a[100:140, 5] = pm1
         for g in (32, 7, 300, 1):
+            want = fk.mont_batch_inv_plain(a, params, 0, g)
             got = fk.mont_batch_inv(a, params, 0, g)
-            errs.append(max_abs_err(got, fk.mont_batch_inv_plain(a, params, 0, g)))
+            errs.append(max_abs_err(got, want))
+            forced = fk.batch_inv_plan(300, 100, g, sms)._replace(lanes=32)
+            errs.append(max_abs_err(fk.batch_inv_launch(a, params, forced), want))
         zero = (a == 0).all(-1)
         errs.append(max_abs_err(got[zero], torch.zeros_like(got[zero])))
         errs.append(max_abs_err(fk.mont_mul(a[~zero], got[~zero], params),
@@ -662,10 +679,12 @@ def main() -> int:
         for G in (1, 2):
             errs.append(max_abs_err(fk.mont_batch_inv(a[:G], params, 0, 32),
                                     fk.mont_batch_inv_plain(a[:G], params, 0, 32)))
-        at = a.transpose(0, 1)  # (96, 300, 8), a strided view, along axis 1
+        errs.append(max_abs_err(fk.mont_batch_inv(a[:, :1], params, 0, 32),
+                                fk.mont_batch_inv_plain(a[:, :1], params, 0, 32)))   # L = 1
+        at = a.transpose(0, 1)  # (100, 300, 8), a strided view, along axis 1
         errs.append(max_abs_err(fk.mont_batch_inv(at, params, 1, 32),
                                 fk.mont_batch_inv_plain(at, params, 1, 32)))
-        a4 = a.reshape(300, 4, 24, 8).permute(1, 0, 2, 3)  # (4, 300, 24, 8) along axis -3
+        a4 = a.reshape(300, 4, 25, 8).permute(1, 0, 2, 3)  # (4, 300, 25, 8) along axis -3
         errs.append(max_abs_err(fk.mont_batch_inv(a4, params, -3, 32),
                                 fk.mont_batch_inv_plain(a4, params, -3, 32)))
     assert max(errs) == 0, errs
@@ -673,17 +692,32 @@ def main() -> int:
     a = random_elements((G_inv, L_inv), BN254_FR, 52)
     a[0, 0] = a[G_inv - 1, 1] = a[_DYN_INV_CHUNK, 2] = 0
     got = fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK)
-    by_chunk = {}
+    by_chunk, plans = {}, {}
     for g in sorted({32, 64, 128, 256, _DYN_INV_CHUNK}):
         other = fk.mont_batch_inv(a, BN254_FR, 0, g)
         errs.append(max_abs_err(other, got))
-        by_chunk[g] = time_ms(lambda g=g: fk.mont_batch_inv(a, BN254_FR, 0, g))
+        by_chunk[g] = time_ms(lambda g=g: fk.mont_batch_inv(a, BN254_FR, 0, g), calls=10)
+        plans[g] = fk.batch_inv_plan(G_inv, L_inv, g, sms)._asdict()
+    plan = fk.batch_inv_plan(G_inv, L_inv, _DYN_INV_CHUNK, sms)
+    by_lanes = {}
+    for lanes in (32, 64, 128, 256):
+        p_l = plan._replace(lanes=lanes)
+        errs.append(max_abs_err(fk.batch_inv_launch(a, BN254_FR, p_l), got))
+        by_lanes[lanes] = time_ms(lambda p_l=p_l: fk.batch_inv_launch(a, BN254_FR, p_l), calls=10)
     del other
     # The plain version on the whole panel: its widened products hold ~45 GB
     # at the end, one at a time.
     errs.append(max_abs_err(got, fk.mont_batch_inv_plain(a, BN254_FR, 0, _DYN_INV_CHUNK)))
     inv_plain_ms = time_ms(
         lambda: fk.mont_batch_inv_plain(a, BN254_FR, 0, _DYN_INV_CHUNK), 3, warmup=0)
+    fold_x = random_elements((2, 32768), BN254_FR, 54)
+    fold_want = fk.mont_batch_inv(fold_x, BN254_FR, 0, 2)
+    fold_by_lanes = {}
+    for lanes in (32, 64, 128, 256):
+        p_l = fk.batch_inv_plan(2, 32768, 2, sms)._replace(lanes=lanes)
+        errs.append(max_abs_err(fk.batch_inv_launch(fold_x, BN254_FR, p_l), fold_want))
+        fold_by_lanes[lanes] = time_ms(lambda p_l=p_l: fk.batch_inv_launch(fold_x, BN254_FR, p_l), calls=10)
+    del fold_x, fold_want
 
     def batch_inv_products(x):
         """Montgomery products that batch inversion along axis 0 of x needs,
@@ -694,28 +728,50 @@ def main() -> int:
         live = per_column > 0
         return int(live.sum().item()) * chain + 3 * int((per_column[live] - 1).sum().item())
 
-    def batch_inv_design_products(x, g):
-        """Products the kernel does in chunks of g: a chain a chunk (zeros
-        count as R), one product a row after a chunk's first (backward), and
-        two more where that row is not zero (forward, backward)."""
+    def batch_inv_design_products(x, plan):
+        """Products the kernel runs under `plan`: a lane's row after its
+        chunk's first costs one (backward) and two more where it is not zero
+        (forward, backward); every thread of a block five rounds of two scan
+        products, the warp's other totals, the other warps' totals
+        (nw - 2 and one), its inverse; a block one chain and its grand total."""
         G, L = x.shape[0], x.shape[1]
         later = torch.ones(G, dtype=torch.bool, device=x.device)
-        later[::g] = False
+        later[::plan.g] = False
         nonzero_later = int((~(x[later] == 0).all(-1)).sum().item())
-        chunks = -(-G // g)
-        return chunks * L * chain + (G - chunks) * L + 2 * nonzero_later
+        chunks = -(-G // plan.g)
+        nw = plan.lanes // 32
+        per_thread = 12 + (nw - 1 if nw > 1 else 0)
+        return ((G - chunks) * L + 2 * nonzero_later + plan.blocks * plan.lanes * per_thread
+                + plan.blocks * (chain + (nw > 1)))
 
+    def batch_inv_depth(plan):
+        """Dependent products on a block's path: forward, the scans (prefix
+        and suffix side by side), the other totals, the chain's depth, the
+        lane's inverse, backward."""
+        nw = plan.lanes // 32
+        return 2 * (plan.g - 1) + 5 + 1 + max(nw - 1, 0) + chain_depth + 1
+
+    sched_first, sched_steps, sched_tail = fk.pow_schedule(P - 2)
+    chain_depth = 4 + sum(sq + 1 for sq, _ in sched_steps) + sched_tail  # the table's tree is 4 deep
     needed = batch_inv_products(a)
     b_ms, b_by = bound(64 * G_inv * L_inv, needed * MADDS_PER_MONT_MUL)
+    us_chain = candidates["carry_flag_even_odd"]["us_per_product_in_chain"]
     kernels["batch_inv"] = dict(
         name="batch_inv", route="cuda", source="acvm_tpu_torch/csrc/batch_inv.cu",
         replaces="acvm_tpu/fields/jnp_ops.py:259",
         shape=f"G={G_inv}, L={L_inv}, chunk={_DYN_INV_CHUNK} (the dyn path's level)",
+        plan=plan._asdict(), chains=plan.blocks,
         max_abs_err=max(errs), edge_cases=len(errs),
-        ms=by_chunk[_DYN_INV_CHUNK],
-        ms_queued=time_ms(lambda: fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK), calls=10),
-        ms_by_chunk=by_chunk, products_needed=needed,
-        products_by_chunk={g: batch_inv_design_products(a, g) for g in by_chunk},
+        ms=time_ms(lambda: fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK)),
+        ms_queued=by_chunk[_DYN_INV_CHUNK],
+        ms_graph=graph_ms(lambda: fk.mont_batch_inv(a, BN254_FR, 0, _DYN_INV_CHUNK)),
+        ms_by_chunk=by_chunk, plan_by_chunk=plans, ms_by_lanes=by_lanes,
+        fold_2x32768_ms_by_lanes=fold_by_lanes,
+        products_needed=needed, products_design=batch_inv_design_products(a, plan),
+        products_by_chunk={g: batch_inv_design_products(a, fk.batch_inv_plan(G_inv, L_inv, g, sms)) for g in by_chunk},
+        latency_floor_ms=batch_inv_depth(plan) * us_chain * 1e-3,
+        latency_floor_from="dependent products on a block's path x int32.mont_mul_candidates"
+                           ".carry_flag_even_odd.us_per_product_in_chain",
         plain_ms=inv_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, got
     torch.cuda.empty_cache()
@@ -912,44 +968,103 @@ def main() -> int:
     # 0 * P and n * P are infinity, (n + 1) * P is not; anything times infinity is.
     assert got_inf[0] and got_inf[9 * 4] and not got_inf[9 * 5] and all(got_inf[6 : 6 + 72 : 9])
 
-    def ladder_products(point, k):
+    def ladder_work(point, k):
         """Montgomery products this ladder needs on these lanes, step by step
         with the accumulator the ladder really holds: a doubling 7 (none at
         infinity), an addition for a set bit 16, or 8 + 7 where it meets P = Q,
-        none where either point is at infinity."""
+        none where either point is at infinity.  And the rounds each warp of
+        the kernel runs (ec_fused.ladder_geometry: eight instances a warp): a
+        step's doubling three where any of its instances is finite, the
+        addition three more where any adds to a finite point, and three where
+        any meets P = Q.  Returns (products, rounds of the longest warp)."""
         c = ec_ctx
+        B_k = k.shape[0]
+        warps = ec_fused.ladder_geometry(B_k)[0]
         base_inf = ec.pt_is_inf(point)
-        acc = torch.zeros((1, 3, k.shape[0], 8), dtype=torch.int32, device=dev)
+        acc = torch.zeros((1, 3, B_k, 8), dtype=torch.int32, device=dev)
         panel = ec.panel_of(point)[None]
         bits = ec.scalar_bits(k)
+        rounds = torch.zeros(warps, dtype=torch.int64, device=dev)
+
+        def any_in_warp(flags):
+            padded = torch.zeros(warps * ec_fused.LADDER_TEAMS, dtype=torch.bool, device=dev)
+            padded[:B_k] = flags
+            return padded.reshape(warps, ec_fused.LADDER_TEAMS).any(1).to(torch.int64)
+
         total = 0
         for i in range(255, -1, -1):
-            total += 7 * int((~c.is_zero(acc[0, 2])).sum().item())
+            finite = ~c.is_zero(acc[0, 2])
+            total += 7 * int(finite.sum().item())
+            rounds += 3 * any_in_warp(finite)
             ec_fused.pt_add_panels(acc, acc, out=acc)
             live = bits[i] & ~base_inf & ~c.is_zero(acc[0, 2])
             if live.any():
                 x1, y1, z1 = acc[0, 0], acc[0, 1], acc[0, 2]
                 zz1, zz2 = c.mont_mul(z1, z1), c.mont_mul(point[2], point[2])
-                same = (c.eq(c.mont_mul(point[0], zz1), c.mont_mul(x1, zz2))
-                        & c.eq(c.mont_mul(c.mont_mul(point[1], z1), zz1),
-                               c.mont_mul(c.mont_mul(y1, point[2]), zz2)))
+                same = live & (c.eq(c.mont_mul(point[0], zz1), c.mont_mul(x1, zz2))
+                               & c.eq(c.mont_mul(c.mont_mul(point[1], z1), zz1),
+                                      c.mont_mul(c.mont_mul(y1, point[2]), zz2)))
                 total += int(torch.where(live, torch.where(same, 15, 16), 0).sum().item())
+                rounds += 3 * any_in_warp(live) + 3 * any_in_warp(same)
             added = ec_fused.pt_add_panels(acc, panel)
             acc = torch.where(bits[i][None, None, :, None], added, acc)
-        return total
+        return total, int(rounds.max().item())
 
-    products = ladder_products(lad_point, scalars)
+    # Batches of 1, 3 and 33: a lone team, a ragged team of a lone warp, a
+    # ragged second warp.
+    for B_small in (1, 3, 33):
+        pt_small = tuple(c[:B_small].contiguous() for c in lad_point)
+        errs += [max_abs_err(g, w) for g, w in zip(
+            ec_fused.scalar_mul_fused(ec_ctx, pt_small, scalars[:B_small]),
+            ec_fused.scalar_mul_fused_plain(ec_ctx, pt_small, scalars[:B_small]))]
+    # The Schnorr path's own shape (gpu/ec.py's schnorr_verify): 2,048 public
+    # keys k G in affine form (Z = R), scalars uniform below n.
+    rng_k = np.random.default_rng(32)
+
+    def below_n(count):
+        vals = [int.from_bytes(rng_k.bytes(40), "little") % N_ORDER for _ in range(count)]
+        return torch.from_numpy(fk.ints_to_limbs32(vals).copy()).to(dev)
+
+    gen = host_gk.grumpkin.generator()
+    g_panel = torch.from_numpy(np.stack([fk.int_to_limbs32(v * BN254_FR.r % P)
+                                         for v in (gen[0], gen[1], 1)])).to(dev)
+    keys = ec_fused.scalar_mul_fused_plain(
+        ec_ctx, tuple(c[None].expand(lad_B, 8).contiguous() for c in g_panel), below_n(lad_B))
+    kx, ky = ec.pt_to_affine(ec_ctx, keys)  # standard form, as the path's public keys arrive
+    sch_point = (ec_ctx.to_mont(kx), ec_ctx.to_mont(ky), ec_ctx.r_limbs.expand_as(kx).contiguous())
+    sch_k = below_n(lad_B)
+    sch_got = ec_fused.scalar_mul_fused(ec_ctx, sch_point, sch_k)
+    errs += [max_abs_err(g, w) for g, w in
+             zip(sch_got, ec_fused.scalar_mul_fused_plain(ec_ctx, sch_point, sch_k))]
+    assert not ec.pt_is_inf(sch_point).any() and not ec.pt_is_inf(sch_got).any()
+
+    products, warp_rounds = ladder_work(lad_point, scalars)
+    sch_products, sch_rounds = ladder_work(sch_point, sch_k)
     b_ms, b_by = bound((96 + 32 + 96) * lad_B, products * MADDS_PER_MONT_MUL)
     kernels["pt_ladder"] = dict(
         name="pt_ladder", route="cuda", source="acvm_tpu_torch/csrc/pt_ladder.cu",
         replaces="acvm_tpu/tpu/ec_pallas.py:179",
         shape=f"B={lad_B}, 256 bits, half the lanes with 28 leading zero bits",
+        geometry=dict(zip(("blocks", "threads", "masked_teams"), ec_fused.ladder_geometry(lad_B))),
         max_abs_err=max(errs), products_per_lane=products / lad_B,
         ms=time_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars)),
         ms_queued=time_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars), calls=10),
+        ms_graph=graph_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, lad_point, scalars), launches=5),
+        warp_rounds=warp_rounds,
+        latency_floor_ms=warp_rounds * us_chain * 1e-3,
+        latency_floor_from="rounds of the longest warp x int32.mont_mul_candidates"
+                           ".carry_flag_even_odd.us_per_product_in_chain",
+        schnorr_shape=dict(
+            shape=f"B={lad_B}, affine keys (Z = R), scalars uniform below n",
+            products_per_lane=sch_products / lad_B, warp_rounds=sch_rounds,
+            ms_queued=time_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, sch_point, sch_k), calls=10),
+            ms_graph=graph_ms(lambda: ec_fused.scalar_mul_fused(ec_ctx, sch_point, sch_k), launches=5),
+            latency_floor_ms=sch_rounds * us_chain * 1e-3,
+            bound_ms=bound((96 + 32 + 96) * lad_B, sch_products * MADDS_PER_MONT_MUL)[0]),
         plain_ms=time_ms(lambda: ec_fused.scalar_mul_fused_plain(ec_ctx, lad_point, scalars), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del pts, round1, ex, base, scalars, got, want, lad_point
+    sch_panel = ec.panel_of(sch_point)  # kept for --parent's Schnorr-shaped pair
+    del pts, round1, ex, base, scalars, got, want, lad_point, keys, sch_point, sch_got
     torch.cuda.empty_cache()
 
     # -- 6h. level at wide gates ------------------------------------------------------
@@ -2802,14 +2917,23 @@ def main() -> int:
     chain_p = fk.pow_chain_products(k1_p.modulus - 2)
     needed = fold_B * chain_p + 3 * (n_fold - fold_B)
     b_ms, b_by = bound(64 * n_fold, needed * MADDS_PER_MONT_MUL)
+    wide_plan = fk.batch_inv_plan(2, fold_B, 2, torch.cuda.get_device_properties(dev).multi_processor_count)
+    k1_chain = fk.pow_schedule(k1_p.modulus - 2)
+    wide_depth = 2 + 5 + 1 + max(wide_plan.lanes // 32 - 1, 0) + 1 \
+        + 4 + sum(sq + 1 for sq, _ in k1_chain[1]) + k1_chain[2]
     kernels["batch_inv_wide"] = dict(
         name="batch_inv_wide", route="cuda", source="acvm_tpu_torch/csrc/batch_inv.cu (-DACVM_WIDE)",
         replaces="acvm_tpu/fields/jnp_ops.py:259",
         shape=f"G=2, L={fold_B}, chunk 2 (mont_inv_grouped of {n_fold} values: the s^-1 and Z^-1 "
               f"of the {fold_B}-instance solve), secp256k1 p",
+        plan=wide_plan._asdict(), chains=wide_plan.blocks,
         fields=[f.name for f in wide_fields], max_abs_err=max(errs), products_needed=needed,
         ms=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2)),
         ms_queued=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2), calls=10),
+        ms_graph=graph_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2)),
+        latency_floor_ms=wide_depth * wide_chain["us_per_product_in_chain"] * 1e-3,
+        latency_floor_from="dependent products on a block's path x int32.wide_mont_mul_chain"
+                           ".us_per_product_in_chain",
         pow_ms_same_values=time_ms(lambda: fk.mont_pow(x, k1_p.modulus - 2, k1_p)),
         plain_ms=time_ms(lambda: fk.mont_batch_inv_plain(x, k1_p, 0, 2), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -2961,12 +3085,29 @@ def main() -> int:
         def out_like(t):
             return torch.empty_like(t)
 
+        def inv_plan_args(G, L, max_scan):
+            """The plan arguments of this tree's batch_inv launcher; the
+            parent's took the chunk alone."""
+            plan = fk.batch_inv_plan(G, L, max_scan, torch.cuda.get_device_properties(dev).multi_processor_count)
+            return (plan.g, plan.lanes)
+
+        inv_parent_signature = ("acvm_batch_inv", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                                                   ctypes.c_void_p, ctypes.c_void_p])
+        parent_args = {  # kernel: C arguments of the parent's launcher, where they differ
+            "batch_inv": lambda o: (inv_in.data_ptr(), o.data_ptr(), 2048, 2048, _DYN_INV_CHUNK, sched, words,
+                                    stream()),
+            "batch_inv_wide": lambda o: (wide_inv_in.data_ptr(), o.data_ptr(), 2, fold_B, 2, wide_sched,
+                                         wide_words, stream()),
+        }
+
         cases = {  # kernel: (output, C arguments after the output is made)
             "mul": (out_like(a), lambda o: (a.data_ptr(), b.data_ptr(), o.data_ptr(), 1 << 20, 0, 1, words,
                                             stream())),
             "pow": (out_like(a[: 1 << 16]), lambda o: (a.data_ptr(), o.data_ptr(), 1 << 16, sched, words,
                                                        stream())),
-            "batch_inv": (out_like(inv_in), lambda o: (inv_in.data_ptr(), o.data_ptr(), 2048, 2048, 128,
+            "batch_inv": (out_like(inv_in), lambda o: (inv_in.data_ptr(), o.data_ptr(), 2048, 2048,
+                                                       *inv_plan_args(2048, 2048, _DYN_INV_CHUNK),
                                                        sched, words, stream())),
             "pt_add": (out_like(P_pts), lambda o: (*ec_fused._view_args(P_pts, "P"),
                                                    *ec_fused._view_args(Q_pts, "Q"),
@@ -2975,41 +3116,59 @@ def main() -> int:
             "pt_ladder": (torch.empty((3, 2048, 8), dtype=torch.int32, device=dev),
                           lambda o: (ex[0].data_ptr(), 2048 * 8, 8, k_lad.data_ptr(), o.data_ptr(),
                                      2048 * 8, 8, 2048, words, stream())),
+            "pt_ladder_schnorr": (torch.empty((3, 2048, 8), dtype=torch.int32, device=dev),
+                                  lambda o: (sch_panel.data_ptr(), 2048 * 8, 8, sch_k.data_ptr(), o.data_ptr(),
+                                             2048 * 8, 8, 2048, words, stream())),
             "mul_wide": (out_like(wa), lambda o: (wa.data_ptr(), wb.data_ptr(), o.data_ptr(), 1 << 20, 0, 1,
                                                   wide_words, stream())),
             "pow_wide": (out_like(wa[:8192]), lambda o: (wa.data_ptr(), o.data_ptr(), 8192, wide_sched,
                                                          wide_words, stream())),
             "batch_inv_wide": (out_like(wide_inv_in), lambda o: (wide_inv_in.data_ptr(), o.data_ptr(), 2,
-                                                                 fold_B, 2, wide_sched, wide_words,
-                                                                 stream())),
+                                                                 fold_B, *inv_plan_args(2, fold_B, 2),
+                                                                 wide_sched, wide_words, stream())),
         }
         compare = {}
-        for name, (out0, args) in cases.items():
+        kernel_of = {"pt_ladder_schnorr": "pt_ladder"}  # another shape of a kernel above
+        for label, (out0, args) in cases.items():
+            name = kernel_of.get(label, label)
             source = f"{parent_tree}/acvm_tpu_torch/csrc/{build.VARIANTS.get(name, (name,))[0]}.cu"
-            fns = {"parent": build.load_variant(name, [], source=source),
+            fns = {"parent": build.load_variant(name, [], source=source,
+                                                signature=inv_parent_signature if name in parent_args else None),
                    "change": build.load_variant(name, [])}
+            side_args = {"parent": parent_args.get(name, args), "change": args}
             sass = [sass_instructions(build.lib_path(name, [], Path(source))),
                     sass_instructions(build.lib_path(name))]
             outs = {}
             for side, fn in fns.items():
                 outs[side] = out_like(out0)
-                assert fn(*args(outs[side])) == 0, (name, side)
+                assert fn(*side_args[side](outs[side])) == 0, (label, side)
             torch.cuda.synchronize()
-            assert torch.equal(outs["parent"], outs["change"]), name
-            row = {"parent_ms": [], "change_ms": [], "parent_ms_queued": [], "change_ms_queued": [],
-                   "sass_instructions": [None if t is None else len(t) for t in sass],
-                   "sass_identical": None if None in sass else sass[0] == sass[1]}
+            assert torch.equal(outs["parent"], outs["change"]), label
+            row = {f"{side}_{how}": [] for side in ("parent", "change")
+                   for how in ("ms", "ms_queued", "ms_graph")}
+            row.update({"sass_instructions": [None if t is None else len(t) for t in sass],
+                        "sass_identical": None if None in sass else sass[0] == sass[1]})
             for side in ("parent", "change", "change", "parent"):
                 o = outs[side]
-                run = lambda fn=fns[side], o=o: fn(*args(o))  # noqa: E731
+                run = lambda fn=fns[side], o=o, a=side_args[side]: fn(*a(o))  # noqa: E731
                 row[f"{side}_ms"].append(time_ms(run))
                 row[f"{side}_ms_queued"].append(time_ms(run, calls=10))
-            compare[name] = row
+                row[f"{side}_ms_graph"].append(graph_ms(run, launches=5))
+            if name == "batch_inv":   # each tree at each chunk: the parent's solver took 128
+                row["parent_ms_queued_by_chunk"], row["change_ms_queued_by_chunk"] = {}, {}
+                for g in (32, 64, 128, 256):
+                    o = outs["parent"]
+                    row["parent_ms_queued_by_chunk"][g] = time_ms(lambda g=g, o=o: fns["parent"](
+                        inv_in.data_ptr(), o.data_ptr(), 2048, 2048, g, sched, words, stream()), calls=10)
+                    row["change_ms_queued_by_chunk"][g] = time_ms(lambda g=g, o=o: fns["change"](
+                        inv_in.data_ptr(), o.data_ptr(), 2048, 2048, *inv_plan_args(2048, 2048, g),
+                        sched, words, stream()), calls=10)
+            compare[label] = row
         compare["ecdsa_mul"] = ecdsa_parent
         compare.update(hash_parent)
         emit({"parent_compare": {"card": smi, "parent": parent_tree, "equal_outputs": True,
                                  "order": "parent, change, change, parent", "kernels": compare}})
-        del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases, wa, wb, wide_inv_in
+        del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases, wa, wb, wide_inv_in, sch_panel, sch_k
         torch.cuda.empty_cache()
 
     # -- 17. kernels, 18. card, 19. verdict -------------------------------------------

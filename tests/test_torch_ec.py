@@ -292,27 +292,44 @@ def jax_ladder(jax_add, base: np.ndarray, scalars) -> np.ndarray:
     return acc
 
 
-def test_scalar_mul_matches_jax_ladder_and_host(jax_add):
-    """The 256-step ladder on full-width scalars (0, 1, the order minus one
-    among them): the steps of the reference's `scalar_mul_fused` (acc + acc,
-    + base, select) give the same X, Y and Z, and the host the same point.
-    Tolerance 0."""
-    assert ec_pallas.scalar_mul_fused.__doc__  # the function these steps mirror
+# The affine ladder's lanes: one base in lanes 0-4 (scalars 0, 1, n - 1 and two
+# below n), and the Schnorr path's own shape in lanes 5-8: a public key a lane,
+# affine (Z = R, as `gpu/ec.py` builds it), scalars uniform below n.
+AFFINE_LANES = {"one_base": slice(0, 5), "schnorr": slice(5, LANES)}
+
+
+@pytest.fixture(scope="module")
+def affine_ladder(jax_add):
+    """One ladder over the lanes of AFFINE_LANES through the port (its plain
+    version), the JAX steps and the host curve code."""
     rng = random.Random(6)
     scalars = [0, 1, N_ORDER - 1] + [rng.randrange(N_ORDER) for _ in range(LANES - 3)]
-    base_aff = grumpkin.mul(987654321, G)
-    base = np.stack([np.tile(fk.int_to_limbs32(v * R % P), (LANES, 1))
-                     for v in (base_aff[0], base_aff[1], 1)])
+    keys = [grumpkin.mul(987654321, G)] * 5 + [grumpkin.mul(rng.randrange(1, N_ORDER), G)
+                                               for _ in range(LANES - 5)]
+    base = np.stack([np.stack([fk.int_to_limbs32(v * R % P) for v in coord])
+                     for coord in ([q[0] for q in keys], [q[1] for q in keys], [1] * LANES)])
     point = tuple(torch.from_numpy(c.copy()) for c in base)
     got = ec.scalar_mul(CTX, point, to_limbs(scalars))
-    acc = jax_ladder(jax_add, base, scalars)
-    assert all(np.array_equal(g.numpy(), w) for g, w in zip(got, acc))
-    host = [grumpkin.mul(v, base_aff) if v else None for v in scalars]
-    assert affine(got) == host
-    # the op-by-op ladder of a != 0 curves (a = 0 here): the same points
-    general = ec.scalar_mul(CTX, tuple(c[2:5] for c in point), to_limbs(scalars[2:5]),
-                            a_mont=torch.zeros(8, dtype=torch.int32))
-    assert affine(general) == host[2:5]
+    want = jax_ladder(jax_add, base, scalars)
+    host = [grumpkin.mul(v, q) if v else None for v, q in zip(scalars, keys)]
+    return point, scalars, np.stack([c.numpy() for c in got]), want, host
+
+
+@pytest.mark.parametrize("keys", list(AFFINE_LANES))
+def test_scalar_mul_matches_jax_ladder_and_host(affine_ladder, keys):
+    """The 256-step ladder on full-width scalars (0, 1, the order minus one
+    among them): the steps of the reference's `scalar_mul_fused` (acc + acc,
+    + base, select) give the same X, Y and Z, and the host the same point,
+    on one affine base and on a key a lane.  Tolerance 0."""
+    assert ec_pallas.scalar_mul_fused.__doc__  # the function these steps mirror
+    point, scalars, got, want, host = affine_ladder
+    lanes = AFFINE_LANES[keys]
+    assert np.array_equal(got[:, lanes], want[:, lanes])
+    assert affine(got)[lanes] == host[lanes]
+    if keys == "one_base":  # the op-by-op ladder of a != 0 curves (a = 0 here): the same points
+        general = ec.scalar_mul(CTX, tuple(c[2:5] for c in point), to_limbs(scalars[2:5]),
+                                a_mont=torch.zeros(8, dtype=torch.int32))
+        assert affine(general) == host[2:5]
 
 
 # One lane each: (scalar, which point of `exceptional_pairs` is the base).  The
@@ -361,6 +378,19 @@ def test_scalar_mul_edge_lane_matches_jax_ladder_and_host(edge_ladder, lane):
         assert host[b] is None
     if lane == "base_at_infinity":  # nothing was ever added: the accumulator's zeros
         assert not got[:, b].any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 2050])
+def test_ladder_geometry_covers_every_instance_once(B):
+    """Four threads an instance, eight a one-warp block: every instance is
+    one team of one block, the last block's teams past B are masked."""
+    blocks, threads, masked = ec_fused.ladder_geometry(B)
+    assert threads == ec_fused.LADDER_TEAMS * ec_fused.LADDER_TEAM_THREADS == 32
+    lanes = np.arange(blocks * threads)
+    instance = (lanes // threads) * ec_fused.LADDER_TEAMS + (lanes % threads) // ec_fused.LADDER_TEAM_THREADS
+    live = instance < B
+    assert np.array_equal(np.bincount(instance[live], minlength=B), np.full(B, 4))
+    assert masked == (~live).sum() // 4 < ec_fused.LADDER_TEAMS
 
 
 def test_scalar_mul_fused_refuses_other_scalars():

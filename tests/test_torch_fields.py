@@ -192,14 +192,15 @@ def test_batch_inv_matches_jax_and_ints():
 
 
 @pytest.mark.parametrize(
-    "zeros", [(1, 5, 7), (2, 6, 3, 7, 11), (8, 9, 10, 11)],
-    ids=["chunk_edges", "all_zero_chunk", "ragged_chunk"])
+    "zeros", [(1, 5, 7), (2, 6, 3, 7, 11), (8, 9, 10, 11), tuple(range(8))],
+    ids=["chunk_edges", "all_zero_chunk", "ragged_chunk", "all_zero_tile"])
 def test_batch_inv_zero_patterns_match_jax(zeros):
     """(3, 4) along axis 0 in chunks of 2 (rows 0-1, then the ragged row 2):
     zeros at the first and last row of a chunk (column 1 all but row 2, and
     row 1 of column 3), a chunk of all zeros beside a column of them, a ragged
-    chunk of all zeros.  The port at chunks of 2, 1 and 3, the JAX scan (one
-    chunk) and Python ints agree."""
+    chunk of all zeros, and chunk 0 of every column zero: the whole first
+    tile of the kernel's plan (4 columns, a ragged tile of 32 lanes).  The port
+    at chunks of 2, 1 and 3, the JAX scan (one chunk) and Python ints agree."""
     p = BN254_FR.modulus
     G, B = 3, 4
     vals = rand_ints(5, G * B, p)  # value 0 is zero already
@@ -473,3 +474,60 @@ def test_convert_roundtrips():
                 mul_idx=np.zeros((2, 0, 2), np.int32), mul_coeff=a16[:2, :0], qc=a16[:2, 0])
     back = convert.pack_to_jax(convert.pack_from_jax(pack))
     assert all(np.array_equal(back[k], pack[k]) for k in pack)
+
+
+PLAN_SHAPES = [(2048, 2048, 128), (2048, 2048, 64), (2048, 2048, 32), (2048, 2048, 256), (2, 16384, 2),
+               (32, 32768, 32), (75, 300, 16), (75, 300, 7), (300, 100, 32), (1, 1, 5), (1, 4096, 1),
+               (5, 33, 70), (1000, 3, 1000)]
+
+
+def plan_coverage(G, L, plan):
+    """How often the kernel's index arithmetic (csrc/batch_inv.cu) reaches
+    each (row, column): block b takes chunk b // tiles of the column tile
+    b % tiles; its lane l the column tile * lanes + l, if below L, over rows
+    chunk * g to chunk * g + n - 1."""
+    hits = np.zeros((G, L), dtype=np.int64)
+    tiles = -(-L // plan.lanes)
+    for block in range(plan.blocks):
+        c, tile = divmod(block, tiles)
+        cols = np.arange(tile * plan.lanes, (tile + 1) * plan.lanes)
+        cols = cols[cols < L]
+        rows = np.arange(c * plan.g, min(G, (c + 1) * plan.g))
+        hits[np.ix_(rows, cols)] += 1
+    return hits
+
+
+# The multiprocessors of an H100 SXM and of an H100 PCIe.
+PLAN_SMS = pytest.mark.parametrize("sms", [132, 114], ids=["sxm", "pcie"])
+
+
+@PLAN_SMS
+@pytest.mark.parametrize("G,L,max_scan", PLAN_SHAPES)
+def test_batch_inv_plan_covers_every_value_once(G, L, max_scan, sms):
+    """Every (row, column) of the panel falls in exactly one chunk of one
+    block, whatever the plan's chunk and tile."""
+    plan = fk.batch_inv_plan(G, L, max_scan, sms)
+    assert plan.g == min(G, max_scan) and plan.blocks == -(-G // plan.g) * -(-L // plan.lanes)
+    assert (plan_coverage(G, L, plan) == 1).all()
+
+
+@PLAN_SMS
+@pytest.mark.parametrize("G,L,max_scan", PLAN_SHAPES)
+def test_batch_inv_plan_lanes_fill_the_card(G, L, max_scan, sms):
+    """Lanes are a power of two from 32 to 256, the fewest that leave at most
+    two blocks (two chains) an SM where the columns allow it."""
+    plan = fk.batch_inv_plan(G, L, max_scan, sms)
+    assert plan.lanes in (32, 64, 128, 256)
+    chunks = -(-G // plan.g)
+    if plan.lanes < fk.BATCH_INV_MAX_LANES and plan.lanes < L:
+        assert plan.blocks <= 2 * sms
+    if plan.lanes > 32:
+        assert chunks * -(-L // (plan.lanes // 2)) > 2 * sms
+    # the dyn level at its chunk: 32 chunks of 256 lanes, 256 chains
+    assert fk.batch_inv_plan(2048, 2048, 64, 132) == (64, 256, 256)
+
+
+def test_batch_inv_plan_refuses_empty_panels():
+    for args in ((0, 5, 4, 132), (5, 0, 4, 132), (5, 5, 0, 132), (5, 5, 4, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            fk.batch_inv_plan(*args)

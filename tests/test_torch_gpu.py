@@ -107,6 +107,28 @@ def test_batch_inv_kernel_equals_plain_version(card, params):
                            fk.mont_batch_inv_plain(a[:G], params, 0, 16))
 
 
+@pytest.mark.parametrize("params", [BN254_FR, BLS12_381_FR, "secp256k1"], ids=lambda p: getattr(p, "name", p))
+def test_batch_inv_tiles_equal_plain_version(card, params):
+    """The block geometry at 32, 64 and 256 lanes a block, forced: a tile all
+    zeros, G x L not a multiple of the tile (ragged chunks, ragged columns),
+    G = 1, L = 1, strided axes, and the wide mode."""
+    if params == "secp256k1":
+        from acvm_tpu_torch.gpu import ecdsa
+
+        params = ecdsa.curve_fields("secp256k1")[0]
+    a = elements(75 * 300, params, 5).reshape(75, 300, 8)
+    a[:16, :32] = 0                      # the first tile of 16-row chunks, all zeros
+    a[16:32, 40] = a[74, 299] = 0
+    for G, L, g in ((75, 300, 16), (75, 300, 7), (75, 33, 75), (1, 300, 4), (75, 1, 16), (1, 1, 1)):
+        x = a[:G, :L].contiguous()
+        for lanes in (32, 64, 256):
+            plan = fk.batch_inv_plan(G, L, g, 132)._replace(lanes=lanes)
+            got = fk.batch_inv_launch(x.to(card), params, plan)
+            assert torch.equal(got.cpu(), fk.mont_batch_inv_plain(x, params, 0, g)), (G, L, g, lanes)
+    got = fk.mont_batch_inv(a.to(card).transpose(0, 1), params, 1, 16)   # a strided view
+    assert torch.equal(got.cpu(), fk.mont_batch_inv_plain(a.transpose(0, 1), params, 1, 16))
+
+
 @pytest.mark.parametrize("t1,t2,with_scale", [(1, 0, False), (0, 1, True), (3, 2, True), (19, 0, False)])
 def test_dot_kernel_equals_plain_version(card, t1, t2, with_scale):
     E, B = 5, 70
@@ -213,6 +235,73 @@ def test_pt_ladder_kernel_equals_plain_version(card):
     assert build.LAUNCHES["pt_add"] == 512
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ec.pt_is_inf(got)[:2 * len(edge) : len(edge)].all()  # 0 * P
+
+
+def ladder_lanes(B, seed):
+    """Scalars and bases for the ladder's team geometry (8 instances a warp):
+    lanes 0-7, one warp, take different branches (0, 1, n and n + 1 on a
+    generic base, a base at infinity, P = Q at another Z, a 2^256 - 1
+    scalar, 28 leading zero bits), the rest random scalars on random bases."""
+    from acvm_tpu_torch.gpu import ec
+
+    n = ec.grumpkin.params.n
+    rng = np.random.default_rng(seed)
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(B)]
+    scalars[:8] = [0, 1, n, n + 1, 12345, n + 1, (1 << 256) - 1, 0x0FFFFFFF << 200][: min(B, 8)]
+    panel = exceptional_panel(max(B, 9), seed)  # lane b: case b % 9
+    cases = [0, 0, 0, 0, 6, 1, 1, 0]            # generic, generic_z, p_infinity (at infinity)
+    base = panel[0][:, :B].copy()
+    base[:, :8] = panel[0][:, cases[: min(B, 8)]]
+    base[:, 8:][:, np.arange(8, B) % 9 == 6] = panel[1][:, 0:1]  # no more bases at infinity
+    return scalars, base
+
+
+@pytest.mark.parametrize("B", [1, 3, 33, 2050])
+def test_pt_ladder_team_geometry_equals_plain_version(card, B):
+    """Four threads an instance, eight a warp: a batch of one, a ragged
+    team, a ragged warp past the first, 2,050 lanes (257 warps); the first
+    warp's teams take different branches."""
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import ec_fused
+
+    scalars, base = ladder_lanes(B, 17 + B)
+    ctx = LimbContext(BN254_FR, card)
+    point = tuple(torch.from_numpy(c.copy()).to(card) for c in base)
+    k = torch.from_numpy(fk.ints_to_limbs32(scalars).copy()).to(card)
+    build.reset_launches()
+    got = ec_fused.scalar_mul_fused(ctx, point, k)
+    assert build.LAUNCHES["pt_ladder"] == 1
+    want = ec_fused.scalar_mul_fused_plain(ctx, point, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_pt_ladder_every_base_at_infinity_and_schnorr_shape(card):
+    """Every base at infinity (junk in X, Y): every lane is infinity, as the
+    plain version has it; then the Schnorr path's own shape, affine bases
+    with Z = R and scalars uniform below n."""
+    import random
+
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import ec, ec_fused
+    from acvm_tpu_torch.utils.ec_points import mont_jacobian
+
+    n = ec.grumpkin.params.n
+    ctx = LimbContext(BN254_FR, card)
+    rnd = random.Random(23)
+    B = 33
+    base = np.stack([mont_jacobian(None, 0, (rnd.randrange(BN254_FR.modulus), 7)) for _ in range(B)], axis=1)
+    point = tuple(torch.from_numpy(c.copy()).to(card) for c in base)
+    k = torch.from_numpy(fk.ints_to_limbs32([rnd.randrange(1 << 256) for _ in range(B)]).copy()).to(card)
+    got = ec_fused.scalar_mul_fused(ctx, point, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, ec_fused.scalar_mul_fused_plain(ctx, point, k)))
+    assert ec.pt_is_inf(got).all()
+    B = 64
+    keys = [ec.grumpkin.mul_g(rnd.randrange(1, n)) for _ in range(B)]
+    base = np.stack([mont_jacobian(key, 1) for key in keys], axis=1)
+    point = tuple(torch.from_numpy(c.copy()).to(card) for c in base)
+    k = torch.from_numpy(fk.ints_to_limbs32([rnd.randrange(n) for _ in range(B)]).copy()).to(card)
+    got = ec_fused.scalar_mul_fused(ctx, point, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, ec_fused.scalar_mul_fused_plain(ctx, point, k)))
 
 
 @pytest.mark.parametrize("t,with_scale", [(1, False), (3, True), (32, False)])
