@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C launcher.  ``nvcc``
 compiles it for ``sm_90a`` into ``acvm_tpu_torch/_build/<name>-<hash>.so`` at
 first use (the hash covers the sources and the flags, so an edited source
-rebuilds); ``ctypes`` loads it.  A kernel of :data:`VARIANTS` is another
-kernel's source built with extra defines: the wide-field modes (p > 2^255) of
-``mul``, ``pow`` and ``batch_inv``, named ``<name>_wide``.  Nothing is built or loaded at import time, and
+rebuilds); ``ctypes`` loads it.  A kernel of :data:`VARIANTS` is built from
+another source, or with extra defines: the wide-field modes (p > 2^255) of
+``mul``, ``pow`` and ``batch_inv``, named ``<name>_wide``, and ``inv_wide``
+from ``csrc/inv.cu``.  Nothing is built or loaded at import time, and
 a failed build raises: there is no other route for a CUDA tensor.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  A wrapper adds one where
@@ -28,15 +29,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
            "divmod", "brillig_vm", "sha256", "keccak", "blake2s", "mul_wide", "pow_wide",
-           "batch_inv_wide", "ecdsa_mul")
-# Kernels built from another kernel's source: name -> (source, defines).
+           "batch_inv_wide", "ecdsa_mul", "inv_wide")
+# Kernels built from a source other than csrc/<name>.cu, or with defines:
+# name -> (source, defines).
 VARIANTS = {
     "mul_wide": ("mul", ("ACVM_WIDE",)),
     "pow_wide": ("pow", ("ACVM_WIDE",)),
     "batch_inv_wide": ("batch_inv", ("ACVM_WIDE",)),
+    "inv_wide": ("inv", ()),
 }
 PROBES = ("imad_rate", "mont_probe")
-HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh", "hash.cuh")
+HEADERS = ("field.cuh", "ec.cuh", "pow.cuh", "divmod.cuh", "hash.cuh", "inv.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -87,6 +90,8 @@ _SIGNATURES = {
     # u1, u2, Q (3, B, 8), the generator's window table, out (3, B, 8),
     # verifications, a = -3, field, stream.
     "ecdsa_mul": ("acvm_ecdsa_mul", [_P, _P, _P, _P, _P, _LL, _I, _P, _P]),
+    # a, out, n, the field's divstep constants (fields/kernels.py::inv_constants), stream.
+    "inv_wide": ("acvm_inv_wide", [_P, _P, _LL, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain
@@ -94,7 +99,7 @@ _SIGNATURES = {
     "mont_probe": ("acvm_mont_probe", [_P, _P, _P, _LL, _I, _I, _I, _P, _P]),
 }
 for _name, (_source, _) in VARIANTS.items():
-    _SIGNATURES[_name] = _SIGNATURES[_source]
+    _SIGNATURES.setdefault(_name, _SIGNATURES.get(_source))
 
 
 def reset_launches() -> None:

@@ -5,18 +5,27 @@
 // rounds of `jnp` ops a block over the batch) and the epilogue of its
 // `run_hashes` for HashToField128Security (`tpu/batch_solver.py:451-472`: the
 // 256-bit big-endian digest minus 4p, 2p, p where each fits).  One thread
-// hashes one (gadget, instance): message bytes off the panel or a byte matrix
-// (hash.cuh), the 16 state words and the block's 16 message words in
-// registers (every round's message indices are literals, so no array is
-// indexed at run time), the rotates funnel shifts.  In hash-to-field mode the
-// eight limbs of the value are the byte-swapped state words in reverse order,
-// and the conditional subtractions are field.cuh's carry-flag chain.
+// hashes one (gadget, instance): the 16 state words and the block's 16
+// message words in registers (every round's message indices are literals, so
+// no array is indexed at run time), the rotates funnel shifts.  In
+// hash-to-field mode the eight limbs of the value are the byte-swapped state
+// words in reverse order, and the conditional subtractions are field.cuh's
+// borrow chain.
 //
 // Bound.  Bytes: one 32-byte sector a distinct (panel row, instance) read,
 // one an output row written (32 digest rows, or one field row).  Operations:
 // gpu/gadgets.py's OPS_PER_BLOCK (its count of these rounds) a block,
 // max(1, ceil(M / 64)) blocks, and TO_FIELD_OPS for the subtractions.  The
-// bytes bound it at the path's shapes (PERF.md, row 14).
+// bytes bound it at the paths' shapes (PERF.md, row 14).  The first design
+// (128-thread blocks, each byte read where the rounds needed it: three table
+// loads, then the panel word they address) ran 16-26 % of that bound at one
+// gadget x 8,192 instances: 64 blocks on 64 of the 132 SMs, and each byte two
+// dependent global round trips.  So the message comes through hash.cuh's
+// `MessageStage`, as sha256.cu's does: one-warp blocks (8,192 instances = 256
+// blocks over every SM), the gadget's tables and digest rows in shared
+// memory, and each 64-byte block's words copied by `cp.async` all at once,
+// block k + 1's in flight while block k's ten rounds run.  The counter t, the
+// last-block flag and M = 0 (one block of zeros) are BLAKE2s' own.
 #include "hash.cuh"
 
 // The multiples of p to subtract (largest first) and how many, or n = -1 for
@@ -70,38 +79,46 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], ui
     h[4] ^= v4 ^ v12; h[5] ^= v5 ^ v13; h[6] ^= v6 ^ v14; h[7] ^= v7 ^ v15;
 }
 
-__global__ void __launch_bounds__(ACVM_HASH_THREADS) blake2s_kernel(HashGroup grp, Subtrahends subs) {
-    ByteSource src;
-    RowSink dst;
-    int g;
-    long long b;
-    if (!grp.thread(src, dst, g, b)) return;
+__global__ void __launch_bounds__(HASH_WARP) blake2s_kernel(HashGroup grp, Subtrahends subs) {
+    extern __shared__ __align__(16) uint32_t hash_smem[];
+    MessageStage<64> st;
+    st.open(grp, hash_smem);
     const int M = grp.M;
     const int blocks = M > 0 ? (M + 63) / 64 : 1;
     uint32_t h[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) h[i] = B2S_IV[i];
     h[0] ^= 0x01010020u;  // depth 1, fanout 1, a 32-byte digest
+    st.start(0, blocks, M);
     for (int blk = 0; blk < blocks; ++blk) {
+        st.start(blk + 1, blocks, M);
+        st.wait();
         uint32_t m[16];
 #pragma unroll
         for (int t = 0; t < 16; ++t) {
+#ifdef HASH_ROUNDS_ONLY
+            m[t] = (uint32_t)st.b * 0x9E3779B9u + (uint32_t)(16 * blk + t);
+#else
             uint32_t word = 0;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int j = 64 * blk + 4 * t + i;
-                word |= (j < M ? src.byte(j) : 0u) << (8 * i);
-            }
+            for (int i = 0; i < 4; ++i) word |= st.byte(blk, 4 * t + i) << (8 * i);  // 0 past M
             m[t] = word;
+#endif
         }
+#ifdef HASH_READS_ONLY
+#pragma unroll
+        for (int t = 0; t < 16; ++t) h[t & 7] ^= m[t];
+#else
         const int counted = min(64 * (blk + 1), M);  // bytes hashed so far (M < 2^32)
         compress(h, m, (uint32_t)counted, blk == blocks - 1);
+#endif
     }
+    if (!st.active) return;
     if (subs.n < 0) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) dst.put_byte(4 * i + k, (h[i] >> (8 * k)) & 0xFFu);
+            for (int k = 0; k < 4; ++k) st.put_byte(4 * i + k, (h[i] >> (8 * k)) & 0xFFu);
         }
         return;
     }
@@ -118,7 +135,7 @@ __global__ void __launch_bounds__(ACVM_HASH_THREADS) blake2s_kernel(HashGroup gr
 #pragma unroll
         for (int i = 0; i < ACVM_LIMBS; ++i) x[i] = borrow ? x[i] : d[i];
     }
-    dst.put(0, x);
+    st.put(0, x);
 }
 
 // The launch arguments of hash.cuh's HashGroup; then the multiples of p to
@@ -139,6 +156,10 @@ extern "C" int acvm_blake2s(const void* in, long long in_row, long long in_inst,
     subs.n = n_sub;
     const HashGroup grp = hash_group(in, in_row, in_inst, src_w, src_limb, src_shift, M, out,
                                      out_row, out_inst, out_words, out_idx, n_sub < 0 ? 32 : 1, B);
-    blake2s_kernel<<<hash_grid(G, B), ACVM_HASH_THREADS, 0, (cudaStream_t)stream>>>(grp, subs);
+    HASH_STAGE_LAUNCH(blake2s_kernel, stage_grid(G, B), stage_shared_bytes(64, M, src_w != nullptr),
+                      stream, grp, subs);
     return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a block of a launch at M (tables != 0: the panel form).
+extern "C" int acvm_blake2s_shared_bytes(int M, int tables) { return stage_shared_bytes(64, M, tables != 0); }

@@ -104,6 +104,17 @@ __device__ __forceinline__ uint32_t add_limbs(uint32_t r[ACVM_LIMBS], const uint
 
 __device__ __forceinline__ uint32_t sub_limbs(uint32_t r[ACVM_LIMBS], const uint32_t a[ACVM_LIMBS],
                                               const uint32_t b[ACVM_LIMBS]) {
+#ifndef __CUDACC__
+    // A CPU build of a kernel's C (tests/test_torch_hash_c.py): the same
+    // borrow chain in plain C, the borrow the sign bit of a 64-bit difference.
+    uint32_t borrow = 0;
+    for (int i = 0; i < ACVM_LIMBS; ++i) {
+        const uint64_t d = (uint64_t)a[i] - b[i] - borrow;
+        r[i] = (uint32_t)d;
+        borrow = (uint32_t)(d >> 63);
+    }
+    return borrow;
+#else
     uint32_t r0, r1, r2, r3, r4, r5, r6, r7, borrow;
     asm("sub.cc.u32 %0, %9, %17;\n\t"
         "subc.cc.u32 %1, %10, %18;\n\t"
@@ -120,6 +131,7 @@ __device__ __forceinline__ uint32_t sub_limbs(uint32_t r[ACVM_LIMBS], const uint
           "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
     r[0] = r0; r[1] = r1; r[2] = r2; r[3] = r3; r[4] = r4; r[5] = r5; r[6] = r6; r[7] = r7;
     return borrow & 1u;
+#endif
 }
 
 // x -= p when x >= p.  x < 2p < 2^256 on entry, canonical on exit.

@@ -16,58 +16,16 @@
 // and rows written never overlap (a gadget's outputs are fresh witnesses),
 // so the reads go through the read-only cache.
 //
-// Two ways to read the bytes.  `ByteSource` (blake2s.cu, 128-thread blocks,
-// `hash_grid`) reads each byte where the rounds need it: three broadcast
-// loads of the tables, then the panel word they address.  `MessageStage`
-// (sha256.cu, keccak.cu) is the message stage: one-warp blocks, the gadget's
-// tables and digest rows copied into shared memory once, and each
-// compression block's words copied by `cp.async` into a two-stage ring, all
-// of a block's copies in flight before the lane waits (below).
+// The bytes come through `MessageStage`, the message stage (below): one-warp
+// blocks, the gadget's tables and digest rows copied into shared memory once,
+// and each compression block's words copied by `cp.async` into a two-stage
+// ring, all of a block's copies in flight before the lane waits.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
-
-struct ByteSource {
-    const uint32_t* base;   // the element (row, this instance, limb 0)
-    long long row_stride;   // int32 words from one row to the next
-    const int* row;         // this gadget's (M,) tables, or null: row j, limb 0, shift 0
-    const int* limb;
-    const int* shift;
-
-    __device__ __forceinline__ uint32_t byte(int j) const {
-        if (row == nullptr) return __ldg(base + j * row_stride) & 0xFFu;
-        const uint32_t word = __ldg(base + __ldg(row + j) * row_stride + __ldg(limb + j));
-        return (word >> __ldg(shift + j)) & 0xFFu;
-    }
-};
-
-struct RowSink {
-    uint32_t* base;         // the element (row 0, this instance, limb 0)
-    long long row_stride;
-    int words;              // 8: a canonical row; 1: one word
-    const int* row;         // this gadget's output rows, or null: row k
-
-    // Row k gets the 8 limbs x (hash-to-field's value).
-    __device__ __forceinline__ void put(int k, const uint32_t x[ACVM_LIMBS]) const {
-        uint32_t* dst = base + (row ? __ldg(row + k) : k) * row_stride;
-        if (words == ACVM_LIMBS) store_fe(dst, x);
-        else *dst = x[0];
-    }
-
-    __device__ __forceinline__ void put_byte(int k, uint32_t v) const {
-        uint32_t* dst = base + (row ? __ldg(row + k) : k) * row_stride;
-        if (words == ACVM_LIMBS) {
-            uint4* d = reinterpret_cast<uint4*>(dst);
-            d[0] = make_uint4(v, 0, 0, 0);
-            d[1] = make_uint4(0, 0, 0, 0);
-        } else {
-            *dst = v;
-        }
-    }
-};
 
 // The launch arguments every hash kernel takes, in the order of the C
 // launchers: the source (pointer, row stride, instance stride, row / limb /
@@ -86,22 +44,7 @@ struct HashGroup {
     const int* out_idx;
     int n_out;              // digest rows a gadget: 32, or 1 for hash-to-field
     long long B;
-
-    // This thread's source and sink; false past the last instance.
-    __device__ __forceinline__ bool thread(ByteSource& s, RowSink& d, int& g, long long& b) const {
-        b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-        g = blockIdx.y;
-        if (b >= B) return false;
-        const long long t = (long long)g * M;
-        s = ByteSource{in + b * in_inst, in_row, src_w ? src_w + t : nullptr,
-                       src_w ? src_limb + t : nullptr, src_w ? src_shift + t : nullptr};
-        d = RowSink{out + b * out_inst, out_row, out_words,
-                    out_idx ? out_idx + (long long)g * n_out : nullptr};
-        return true;
-    }
 };
-
-#define ACVM_HASH_THREADS 128
 
 static inline HashGroup hash_group(const void* in, long long in_row, long long in_inst,
                                    const void* src_w, const void* src_limb, const void* src_shift,
@@ -112,12 +55,8 @@ static inline HashGroup hash_group(const void* in, long long in_row, long long i
                      out_inst, out_words, (const int*)out_idx, n_out, B};
 }
 
-static inline dim3 hash_grid(int G, long long B) {
-    return dim3((unsigned)((B + ACVM_HASH_THREADS - 1) / ACVM_HASH_THREADS), (unsigned)G);
-}
-
 // ---------------------------------------------------------------------------
-// The message stage (sha256.cu, keccak.cu).
+// The message stage (sha256.cu, blake2s.cu, keccak.cu).
 //
 // A block is one warp: HASH_WARP instances of one gadget, grid
 // (ceil(B / HASH_WARP), G), the ragged last block masked.  Shared memory, in
@@ -130,7 +69,7 @@ static inline dim3 hash_grid(int G, long long B) {
 //         a message byte): all M at once where M <= HASH_TABLE_CAP, else a
 //         ring of two compression blocks' entries beside the words' ring,
 //         loaded as each block is staged;
-//   outs  the gadget's 32 digest rows.
+//   outs  the gadget's 32 digest rows (one for hash-to-field).
 // Each lane copies the 32-bit word of every byte of block k + 1 (4-byte
 // `cp.async.ca`, one commit group a block) before it waits for block k's
 // group and runs block k's rounds; a copy at or past the lane's length (the
@@ -297,6 +236,13 @@ struct MessageStage {
         const uint32_t w = ring[((k & wrap) * BLK + i) * HASH_WARP + lane];
         if (src_w == nullptr) return w & 0xFFu;
         return (w >> (lsh[whole ? j : (k & 1) * BLK + i] >> 8)) & 0xFFu;
+    }
+
+    // Output row k gets the 8 limbs x (hash-to-field's value), or x[0].
+    __device__ __forceinline__ void put(int k, const uint32_t x[ACVM_LIMBS]) const {
+        uint32_t* dst = sink + (outs ? outs[k] : k) * out_row;
+        if (out_words == ACVM_LIMBS) store_fe(dst, x);
+        else *dst = x[0];
     }
 
     // Digest byte k: a canonical row (v, 0, ..., 0), or one word.

@@ -7,7 +7,8 @@
 // moved: bound by the integer pipes once the card is full (n above ~2^15), by
 // one chain's latency below that.  With e = p - 2 this is the field inverse.
 // Built twice: as `pow` over the narrow field and, with -DACVM_WIDE, as
-// `pow_wide` over a wide one (ECDSA's s^-1 mod n and Z^-1 mod p).
+// `pow_wide` over a wide one (a general exponent; a wide field's inverse is
+// `inv.cu`'s divsteps).
 #include "pow.cuh"
 
 __global__ void __launch_bounds__(ACVM_POW_THREADS)

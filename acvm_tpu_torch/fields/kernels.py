@@ -1,4 +1,4 @@
-"""Field kernels: Montgomery multiply, fixed-exponent power, expression dot.
+"""Field kernels: Montgomery multiply, fixed-exponent power, inverse, expression dot.
 
 A field element is 8 little-endian 32-bit limbs stored as ``torch.int32`` (the
 bit pattern of uint32; torch's CPU uint32 has no arithmetic), Montgomery form
@@ -19,6 +19,13 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
   window over odd powers (:func:`pow_schedule`, 311 products for p - 2 of
   BN254) per 64 bytes: bound by the integer pipes once the card is full, by one
   chain's latency below that; the chain stays in registers and local memory.
+* ``mont_inv`` (wide fields) — ``fields/jnp_ops.py::LimbContext.mont_inv`` in
+  wide mode, which the port first ran as ``pow_wide`` (a Fermat chain a
+  thread): ``inv_wide`` (``csrc/inv.cu``),
+  20 batches of 30 constant-time divsteps on 32-bit words and a 9-limb matrix
+  update after each (:data:`INV_OPS`, ~20,500 int32 operations a value) per
+  64 bytes: bound by one warp's latency through its divsteps at a solve's
+  8,192 values, by the integer pipes past ~2^15 values.
 * ``mont_batch_inv`` — ``fields/jnp_ops.py::LimbContext.mont_batch_inv`` (the
   prefix/suffix scans over the multiply kernel around one pow chain).  One
   launch: a thread runs a chunk of g values of one column forward (prefix
@@ -44,8 +51,10 @@ What each kernel replaces in the JAX package, and what bounds it on an H100:
 a narrow field (2p < 2^256: BN254 Fr, BLS12-381 Fr) launches ``mul`` /
 ``pow`` / ``batch_inv``, a wide one (2^255 < p < 2^256: the base fields and
 group orders of secp256k1 and secp256r1) the ``*_wide`` build of the same
-source, whose sums and products keep a ninth word.  Every other kernel here
-is narrow only and refuses a wide field (:func:`require_narrow`).
+source, whose sums and products keep a ninth word.  ``mont_inv`` launches
+``inv_wide`` for a wide field and ``pow`` at p - 2 for a narrow one.  Every
+other kernel here is narrow only and refuses a wide field
+(:func:`require_narrow`).
 """
 
 from __future__ import annotations
@@ -472,6 +481,181 @@ def mont_pow(
             _host_ptr(pow_schedule_words(exponent)), _host_ptr(field_words(params)),
             _stream(a),
         )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inv: the inverse by constant-time divsteps (csrc/inv.cuh)
+# ---------------------------------------------------------------------------
+
+INV_LIMBS = 9  # signed 30-bit limbs: 270 bits
+INV_BATCHES = 20  # of 30 divsteps: 600 in all
+M30 = (1 << 30) - 1
+
+# int32 operations one inversion of `inv.cuh` runs, counted from its code
+# (an IMAD.WIDE, a 32 x 32 -> 64 multiply-add, counts one; a 64-bit shift two):
+#   a divstep 27: the two masks 3, the conditional negations 6, the
+#     conditional adds to g, q, r 6 and to f, u, v 6, the mask and zeta 3,
+#     the shifts 3;
+#   the update of (d, e) 122: the signs and md, me 8, the first products and
+#     the residue that clears the low bits 14, the shifts 4, then 12 a limb
+#     for limbs 1-8 (six multiply-adds, two masks, two 64-bit shifts);
+#   the update of (f, g) 88: 8, then 10 a limb for limbs 1-8;
+#   the conversions in and out and the normalization, 140 once.
+INV_DIVSTEP_OPS = 27
+INV_OPS = INV_BATCHES * (30 * INV_DIVSTEP_OPS + 122 + 88) + 140
+
+
+def _limbs30(value: int) -> list:
+    return [(value >> (30 * i)) & M30 for i in range(INV_LIMBS)]
+
+
+@lru_cache(maxsize=None)
+def inv_constants(params: FieldParams) -> np.ndarray:
+    """The 9 + 9 + 1 int32 words [M | R^2 mod M | M^-1 mod 2^30] the C
+    launcher of ``inv_wide`` takes (M and R^2 in 30-bit limbs)."""
+    field_words(params)  # an odd modulus < 2^256
+    m = params.modulus
+    return np.array(_limbs30(m) + _limbs30(params.r2) + [pow(m, -1, 1 << 30)], dtype=np.int32)
+
+
+def _divsteps_30(zeta, f, g):
+    """30 divsteps on the low words of f and g (int64 tensors holding
+    uint32 values): the new zeta and the transition matrix (u, v, q, r),
+    exact signed values in [-2^30, 2^30].  Branch-free, as ``inv.cuh``."""
+    u, v = torch.ones_like(f), torch.zeros_like(f)
+    q, r = torch.zeros_like(f), torch.ones_like(f)
+    for _ in range(30):
+        c1 = zeta >> 63  # zeta < 0
+        c2 = -(g & 1)  # g odd
+        g = (g + (((f ^ c1) - c1) & c2)) & M32
+        q = q + (((u ^ c1) - c1) & c2)
+        r = r + (((v ^ c1) - c1) & c2)
+        c1 = c1 & c2
+        zeta = (zeta ^ c1) - 1
+        f = (f + (g & c1)) & M32
+        u = u + (q & c1)
+        v = v + (r & c1)
+        g = g >> 1
+        u = u << 1
+        v = v << 1
+    return zeta, (u, v, q, r)
+
+
+def _update_fg(f: list, g: list, t) -> None:
+    """[f, g] = t [f, g] / 2^30 over lists of 9 int64 limb tensors."""
+    u, v, q, r = t
+    cf = (u * f[0] + v * g[0]) >> 30
+    cg = (q * f[0] + r * g[0]) >> 30
+    for i in range(1, INV_LIMBS):
+        cf = cf + u * f[i] + v * g[i]
+        cg = cg + q * f[i] + r * g[i]
+        f[i - 1], g[i - 1] = cf & M30, cg & M30
+        cf, cg = cf >> 30, cg >> 30
+    f[-1], g[-1] = cf, cg
+
+
+def _update_de(d: list, e: list, t, m: list, m_inv30: int) -> None:
+    """[d, e] = (t [d, e] + M [md, me]) / 2^30, d and e kept in (-2M, M)."""
+    u, v, q, r = t
+    sd, se = d[-1] >> 63, e[-1] >> 63
+    md = (u & sd) + (v & se)
+    me = (q & sd) + (r & se)
+    cd = u * d[0] + v * e[0]
+    ce = q * d[0] + r * e[0]
+    md = md - ((m_inv30 * (cd & M30) + md) & M30)
+    me = me - ((m_inv30 * (ce & M30) + me) & M30)
+    cd = (cd + m[0] * md) >> 30
+    ce = (ce + m[0] * me) >> 30
+    for i in range(1, INV_LIMBS):
+        cd = cd + u * d[i] + v * e[i] + m[i] * md
+        ce = ce + q * d[i] + r * e[i] + m[i] * me
+        d[i - 1], e[i - 1] = cd & M30, ce & M30
+        cd, ce = cd >> 30, ce >> 30
+    d[-1], e[-1] = cd, ce
+
+
+def _normalize(d: list, sign: torch.Tensor, m: list) -> list:
+    """d in (-2M, M), negated where sign < 0, -> [0, M)."""
+    add, neg = d[-1] >> 63, sign >> 63
+    d = [((d[i] + (m[i] & add)) ^ neg) - neg for i in range(INV_LIMBS)]
+    for i in range(INV_LIMBS - 1):
+        d[i + 1], d[i] = d[i + 1] + (d[i] >> 30), d[i] & M30
+    add = d[-1] >> 63
+    d = [d[i] + (m[i] & add) for i in range(INV_LIMBS)]
+    for i in range(INV_LIMBS - 1):
+        d[i + 1], d[i] = d[i + 1] + (d[i] >> 30), d[i] & M30
+    return d
+
+
+def mont_inv_divsteps_plain(a: torch.Tensor, params: FieldParams = BN254_FR) -> torch.Tensor:
+    """Plain version of :func:`mont_inv`'s ``inv_wide``: the same 20 x 30
+    divsteps and the same updates as ``csrc/inv.cuh``, in int64 tensor ops
+    over the 9 signed 30-bit limbs of every value (any device, any field).
+    a R -> a^-1 R for canonical a R; 0 -> 0."""
+    _check(a, "mont_inv_divsteps_plain a")
+    words = inv_constants(params).tolist()
+    m, r2, m_inv30 = words[:INV_LIMBS], words[INV_LIMBS : 2 * INV_LIMBS], words[-1]
+    x = a.reshape(-1, LIMBS).to(torch.int64) & M32
+    g = []
+    for i in range(INV_LIMBS):
+        w, s = divmod(30 * i, 32)
+        bits = x[:, w] >> s
+        if s > 2 and w + 1 < LIMBS:
+            bits = bits | (x[:, w + 1] << (32 - s))
+        g.append(bits & M30)
+    f = [torch.full_like(g[0], v) for v in m]
+    d = [torch.zeros_like(g[0]) for _ in range(INV_LIMBS)]
+    e = [torch.full_like(g[0], v) for v in r2]
+    zeta = torch.full_like(g[0], -1)
+    for _ in range(INV_BATCHES):
+        zeta, t = _divsteps_30(zeta, f[0], g[0])
+        _update_de(d, e, t, m, m_inv30)
+        _update_fg(f, g, t)
+    d = _normalize(d, f[-1], m)
+    words32 = []
+    for k in range(LIMBS):
+        limb, s = divmod(32 * k, 30)
+        words32.append(((d[limb] >> s) | (d[limb + 1] << (30 - s))) & M32)
+    return wrap_i32(torch.stack(words32, dim=-1)).reshape(a.shape)
+
+
+def divsteps_to_zero(x: int, modulus: int) -> int:
+    """Divsteps (delta from 1/2, as ``inv.cuh`` runs them) until g reaches 0
+    from f = modulus, g = x, on Python ints: how long the run of x is.  The
+    kernel runs 600 whatever it is; a long run is an edge case for its
+    tests."""
+    zeta, f, g, steps = -1, modulus, x, 0
+    while g:
+        if g & 1:
+            if zeta < 0:
+                f, g, zeta = g, g - f, -zeta - 2
+            else:
+                g, zeta = g + f, zeta - 1
+        else:
+            zeta -= 1
+        g >>= 1
+        steps += 1
+    return steps
+
+
+def mont_inv(a: torch.Tensor, params: FieldParams = BN254_FR) -> torch.Tensor:
+    """Inverses in Montgomery form, a R -> a^-1 R, zero to zero; a canonical.
+    A wide field (:func:`is_wide`): one ``inv_wide`` launch on a CUDA tensor
+    (``csrc/inv.cu``, constant-time divsteps), :func:`mont_inv_divsteps_plain`
+    on a CPU tensor.  A narrow field: :func:`mont_pow` at p - 2 (the ``pow``
+    kernel's Fermat chain)."""
+    _check(a, "mont_inv a")
+    if not is_wide(params):
+        return mont_pow(a, params.modulus - 2, params)
+    if not a.is_cuda:
+        return mont_inv_divsteps_plain(a, params)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // LIMBS
+    if n:
+        build.launch("inv_wide", a.data_ptr(), out.data_ptr(), n, _host_ptr(inv_constants(params)),
+                     _stream(a))
     return out
 
 

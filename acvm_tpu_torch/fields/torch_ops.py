@@ -60,7 +60,6 @@ class LimbContext:
         self.r_limbs = limbs(params.r)
         self.zero_limbs = torch.zeros(LIMBS, dtype=torch.int32, device=self.device)
         self._half = half_field(params, self.device)
-        self.inv_exponent = params.modulus - 2
 
     # ---- modular add / sub --------------------------------------------------
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -89,10 +88,11 @@ class LimbContext:
 
     # ---- inversion ----------------------------------------------------------
     def mont_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Inverse in Montgomery form: inv(aR) = a^-1 R, by Fermat
-        (a^(p-2)) in one fused power chain.  Zero maps to zero (matching the
-        reference FieldElement::inverse)."""
-        return kernels.mont_pow(a, self.inv_exponent, self.params)
+        """Inverse in Montgomery form: inv(aR) = a^-1 R.  Zero maps to zero
+        (matching the reference FieldElement::inverse).  A narrow field runs
+        Fermat (a^(p-2)) in one fused power chain, a wide one constant-time
+        divsteps (:func:`kernels.mont_inv`: ``inv_wide``)."""
+        return kernels.mont_inv(a, self.params)
 
     def mont_batch_inv(
         self, a: torch.Tensor, axis: int = -2, max_scan: int = 256
@@ -112,24 +112,40 @@ class LimbContext:
     # The gadget paths' affine conversions (2,048-16,384 values) stay below
     # 2^15 and call the pow kernel directly.
     FOLD_LANES = 1 << 14
+    # A wide field inverts by divsteps (``inv_wide``: ~0.02 ms of a lone
+    # warp's latency up to ~2^15 values, then ~0.9 ns a value), while the fold
+    # still runs a Fermat chain a block of chunks (``batch_inv_wide``,
+    # 0.16-0.21 ms whatever the split up to 2^17 values).  `inv_wide` beat
+    # every split through 2^17 values (0.120 ms against 0.171 at g = 8) and
+    # lost from 2^18 (0.233 against 0.183 at g = 8; at 2^20 0.889 against
+    # 0.237 at g = 32; `chip_smoke.py --fold-sweep`, H100, secp256k1 p), so
+    # a wide field folds from 2^18 values; the ECDSA paths (8,192-32,768
+    # values a call) do not.
+    FOLD_FROM_WIDE = 1 << 18
 
-    def mont_inv_grouped(self, a: torch.Tensor, group: int = 32) -> torch.Tensor:
-        """Invert every value of ``a`` (any shape (..., 8)), folding them into
-        g groups along a new leading axis and amortizing one Fermat chain per
-        chunk of g (see ``mont_batch_inv``).  g is a power of two that divides
-        the value count n (no padding), at most ``group``; any g gives the same
-        bits.
-
-        Folding turns n chains into 3n products and a chain a block of chunks
-        (``kernels.batch_inv_plan``) in one launch.  While the n / g chunks
-        fill the card the launch is bound by the products, so g doubles only
-        while n / (2g) >= FOLD_LANES; below that a chain's depth sets the time,
-        which folding only lengthens, and the values go to the pow kernel
-        directly."""
-        n = a.numel() // LIMBS
+    def fold_rows(self, n: int, group: int = 32) -> int:
+        """The rows g that :meth:`mont_inv_grouped` folds n values into (1:
+        none).  g is a power of two that divides n (no padding), at most
+        ``group``, and doubles only while n / (2g) >= FOLD_LANES: while the
+        n / g chunks fill the card the launch is bound by the products; below
+        that a chain's depth sets the time, which folding only lengthens.  A
+        wide field folds nothing below FOLD_FROM_WIDE values."""
+        if self.wide and n < self.FOLD_FROM_WIDE:
+            return 1
         g = 1
         while g < group and n % (g * 2) == 0 and n // (g * 2) >= self.FOLD_LANES:
             g *= 2
+        return g
+
+    def mont_inv_grouped(self, a: torch.Tensor, group: int = 32) -> torch.Tensor:
+        """Invert every value of ``a`` (any shape (..., 8)), folding them into
+        :meth:`fold_rows` groups along a new leading axis and amortizing one
+        Fermat chain per chunk of g (see ``mont_batch_inv``), or, with no
+        fold, by :meth:`mont_inv` directly; any g gives the same bits.
+        Folding turns n inversions into 3n products and a chain a block of
+        chunks (``kernels.batch_inv_plan``) in one launch."""
+        n = a.numel() // LIMBS
+        g = self.fold_rows(n, group)
         if g == 1:
             return self.mont_inv(a)
         folded = a.reshape(g, n // g, LIMBS)

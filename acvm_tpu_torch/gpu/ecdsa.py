@@ -5,8 +5,8 @@ Port of ``acvm_tpu/tpu/ecdsa.py``: the device analogue of the host verifiers
 ``blackbox_solver/src/lib.rs:101-210``): prehashed message, low-S rule, and the
 reference's errors as a per-instance ``err`` mask.  The base field and the
 group order of both curves are 256-bit moduli, so every field operation runs
-in the *wide* mode of :class:`LimbContext` (``mul_wide`` / ``pow_wide`` on the
-card).
+in the *wide* mode of :class:`LimbContext` (``mul_wide`` on the card, and
+``inv_wide``, constant-time divsteps, for s^-1 and Z^-1).
 
 R = u1 G + u2 Q is ONE launch of ``csrc/ecdsa_mul.cu`` (:func:`ecdsa_mul`), a
 thread a verification, where the reference gathers the generator's window

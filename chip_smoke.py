@@ -16,7 +16,9 @@
     python3 chip_smoke.py --fold-sweep      # also pow beside batch_inv folded
                                      # into 2-32 rows at 2^14-2^20 values, the
                                      # measurement behind mont_inv_grouped's
-                                     # FOLD_LANES
+                                     # FOLD_LANES, and inv_wide beside
+                                     # batch_inv_wide folded at 2^13-2^20
+                                     # (FOLD_FROM_WIDE)
     python3 chip_smoke.py --vm-variants [--parent=DIR]  # also brillig_vm
                                      # built with and without regrouping
                                      # (VM_REGROUP), its state on chip as
@@ -26,10 +28,10 @@
                                      # the tree unpacked at DIR (the
                                      # earlier launcher: no launch plan) on
                                      # the same state
-    python3 chip_smoke.py --hash-variants   # also sha256 and keccak built
-                                     # with hash.cuh's measurement switches
-                                     # (reads only, rounds only) timed at
-                                     # every hash row's shape
+    python3 chip_smoke.py --hash-variants   # also sha256, blake2s and keccak
+                                     # built with hash.cuh's measurement
+                                     # switches (reads only, rounds only)
+                                     # timed at every hash row's shape
     python3 chip_smoke.py --parent=DIR      # also mul, pow, batch_inv (and
                                      # their wide modes), pt_add, pt_ladder
                                      # (also at the Schnorr shape),
@@ -42,7 +44,8 @@
                                      # at every hash row's shape), timed
                                      # parent, change, change, parent (one
                                      # call, queued and in a CUDA graph);
-                                     # blake2s the same SASS
+                                     # and the parent's pow_wide beside this
+                                     # tree's inv_wide at the s^-1 shape
 
 Needs one CUDA card and ``nvcc``; there is no CPU route: no card, a failed
 build, a failed launch or a failed comparison raises and the exit code is not
@@ -159,18 +162,26 @@ build, a failed launch or a failed comparison raises and the exit code is not
                ``ecdsa_mul`` launch a solve and no narrow kernel,
                ``ecdsa_k1_solves_per_sec`` / ``ecdsa_r1_solves_per_sec`` (device
                solve and through ``solve()``); ecdsa_k1 once more over 16,384
-               instances, where the inversions of 32,768 values fold
-               (``batch_inv_wide`` in place of ``pow_wide``); then ``mul_wide``
-               at 2^20, ``pow_wide`` at the s^-1 shape (8,192, e = n - 2) and on
-               the schedule's edge exponents, ``batch_inv_wide`` at the folded
-               solve's 32,768 values in 2 rows, on both curves' p and n, and
-               ``ecdsa_mul`` on
+               instances (32,768 inversions of each kind: ``batch_inv_wide``
+               where ``LimbContext.fold_rows`` folds them, else
+               ``inv_wide``); the 4,096-instance solves' inversions (s^-1,
+               Z^-1) by ``inv_wide``, the constant-time divsteps, two
+               launches a solve and no ``pow_wide``;
+               then ``mul_wide`` at 2^20, ``inv_wide`` at the s^-1 shape
+               (8,192, both curves' n; on the four wide moduli with the edge
+               lanes 0, R, M - 1, 1, 2, R^-1 and a long divstep run) against
+               its plain version and ``pow_wide`` at e = M - 2, with
+               ``pow_wide`` timed beside it and a lone warp's inversion as its
+               latency floor, ``pow_wide`` on the schedule's edge exponents,
+               ``batch_inv_wide`` at the 16,384-instance solve's 32,768 values
+               in 2 rows, on both curves' p and n, and ``ecdsa_mul`` on
                each solve's own operands and the edge lanes of
                ``utils.ecdsa_mul_edges`` (X, Y and Z against its plain version,
                the affine R of 64 path lanes and of the edge lanes against the
                Python-int curve), with its bound (the products this kernel
                runs), the longest warp's chain of products and its floor,
-               shared memory and blocks an SM, and its time at 32,768 lanes;
+               shared memory and blocks an SM, and its time and bound at
+               32,768 lanes;
 17. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
@@ -179,9 +190,11 @@ build, a failed launch or a failed comparison raises and the exit code is not
                second Keccak, of 64 bytes, among them) and ``blake2s`` on
                Schnorr's (2,048, 64) byte matrix, each shape with its
                registers, spills, blocks and shared memory a block, and
-               ``sha256`` and ``keccak`` with the time of their rounds alone
-               (``rounds_only_ms``, a build with HASH_ROUNDS_ONLY, the row's
-               latency floor); ``batch_inv`` with its plan
+               the time of its rounds alone (``rounds_only_ms``, a build
+               with HASH_ROUNDS_ONLY, the row's latency floor); the kernels
+               no path launches since another took their place (``pow_wide``,
+               and ``batch_inv_wide`` below its fold threshold) are listed
+               with 0 launches and ``on_path`` false; ``batch_inv`` with its plan
                (``fields/kernels.py::batch_inv_plan``: chunk, lanes a block,
                chains), with its plan and with 32 lanes forced on the edge
                cases, at four chunk sizes and four tile widths on the dyn
@@ -2581,7 +2594,7 @@ def main() -> int:
             how += f" + {gadgets.TO_FIELD_OPS} for the subtractions"
         return moved, ops, how + f"; {reads} (row, instance) sectors read"
 
-    # The measurement builds of the two kernels on hash.cuh's message stage
+    # The measurement builds of the three kernels on hash.cuh's message stage
     # (HASH_ROUNDS_ONLY at every shape: rounds_only_ms, the row's latency
     # floor; with --hash-variants HASH_READS_ONLY too), and with --parent=DIR
     # the parent tree's three hash kernels, all nvcc runs started together.
@@ -2589,17 +2602,17 @@ def main() -> int:
     # gadgets._launch as hash_rows calls the kernel's own.
     from concurrent.futures import ThreadPoolExecutor
 
-    staged, rows_kernels = ("sha256", "keccak"), ("sha256", "keccak", "blake2s")
+    staged = ("sha256", "keccak", "blake2s")
     hash_switches = {"rounds_only": ["HASH_ROUNDS_ONLY"]}
     if "--hash-variants" in sys.argv:
         hash_switches["reads_only"] = ["HASH_READS_ONLY"]
     specs = [(name, label, defines, None) for name in staged for label, defines in hash_switches.items()]
     if parent_tree:
-        specs += [(name, "parent", [], f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu") for name in rows_kernels]
+        specs += [(name, "parent", [], f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu") for name in staged]
     with ThreadPoolExecutor(len(specs)) as pool:
         built_fns = list(pool.map(lambda sp: build.load_variant(sp[0], sp[2], source=sp[3]), specs))
     hash_builds = {(sp[0], sp[1]): fn for sp, fn in zip(specs, built_fns)}
-    hash_builds.update({(name, "change"): build.load_variant(name, []) for name in rows_kernels})
+    hash_builds.update({(name, "change"): build.load_variant(name, []) for name in staged})
     hash_variant_ms, hash_parent = {}, {}
 
     def via(fn):  # a launch through another build's launcher
@@ -2654,26 +2667,27 @@ def main() -> int:
                    plain_ms=time_ms(lambda: plain(scratch), 3, warmup=0),
                    bound_ms=b_ms, bound_by=b_by, bound_bytes=moved, int32_ops=ops, ops_counted=how,
                    registers=ptxas[name]["registers"], spill_bytes=ptxas[name]["spill_bytes"])
-        if name in staged:
-            # One warp a block over (ceil(B / 32), G): hash.cuh's stage_grid.
-            row["blocks"] = -(-B // 32) * G
-            row["shared_bytes"] = getattr(build.load(name), f"acvm_{name}_shared_bytes")(M, 1)
-            variant_ms = {"as_built": {"queued": row["ms_queued"], "graph": row["ms_graph"]}}
-            for switch in hash_switches:  # outputs not compared: they are not hashes
-                f = run_build(hash_builds[name, switch])
-                variant_ms[switch] = {"queued": time_ms(lambda: f(scratch), calls=10),
-                                      "graph": graph_ms(lambda: f(scratch))}
-            row["rounds_only_ms"] = row["latency_floor_ms"] = variant_ms["rounds_only"]["graph"]
-            row["rounds_only_ms_queued"] = variant_ms["rounds_only"]["queued"]
-            hash_variant_ms.setdefault(name, {})[label] = variant_ms
-        else:
-            row["blocks"] = -(-B // 128) * G  # hash.cuh's hash_grid
-            row["shared_bytes"] = 0
+        stage_row(row, name, label, M, True, G, B, lambda fn: (lambda r=run_build(fn): r(scratch)))
         if parent_tree:
             parent_pair(name, label, row["shape"], {side: run_build(hash_builds[name, side])
                                                     for side in ("parent", "change")}, W.clone)
         del scratch
         return row
+
+    def stage_row(row, name, label, M, tables, G, B, runner):
+        """A staged kernel's grid, shared memory and measurement builds:
+        one warp a block over (ceil(B / 32), G) (hash.cuh's stage_grid);
+        ``runner(fn)`` runs the row's shape through launcher ``fn``.  The
+        switched builds' outputs are not compared: they are not hashes."""
+        row["blocks"] = -(-B // 32) * G
+        row["shared_bytes"] = getattr(build.load(name), f"acvm_{name}_shared_bytes")(M, int(tables))
+        variant_ms = {"as_built": {"queued": row["ms_queued"], "graph": row["ms_graph"]}}
+        for switch in hash_switches:
+            f = runner(hash_builds[name, switch])
+            variant_ms[switch] = {"queued": time_ms(f, calls=10), "graph": graph_ms(f)}
+        row["rounds_only_ms"] = row["latency_floor_ms"] = variant_ms["rounds_only"]["graph"]
+        row["rounds_only_ms_queued"] = variant_ms["rounds_only"]["queued"]
+        hash_variant_ms.setdefault(name, {})[label] = variant_ms
 
     def matrix_kernel_row(fn, plain_fn, msg, label):
         got, want = fn(msg), plain_fn(msg)
@@ -2686,6 +2700,8 @@ def main() -> int:
                    ms=time_ms(lambda: fn(msg)), ms_queued=time_ms(lambda: fn(msg), calls=10),
                    ms_graph=graph_ms(lambda: fn(msg)),
                    plain_ms=time_ms(lambda: plain_fn(msg), 3, warmup=0), bound_ms=b_ms, bound_by=b_by)
+        stage_row(row, "blake2s", label, M, False, 1, B,
+                  lambda f: (lambda: gadgets._digest_on_card("blake2s", msg, launch=via(f))))
         if parent_tree:
             parent_pair("blake2s", label, row["shape"], {
                 side: (lambda _, f=hash_builds["blake2s", side]: gadgets._digest_on_card(
@@ -2718,10 +2734,10 @@ def main() -> int:
     # At one gadget x 8,192 instances each launch of the staged kernels spans
     # every SM: 256 one-warp blocks.
     for name, label in (("sha256", "membership_level"), ("keccak", "membership_var_232"),
-                        ("keccak", "membership_fixed_64")):
-        assert kernels[name][label]["blocks"] == 256 >= torch.cuda.get_device_properties(0).multi_processor_count
-    if "--hash-variants" in sys.argv:
-        emit({"hash_variants": {"card": smi, "ms": hash_variant_ms}})
+                        ("keccak", "membership_fixed_64"), ("blake2s", None),
+                        ("blake2s", "membership_to_field_64")):
+        row = kernels[name][label] if label else kernels[name]
+        assert row["blocks"] == 256 >= torch.cuda.get_device_properties(0).multi_processor_count
     kernels["keccak"]["also_replaces"] = ["acvm_tpu/tpu/gadgets.py:274", "acvm_tpu/tpu/gadgets.py:322"]
     kernels["blake2s"]["also_replaces"] = ["acvm_tpu/tpu/batch_solver.py:451"]
     schnorr_msg = torch.from_numpy(np.random.default_rng(8).integers(0, 256, size=(2048, 64))).to(dev)
@@ -2730,18 +2746,18 @@ def main() -> int:
     assert all(kernels[name]["max_abs_err"] == 0 and all(
         v["max_abs_err"] == 0 for v in kernels[name].values() if isinstance(v, dict))
         for name in rows), "hash kernel against its plain version"
+    if "--hash-variants" in sys.argv:
+        emit({"hash_variants": {"card": smi, "ms": hash_variant_ms}})
     if parent_tree:
         # The parent's three hash kernels: equal outputs at every row's shape
-        # (above), and blake2s, which this tree leaves on ByteSource, the
-        # same SASS instruction for instruction.
-        for name in rows_kernels:
+        # (above), and their SASS beside this tree's.
+        for name in staged:
             source = Path(f"{parent_tree}/acvm_tpu_torch/csrc/{name}.cu")
             sass = [sass_instructions(build.lib_path(name, [], source)),
                     sass_instructions(build.lib_path(name))]
             hash_parent[name] = {"shapes": hash_parent[name],
                                  "sass_instructions": [None if t is None else len(t) for t in sass],
                                  "sass_identical": None if None in sass else sass[0] == sass[1]}
-        assert hash_parent["blake2s"]["sass_identical"], hash_parent["blake2s"]["sass_instructions"]
     del res, solver, state, memb_W, hash_states
     torch.cuda.empty_cache()
 
@@ -2755,16 +2771,17 @@ def main() -> int:
     # gadget 0, case i + 1 on gadget 1; instance k: a signature byte of 256 +
     # b).  Every instance's valid bits, flag and first failure against its
     # construction, 8 witness maps against the sequential engine; one
-    # ecdsa_mul launch a solve.  ecdsa_k1 once more over 16,384 instances: its
-    # inversions (s^-1, Z^-1) of 32,768 values fold, so batch_inv_wide runs on
-    # the path where the 4,096-instance solves run pow_wide.  Then the wide
-    # kernels against their plain versions on both curves' p and n, and
-    # ecdsa_mul on the solves' own operands.
+    # ecdsa_mul launch a solve, and two inv_wide launches (s^-1, Z^-1).
+    # ecdsa_k1 once more over 16,384 instances: its inversions of 32,768
+    # values each fold into batch_inv_wide where LimbContext.fold_rows says
+    # so (from FOLD_FROM_WIDE values), else run on inv_wide.  Then the wide kernels against their plain
+    # versions on both curves' p and n, and ecdsa_mul on the solves' own
+    # operands.
     from acvm_tpu_torch.gpu import ecdsa as gpu_ecdsa
     from acvm_tpu_torch.utils import ecdsa_inputs, ecdsa_planted
 
     ecdsa_B, ecdsa_seed = 4096, 7
-    fold_B = LimbContext.FOLD_LANES  # 2 gadgets: 2 x FOLD_LANES values to invert
+    fold_B = 1 << 14  # the b16384 cell: 2 gadgets, 32,768 values to invert of each kind
     ecdsa_launches, ecdsa_report, ecdsa_operands = {}, {}, {}
     real_ecdsa_mul = gpu_ecdsa.ecdsa_mul
 
@@ -2775,7 +2792,9 @@ def main() -> int:
             ecdsa_operands[label] = (u1.clone(), u2.clone(), Q.clone(), table)
             return real_ecdsa_mul(curve_name, u1, u2, Q, table)
 
-        inv_kernel = "batch_inv_wide" if 2 * B_run >= 2 * LimbContext.FOLD_LANES else "pow_wide"
+        # mont_inv_grouped's choice for the 2 B values of each kind
+        folded = LimbContext(gpu_ecdsa.curve_fields(curve_name)[0], dev).fold_rows(2 * B_run) > 1
+        inv_kernel = "batch_inv_wide" if folded else "inv_wide"
         circuit = build_gadget_circuit(kind, 2)
         t0 = time.perf_counter()
         cols, want_valid, want_err = ecdsa_inputs(circuit, B_run, kind, seed=ecdsa_seed, pool=256)
@@ -2792,7 +2811,7 @@ def main() -> int:
         finally:
             gpu_ecdsa.ecdsa_mul = real_ecdsa_mul
         launches = dict(build.LAUNCHES)
-        assert launches["ecdsa_mul"] == 1 and launches["mul_wide"] > 0 and launches[inv_kernel] > 0, launches
+        assert launches["ecdsa_mul"] == 1 and launches["mul_wide"] > 0 and launches[inv_kernel] == 2, launches
         assert all(launches[name] == 0 for name in build.KERNELS
                    if name not in ("ecdsa_mul", "mul_wide", inv_kernel)), launches
         outs = np.array([res.witness_ints(int(op.call.output)) for op in circuit.opcodes], dtype=bool)
@@ -2876,7 +2895,79 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, b, a_bn, b_bn, out, got, want
 
+    # inv_wide (constant-time divsteps, csrc/inv.cu) against its plain version
+    # and pow_wide at e = M - 2, tolerance 0, on 8,192 values of each of the
+    # four wide moduli, the edge lanes 0, R (one), M - 1, 1, 2, R^-1 and the
+    # longest divstep run among 1,000 seeded draws first.  Timed at the s^-1
+    # shape (8,192 values, n of secp256k1 and of secp256r1) beside pow_wide
+    # on the same values; its latency floor is a lone warp's inversion (one
+    # launch of 32 values, graph time).  Bound: inv.cuh's int32 operations
+    # (fields/kernels.py::INV_OPS, counted from its code) and 64 bytes a value.
     n_inv = 2 * ecdsa_B
+    r1_n = wide_fields[3]
+    errs, inv_edges = [], {}
+    for params in wide_fields:
+        m, R = params.modulus, params.r
+        draws = np.random.default_rng(66)
+        pool = [int.from_bytes(draws.bytes(40), "little") % m for _ in range(1000)]
+        longest = max(pool, key=lambda x: fk.divsteps_to_zero(x, m))
+        edges = [0, R, m - 1, 1, 2, pow(R, -1, m), longest]
+        a = random_elements((n_inv,), params, 64)
+        a[: len(edges)] = torch.from_numpy(fk.ints_to_limbs32(edges).copy()).to(dev)
+        build.reset_launches()
+        got = fk.mont_inv(a, params)
+        assert build.LAUNCHES["inv_wide"] == 1 and build.LAUNCHES["pow_wide"] == 0, build.LAUNCHES
+        errs.append(max_abs_err(got, fk.mont_inv_divsteps_plain(a, params)))
+        errs.append(max_abs_err(got, fk.mont_pow(a, m - 2, params)))
+        r_inv = pow(R, -1, m)
+        assert fk.limbs32_to_ints(got[: len(edges)].cpu().numpy()) == [
+            pow(x * r_inv, -1, m) * R % m if x else 0 for x in edges], params.name
+        inv_edges[params.name] = fk.divsteps_to_zero(longest, m)
+    inv_rows = {}
+    for params in (k1_n, r1_n):
+        a = random_elements((n_inv,), params, 64)
+        a32 = a[:32].clone()
+        e = params.modulus - 2
+        inv_rows[params.name] = dict(
+            ms=time_ms(lambda: fk.mont_inv(a, params)),
+            ms_queued=time_ms(lambda: fk.mont_inv(a, params), calls=10),
+            ms_graph=graph_ms(lambda: fk.mont_inv(a, params)),
+            latency_floor_ms=graph_ms(lambda: fk.mont_inv(a32, params)),
+            pow_wide_ms_queued=time_ms(lambda: fk.mont_pow(a, e, params), calls=10),
+            pow_wide_ms_graph=graph_ms(lambda: fk.mont_pow(a, e, params)),
+            plain_ms=time_ms(lambda: fk.mont_inv_divsteps_plain(a, params), 3))
+    b_ms, b_by = bound(64 * n_inv, fk.INV_OPS * n_inv)
+    kernels["inv_wide"] = dict(
+        name="inv_wide", route="cuda", source="acvm_tpu_torch/csrc/inv.cu",
+        replaces="acvm_tpu/fields/jnp_ops.py:235",
+        shape=f"N={n_inv} (the s^-1 of a solve), secp256k1 n; 20 x 30 divsteps a value",
+        fields=[f.name for f in wide_fields], max_abs_err=max(errs),
+        edge_lanes=["0", "R", "M - 1", "1", "2", "R^-1", "longest of 1,000 draws"],
+        longest_divstep_run=inv_edges, **inv_rows[k1_n.name], secp256r1_n=inv_rows[r1_n.name],
+        int32_ops_per_value=fk.INV_OPS,
+        ops_counted="fields/kernels.py::INV_OPS (inv.cuh's divsteps and updates, counted from its "
+                    "code) a value; bytes 64 a value",
+        latency_floor_from="graph time of one launch of 32 values: a lone warp's inversion",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, a32, got
+    if "--fold-sweep" in sys.argv:
+        # mont_inv_grouped's wide choice: n values as one inv_wide launch, or
+        # folded into g rows of n / g columns and one batch_inv_wide launch (a
+        # Fermat chain a block of chunks).
+        fold = {}
+        for n in (1 << k for k in range(13, 21)):
+            x = random_elements((n,), k1_p, 67)
+            row = {"inv_wide": time_ms(lambda: fk.mont_inv(x, k1_p), calls=10)}
+            for g in (2, 4, 8, 16, 32):
+                xg = x.reshape(g, n // g, 8)
+                row[f"batch_inv_wide_g{g}"] = time_ms(lambda: fk.mont_batch_inv(xg, k1_p, 0, g), calls=10)
+            fold[n] = row
+        emit({"fold_sweep_wide": {"card": smi, "field": k1_p.name, "ms_queued": fold}})
+        del x, xg
+
+    # pow_wide, which inv_wide replaced on the path: mont_pow's wide route for
+    # a general exponent, against its plain version on the schedule's edge
+    # exponents; timed at the s^-1 shape as before.
     errs = []
     for params in wide_fields:
         a = random_elements((n_inv,), params, 64, zeros=5)
@@ -2893,7 +2984,7 @@ def main() -> int:
         name="pow_wide", route="cuda", source="acvm_tpu_torch/csrc/pow.cu (-DACVM_WIDE)",
         replaces="acvm_tpu/fields/jnp_ops.py:235",
         shape=f"N={n_inv} (the s^-1 of a solve), e = n - 2 of secp256k1, {chain_n} products a chain",
-        fields=[f.name for f in wide_fields], max_abs_err=max(errs),
+        fields=[f.name for f in wide_fields], max_abs_err=max(errs), replaced_on_path_by="inv_wide",
         ms=time_ms(lambda: fk.mont_pow(a, k1_n.modulus - 2, k1_n)),
         ms_queued=time_ms(lambda: fk.mont_pow(a, k1_n.modulus - 2, k1_n), calls=10),
         latency_floor_ms=chain_n * candidates["carry_flag_even_odd"]["us_per_product_in_chain"] * 1e-3,
@@ -2901,18 +2992,21 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del a, inv
 
+    # batch_inv_wide on the 16,384-instance solve's 32,768 values in 2 rows,
+    # and mont_inv_grouped on them (the launch LimbContext.fold_rows picks).
     n_fold = 2 * fold_B
+    folds = LimbContext(k1_p, dev).fold_rows(n_fold) > 1
     errs = []
     for params in wide_fields:
         x = random_elements((n_fold,), params, 65, zeros=2)
         x[n_fold - 1] = x[n_fold // 4] = 0  # zeros at chunk edges
-        ctx_w = LimbContext(params, dev)
-        build.reset_launches()
-        got = ctx_w.mont_inv_grouped(x)
-        assert build.LAUNCHES["batch_inv_wide"] == 1 and build.LAUNCHES["pow_wide"] == 0
+        got = fk.mont_batch_inv(x.reshape(2, fold_B, 8), params, 0, 2).reshape(n_fold, 8)
         errs.append(max_abs_err(got, fk.mont_batch_inv_plain(x.reshape(2, fold_B, 8), params, 0, 2)
                                 .reshape(n_fold, 8)))
-        errs.append(max_abs_err(got, fk.mont_pow(x, params.modulus - 2, params)))
+        errs.append(max_abs_err(got, fk.mont_inv(x, params)))
+        build.reset_launches()
+        errs.append(max_abs_err(LimbContext(params, dev).mont_inv_grouped(x), got))
+        assert build.LAUNCHES["batch_inv_wide" if folds else "inv_wide"] == 1, build.LAUNCHES
     x = random_elements((n_fold,), k1_p, 65).reshape(2, fold_B, 8)
     chain_p = fk.pow_chain_products(k1_p.modulus - 2)
     needed = fold_B * chain_p + 3 * (n_fold - fold_B)
@@ -2924,10 +3018,11 @@ def main() -> int:
     kernels["batch_inv_wide"] = dict(
         name="batch_inv_wide", route="cuda", source="acvm_tpu_torch/csrc/batch_inv.cu (-DACVM_WIDE)",
         replaces="acvm_tpu/fields/jnp_ops.py:259",
-        shape=f"G=2, L={fold_B}, chunk 2 (mont_inv_grouped of {n_fold} values: the s^-1 and Z^-1 "
-              f"of the {fold_B}-instance solve), secp256k1 p",
+        shape=f"G=2, L={fold_B}, chunk 2 (the s^-1 or Z^-1 of the {fold_B}-instance solve, "
+              f"{n_fold} values, folded), secp256k1 p",
         plan=wide_plan._asdict(), chains=wide_plan.blocks,
         fields=[f.name for f in wide_fields], max_abs_err=max(errs), products_needed=needed,
+        **({} if folds else {"replaced_on_path_by": "inv_wide"}),
         ms=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2)),
         ms_queued=time_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2), calls=10),
         ms_graph=graph_ms(lambda: fk.mont_batch_inv(x, k1_p, 0, 2)),
@@ -2935,6 +3030,8 @@ def main() -> int:
         latency_floor_from="dependent products on a block's path x int32.wide_mont_mul_chain"
                            ".us_per_product_in_chain",
         pow_ms_same_values=time_ms(lambda: fk.mont_pow(x, k1_p.modulus - 2, k1_p)),
+        inv_wide_ms_queued_same_values=time_ms(lambda: fk.mont_inv(x, k1_p), calls=10),
+        inv_wide_ms_graph_same_values=graph_ms(lambda: fk.mont_inv(x, k1_p)),
         plain_ms=time_ms(lambda: fk.mont_batch_inv_plain(x, k1_p, 0, 2), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del x, got
@@ -3037,12 +3134,20 @@ def main() -> int:
             ecdsa_parent[curve_name] = {"lanes": B2, "equal_affine_R": True, **row}
             del outs
     first = ecdsa_rows.pop("secp256k1")
-    # The same kernel on the folded solve's 32,768 lanes: four times the warps.
+    # The same kernel on the 16,384-instance solve's 32,768 lanes: four times
+    # the warps, its bound and floor counted on those lanes' own scalars.
     u1, u2, Q, table = ecdsa_operands[f"ecdsa_k1_b{fold_B}"]
-    first[f"ms_lanes_{u1.shape[0]}"] = time_ms(lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table),
-                                               reps=5)
-    first[f"ms_queued_lanes_{u1.shape[0]}"] = time_ms(
+    lanes = u1.shape[0]
+    first[f"ms_lanes_{lanes}"] = time_ms(lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table),
+                                         reps=5)
+    first[f"ms_queued_lanes_{lanes}"] = time_ms(
         lambda: gpu_ecdsa.ecdsa_mul("secp256k1", u1, u2, Q, table), reps=3, calls=5)
+    design = ecdsa_chain_counts(u1.cpu().numpy(), gpu_ecdsa.signed_windows(u2).cpu().numpy(), 7)
+    b_ms, b_by = bound(lanes * (32 + 32 + 64 + 96) + table.numel() * 4,
+                       design["products"] * MADDS_PER_MONT_MUL)
+    first[f"bound_ms_lanes_{lanes}"], first[f"bound_by_lanes_{lanes}"] = b_ms, b_by
+    first[f"warp_chain_products_lanes_{lanes}"] = design["warp_chain"]
+    first[f"latency_floor_ms_lanes_{lanes}"] = design["warp_chain"] * wide_chain["us_per_product_in_chain"] * 1e-3
     del u1, u2, Q, table
     kernels["ecdsa_mul"] = dict(
         name="ecdsa_mul", route="cuda", source="acvm_tpu_torch/csrc/ecdsa_mul.cu",
@@ -3086,20 +3191,10 @@ def main() -> int:
             return torch.empty_like(t)
 
         def inv_plan_args(G, L, max_scan):
-            """The plan arguments of this tree's batch_inv launcher; the
-            parent's took the chunk alone."""
+            """The plan arguments of the batch_inv launcher (this tree's
+            and the parent's)."""
             plan = fk.batch_inv_plan(G, L, max_scan, torch.cuda.get_device_properties(dev).multi_processor_count)
             return (plan.g, plan.lanes)
-
-        inv_parent_signature = ("acvm_batch_inv", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                                                   ctypes.c_void_p, ctypes.c_void_p])
-        parent_args = {  # kernel: C arguments of the parent's launcher, where they differ
-            "batch_inv": lambda o: (inv_in.data_ptr(), o.data_ptr(), 2048, 2048, _DYN_INV_CHUNK, sched, words,
-                                    stream()),
-            "batch_inv_wide": lambda o: (wide_inv_in.data_ptr(), o.data_ptr(), 2, fold_B, 2, wide_sched,
-                                         wide_words, stream()),
-        }
 
         cases = {  # kernel: (output, C arguments after the output is made)
             "mul": (out_like(a), lambda o: (a.data_ptr(), b.data_ptr(), o.data_ptr(), 1 << 20, 0, 1, words,
@@ -3132,16 +3227,14 @@ def main() -> int:
         for label, (out0, args) in cases.items():
             name = kernel_of.get(label, label)
             source = f"{parent_tree}/acvm_tpu_torch/csrc/{build.VARIANTS.get(name, (name,))[0]}.cu"
-            fns = {"parent": build.load_variant(name, [], source=source,
-                                                signature=inv_parent_signature if name in parent_args else None),
+            fns = {"parent": build.load_variant(name, [], source=source),
                    "change": build.load_variant(name, [])}
-            side_args = {"parent": parent_args.get(name, args), "change": args}
             sass = [sass_instructions(build.lib_path(name, [], Path(source))),
                     sass_instructions(build.lib_path(name))]
             outs = {}
             for side, fn in fns.items():
                 outs[side] = out_like(out0)
-                assert fn(*side_args[side](outs[side])) == 0, (label, side)
+                assert fn(*args(outs[side])) == 0, (label, side)
             torch.cuda.synchronize()
             assert torch.equal(outs["parent"], outs["change"]), label
             row = {f"{side}_{how}": [] for side in ("parent", "change")
@@ -3150,20 +3243,34 @@ def main() -> int:
                         "sass_identical": None if None in sass else sass[0] == sass[1]})
             for side in ("parent", "change", "change", "parent"):
                 o = outs[side]
-                run = lambda fn=fns[side], o=o, a=side_args[side]: fn(*a(o))  # noqa: E731
+                run = lambda fn=fns[side], o=o: fn(*args(o))  # noqa: E731
                 row[f"{side}_ms"].append(time_ms(run))
                 row[f"{side}_ms_queued"].append(time_ms(run, calls=10))
                 row[f"{side}_ms_graph"].append(graph_ms(run, launches=5))
-            if name == "batch_inv":   # each tree at each chunk: the parent's solver took 128
-                row["parent_ms_queued_by_chunk"], row["change_ms_queued_by_chunk"] = {}, {}
-                for g in (32, 64, 128, 256):
-                    o = outs["parent"]
-                    row["parent_ms_queued_by_chunk"][g] = time_ms(lambda g=g, o=o: fns["parent"](
-                        inv_in.data_ptr(), o.data_ptr(), 2048, 2048, g, sched, words, stream()), calls=10)
-                    row["change_ms_queued_by_chunk"][g] = time_ms(lambda g=g, o=o: fns["change"](
+            if name == "batch_inv":   # each tree at each chunk
+                for side in ("parent", "change"):
+                    row[f"{side}_ms_queued_by_chunk"] = {g: time_ms(lambda g=g, f=fns[side], o=outs[side]: f(
                         inv_in.data_ptr(), o.data_ptr(), 2048, 2048, *inv_plan_args(2048, 2048, g),
-                        sched, words, stream()), calls=10)
+                        sched, words, stream()), calls=10) for g in (32, 64, 128, 256)}
             compare[label] = row
+        # This tree's inv_wide beside the parent's pow_wide at the s^-1 shape
+        # (8,192 values, e = n - 2 of secp256k1): equal outputs, then timed
+        # parent, change, change, parent.
+        k1_n = gpu_ecdsa.curve_fields("secp256k1")[1]
+        s_in = random_elements((8192,), k1_n, 78)
+        parent_pow = build.load_variant("pow_wide", [], source=f"{parent_tree}/acvm_tpu_torch/csrc/pow.cu")
+        n_args = (fk._host_ptr(fk.pow_schedule_words(k1_n.modulus - 2)), fk._host_ptr(fk.field_words(k1_n)))
+        p_out = torch.empty_like(s_in)
+        sides = {"parent": lambda: parent_pow(s_in.data_ptr(), p_out.data_ptr(), 8192, *n_args, stream()),
+                 "change": lambda: fk.mont_inv(s_in, k1_n)}
+        assert sides["parent"]() == 0
+        assert torch.equal(p_out, sides["change"]()), "inv_wide against the parent's pow_wide"
+        row = {f"{side}_{how}": [] for side in ("parent", "change") for how in ("ms_queued", "ms_graph")}
+        for side in ("parent", "change", "change", "parent"):
+            row[f"{side}_ms_queued"].append(time_ms(sides[side], calls=10))
+            row[f"{side}_ms_graph"].append(graph_ms(sides[side]))
+        compare["inv_wide_vs_parent_pow_wide"] = {"shape": "N=8192, secp256k1 n", **row}
+        del s_in, p_out
         compare["ecdsa_mul"] = ecdsa_parent
         compare.update(hash_parent)
         emit({"parent_compare": {"card": smi, "parent": parent_tree, "equal_outputs": True,
@@ -3176,6 +3283,12 @@ def main() -> int:
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
              "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches,
              "hash": hash_launches, **ecdsa_launches}
+    # Kernels that no path launches since another took their place: inv_wide
+    # runs path_ecdsa's inversions where pow_wide did (pow_wide stays
+    # mont_pow's wide route and inv_wide's yardstick above), and
+    # batch_inv_wide runs only where fold_rows folds the 16,384-instance
+    # solve's inversions.  Each is still held to its plain version above.
+    off_path = {"pow_wide"} | (set() if folds else {"batch_inv_wide"})
     rows = []
     for name in build.KERNELS:
         row = kernels[name]
@@ -3184,7 +3297,8 @@ def main() -> int:
         for path, counts in paths.items():
             row[f"launches_{path}"] = counts[name]
         row["launches"] = sum(counts[name] for counts in paths.values())
-        assert row["launches"] > 0, name
+        row["on_path"] = name not in off_path
+        assert (row["launches"] > 0) == row["on_path"], (name, row["launches"])
         rows.append(row)
     emit({"kernels": rows})
     if want_profile:

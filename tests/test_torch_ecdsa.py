@@ -143,7 +143,8 @@ def test_wide_field_ops_equal_ints_and_the_jax_package(curve, which):
 @pytest.mark.parametrize("curve,which", [("secp256k1", 0), ("secp256r1", 1)], ids=["secp256k1_p", "secp256r1_n"])
 def test_wide_batch_inversion_equals_the_jax_package(curve, which, monkeypatch):
     """The folded inversion of both packages, and the port's with its fold
-    branch reached (FOLD_LANES patched down), on zeros at chunk edges."""
+    branch reached (FOLD_FROM_WIDE, the wide field's threshold, and
+    FOLD_LANES patched down), on zeros at chunk edges."""
     params = ecdsa.curve_fields(curve)[which]
     ctx = LimbContext(params, "cpu")
     jctx = jnp_ops.LimbContext(JFieldParams(name=params.name, modulus=params.modulus))
@@ -152,7 +153,9 @@ def test_wide_batch_inversion_equals_the_jax_package(curve, which, monkeypatch):
     a = limbs(xs).reshape(4, 4, 8)
     want = ints(from_jax(jctx.mont_batch_inv(to_jax(a), axis=0)))
     assert ints(ctx.mont_batch_inv(a, axis=0)) == want
+    monkeypatch.setattr(LimbContext, "FOLD_FROM_WIDE", 16)
     monkeypatch.setattr(LimbContext, "FOLD_LANES", 2)
+    assert ctx.fold_rows(16) == 8  # the fold branch: 8 rows of 2
     assert ints(ctx.mont_inv_grouped(a.reshape(16, 8))) == want
 
 

@@ -662,13 +662,14 @@ def test_hash_solver_on_card_equals_solver_on_cpu(card):
     assert gpu is not None and cpu.ok.all()
 
 
-# The message stage of sha256.cu and keccak.cu (csrc/hash.cuh): one-warp
+# The message stage of sha256.cu, blake2s.cu and keccak.cu (csrc/hash.cuh): one-warp
 # blocks, the tables in shared memory (whole up to 1,024 bytes, staged a
 # block at a time past it: M = 1,500), each compression block's words copied
 # by cp.async into a two-stage ring (it wraps from three blocks on), zero-filled
 # past a keccak_var length.
 STAGED_CASES = ([("sha256", M) for M in (1, 55, 56, 63, 64, 119, 120, 1000, 1500)]
-                + [("keccak", M) for M in (1, 135, 136, 137, 272, 1000, 1500)])
+                + [("keccak", M) for M in (1, 135, 136, 137, 272, 1000, 1500)]
+                + [("blake2s", M) for M in (0, 1, 32, 55, 56, 63, 64, 65, 127, 128, 129, 1000, 1500)])
 
 
 def _var_lengths(B, M, seed):
@@ -688,15 +689,18 @@ def test_staged_hash_kernels_equal_plain_versions_and_host_hashes(card, kernel, 
     from acvm_tpu_torch.blackbox.hashes import keccak256
     from acvm_tpu_torch.gpu import gadgets
 
-    host = hashlib.sha256 if kernel == "sha256" else (
+    host = {"sha256": hashlib.sha256, "blake2s": hashlib.blake2s}.get(kernel) or (
         lambda m: types.SimpleNamespace(digest=lambda: keccak256(m)))
-    kinds = ("sha256",) if kernel == "sha256" else ("keccak256", "keccak_var")
+    kinds = {"sha256": ("sha256",), "blake2s": ("blake2s", "hash_to_field")}.get(
+        kernel, ("keccak256", "keccak_var"))
     build.reset_launches()
     for B in (1, 31, 33, 8192):
         msg = torch.from_numpy(np.random.default_rng(M + B).integers(0, 256, size=(B, M))).to(card)
-        if kernel == "sha256":
-            got = gadgets.sha256_digest(msg)
-            assert torch.equal(got, gadgets.sha256_digest_plain(msg)), B
+        if kernel in ("sha256", "blake2s"):
+            digest, plain = ((gadgets.sha256_digest, gadgets.sha256_digest_plain) if kernel == "sha256"
+                             else (gadgets.blake2s_digest, gadgets.blake2s_digest_plain))
+            got = digest(msg)
+            assert torch.equal(got, plain(msg)), B
             for b in (0, B - 1):
                 assert bytes(got[b].tolist()) == host(bytes(msg[b].tolist())).digest(), (B, b)
             continue
@@ -710,20 +714,22 @@ def test_staged_hash_kernels_equal_plain_versions_and_host_hashes(card, kernel, 
             assert bytes(got[b].tolist()) == keccak256(bytes(msg[b, :int(length[b])].tolist())), (B, b)
     rng = np.random.default_rng(M)
     for kind in kinds:
+        n_out = 1 if kind == "hash_to_field" else 32
+        modulus = BN254_FR.modulus if kind == "hash_to_field" else None
         for G, B in ((3, 5), (1, 33)):
-            NW = 30 + 32 * G
+            NW = 30 + n_out * G
             W = torch.from_numpy(rng.integers(-2**31, 2**31, size=(NW, B, 8)).astype(np.int32))
             tables = [torch.from_numpy(t.astype(np.int32)) for t in (
                 rng.integers(0, 30, size=(G, M)), rng.integers(0, 8, size=(G, M)),
                 8 * rng.integers(0, 4, size=(G, M)))]
-            out_idx = torch.from_numpy((30 + rng.permutation(32 * G)).reshape(G, 32).astype(np.int32))
+            out_idx = torch.from_numpy((30 + rng.permutation(n_out * G)).reshape(G, n_out).astype(np.int32))
             length = (torch.stack([_var_lengths(B, M, M + g) for g in range(G)])
                       if kind == "keccak_var" else None)
-            want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length)
+            want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length, modulus)
             got = gadgets.hash_rows(kind, *(t.to(card) for t in (W, *tables, out_idx)),
-                                    length=None if length is None else length.to(card))
+                                    length=None if length is None else length.to(card), modulus=modulus)
             assert torch.equal(got.cpu(), want), (kind, G, B)
-    launches = {"sha256": 4 + 2, "keccak": 2 * 4 + 2 * 2}
+    launches = {"sha256": 4 + 2, "blake2s": 4 + 2 * 2, "keccak": 2 * 4 + 2 * 2}
     assert build.LAUNCHES[kernel] == launches[kernel], build.LAUNCHES
 
 
@@ -793,6 +799,33 @@ def test_wide_field_kernels_equal_plain_versions(card, curve, which):
     assert build.LAUNCHES["batch_inv_wide"] == 3 and build.LAUNCHES["mul"] == build.LAUNCHES["pow"] == 0
 
 
+@pytest.mark.parametrize("curve,which", WIDE_FIELDS, ids=lambda v: str(v))
+def test_inv_wide_kernel_equals_plain_version_and_pow_wide(card, curve, which):
+    """inv_wide (constant-time divsteps) against its plain version, pow_wide
+    at e = M - 2 and Python ints: the edge lanes 0, R, M - 1, 1, 2, R^-1 and
+    the longest divstep run of 300 draws first, a ragged count; one launch,
+    no pow_wide, and LimbContext's mont_inv on the card the same."""
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import ecdsa
+
+    params = ecdsa.curve_fields(curve)[which]
+    m, R = params.modulus, params.r
+    rng = np.random.default_rng(19)
+    pool = [int.from_bytes(rng.bytes(40), "little") % m for _ in range(300)]
+    edges = [0, R, m - 1, 1, 2, pow(R, -1, m), max(pool, key=lambda x: fk.divsteps_to_zero(x, m))]
+    a = elements(1000, params, 3)
+    a[: len(edges)] = torch.from_numpy(fk.ints_to_limbs32(edges).copy())
+    build.reset_launches()
+    got = fk.mont_inv(a.to(card), params)
+    assert build.LAUNCHES["inv_wide"] == 1 and build.LAUNCHES["pow_wide"] == 0
+    assert torch.equal(got.cpu(), fk.mont_inv_divsteps_plain(a, params))
+    assert torch.equal(got, fk.mont_pow(a.to(card), m - 2, params))
+    r_inv = pow(R, -1, m)
+    assert fk.limbs32_to_ints(got[:40].cpu().numpy()) == [
+        pow(x * r_inv, -1, m) * R % m if x else 0 for x in fk.limbs32_to_ints(a[:40].numpy())]
+    assert torch.equal(LimbContext(params, card).mont_inv(a.to(card)), got)
+
+
 @pytest.mark.parametrize("kind", ["ecdsa_k1", "ecdsa_r1"])
 def test_ecdsa_mul_kernel_equals_plain_version(card, kind):
     """One launch against its plain version, X, Y and Z: scalars 0, 1, n - 1,
@@ -854,6 +887,7 @@ def test_ecdsa_solver_on_card_equals_solver_on_cpu(card, kind):
     build.reset_launches()
     gpu = BatchSolver(plan).solve(cols)
     assert build.LAUNCHES["ecdsa_mul"] == 1 and build.LAUNCHES["mul_wide"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["inv_wide"] == 2 and build.LAUNCHES["pow_wide"] == 0, build.LAUNCHES
     cpu = BatchSolver(plan, device="cpu").solve(cols)
     assert torch.equal(gpu.panel.cpu(), cpu.panel)
     assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)

@@ -1,11 +1,14 @@
-"""The C of the SHA-256 and Keccak kernels, run on the CPU.
+"""The C of the SHA-256, BLAKE2s and Keccak kernels, run on the CPU.
 
-``csrc/sha256.cu`` and ``csrc/keccak.cu`` are compiled with ``g++`` against
-the stub ``cuda_runtime.h`` below: the CUDA qualifiers as nothing, ``__ldg``
-and ``__funnelshift_r`` in C, ``__syncwarp`` and ``__reduce_max_sync`` of a
-one-lane warp, the message stage's copy (``hash.cuh``'s ``stage_copy``) as a
-plain copy or a zero fill, and ``HASH_STAGE_LAUNCH`` as a host loop over the
-grid.  The block is one lane (``-DHASH_WARP=1``), so a block's staging runs in
+``csrc/sha256.cu``, ``csrc/blake2s.cu`` and ``csrc/keccak.cu`` are compiled
+with ``g++`` against the stub ``cuda_runtime.h`` below: the CUDA qualifiers
+as nothing, ``__ldg``, ``__funnelshift_r`` and ``__byte_perm`` in C,
+``__syncwarp`` and ``__reduce_max_sync`` of a one-lane warp, the message
+stage's copy (``hash.cuh``'s ``stage_copy``) as a plain copy or a zero fill,
+and ``HASH_STAGE_LAUNCH`` as a host loop over the grid (``field.cuh``'s
+borrow chain, which BLAKE2s' hash-to-field mode runs, has a plain-C form
+outside nvcc).  ``INV_LAUNCH`` serves ``tests/test_torch_inv_c.py``'s build of
+``csrc/inv.cu``.  The block is one lane (``-DHASH_WARP=1``), so a block's staging runs in
 order.  Each kernel is built twice: with its tables in shared memory whole,
 and with ``-DHASH_TABLE_CAP=64``, so that every message longer than 64 bytes
 stages its table entries block by block beside its words.
@@ -14,8 +17,9 @@ The launchers, with their own argument lists (``build._SIGNATURES``), are
 called through ``gadgets._launch`` on CPU tensors, in the panel form (random
 row / limb / shift tables, G gadgets) and the matrix form, at the lengths
 where the padding changes and at 1,000 bytes (the two-stage ring wraps), and
-held to the plain versions and to hashlib / the host Keccak.  The card runs
-the same shapes in ``tests/test_torch_gpu.py``.
+held to the plain versions and to hashlib / the host Keccak; BLAKE2s also in
+hash-to-field mode, held to ``digest_to_field_plain``.  The card runs the same
+shapes in ``tests/test_torch_gpu.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ import torch
 
 from acvm_tpu_torch import build
 from acvm_tpu_torch.blackbox.hashes import keccak256
+from acvm_tpu_torch.fields import kernels as fk
 from acvm_tpu_torch.fields.kernels import LIMBS
+from acvm_tpu_torch.fields.params import BLS12_381_FR, BN254_FR
 from acvm_tpu_torch.gpu import gadgets
 
 STUB = r"""
@@ -47,6 +53,7 @@ STUB = r"""
 #define __shared__
 #define __align__(n)
 #define __launch_bounds__(n)
+#define __grid_constant__
 using std::min;
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
@@ -56,11 +63,18 @@ struct dim3 {
 };
 inline dim3 blockIdx, threadIdx, blockDim;
 typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t n) {
     n &= 31;
     return n ? (lo >> n) | (hi << (32 - n)) : lo;
+}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+    const uint64_t v = (uint64_t)y << 32 | x;
+    uint32_t r = 0;
+    for (int k = 0; k < 4; ++k) r |= (uint32_t)(v >> (8 * ((s >> (4 * k)) & 7)) & 0xFF) << (8 * k);
+    return r;
 }
 inline void __syncwarp() {}
 inline int __reduce_max_sync(unsigned, int v) { return v; }
@@ -79,10 +93,21 @@ inline uint32_t hash_smem[1 << 16];
                 kernel(__VA_ARGS__);                            \
             }                                                   \
     } while (0)
+#define INV_LAUNCH(kernel, blocks, threads, stream, ...)        \
+    do {                                                        \
+        blockDim = dim3(threads);                               \
+        for (unsigned x = 0; x < (unsigned)(blocks); ++x)       \
+            for (unsigned t = 0; t < (unsigned)(threads); ++t) { \
+                blockIdx = dim3(x);                             \
+                threadIdx = dim3(t);                            \
+                kernel(__VA_ARGS__);                            \
+            }                                                   \
+    } while (0)
 """
 
 CAPS = (None, 64)  # the default table capacity (1,024 entries), and 64
 SHA_LENGTHS = (1, 55, 56, 63, 64, 119, 120, 1000)
+BLAKE2S_LENGTHS = (0, 1, 32, 55, 56, 63, 64, 65, 127, 128, 129, 1000)
 KECCAK_LENGTHS = (1, 135, 136, 137, 272, 1000)
 
 
@@ -102,7 +127,7 @@ def cpu_builds(tmp_path_factory):
     stub = tmp_path_factory.mktemp("hash_c")
     (stub / "cuda_runtime.h").write_text(STUB)
     launchers, full_width = {}, {}
-    for name in ("sha256", "keccak"):
+    for name in ("sha256", "blake2s", "keccak"):
         symbol, argtypes = build._SIGNATURES[name]
         for cap in CAPS:
             defines = ["HASH_WARP=1", *([f"HASH_TABLE_CAP={cap}"] if cap else [])]
@@ -141,33 +166,38 @@ def _var_lengths(B, M, seed):
 
 def _panel_case(kind, G, B, M, seed):
     """A panel with G gadgets' random (row, limb, shift) tables over rows
-    0 ... 29 and their digest rows above; keccak_var's lengths."""
+    0 ... 29 and their digest rows above (one a gadget for hash-to-field);
+    keccak_var's lengths."""
     rng = np.random.default_rng(seed)
-    NW = 30 + 32 * G
+    n_out = 1 if kind == "hash_to_field" else 32
+    NW = 30 + n_out * G
     W = torch.from_numpy(rng.integers(-2**31, 2**31, size=(NW, B, LIMBS)).astype(np.int32))
     tables = [torch.from_numpy(t.astype(np.int32)) for t in (
         rng.integers(0, 30, size=(G, M)), rng.integers(0, LIMBS, size=(G, M)),
         8 * rng.integers(0, 4, size=(G, M)))]
-    out_idx = torch.from_numpy((30 + rng.permutation(32 * G)).reshape(G, 32).astype(np.int32))
+    out_idx = torch.from_numpy((30 + rng.permutation(n_out * G)).reshape(G, n_out).astype(np.int32))
     length = None
     if kind == "keccak_var":
         length = torch.stack([_var_lengths(B, M, seed + 1 + g) for g in range(G)])
     return W, tables, out_idx, length
 
 
-def _panel_on_cpu(kind, W, tables, out_idx, length):
+def _panel_on_cpu(kind, W, tables, out_idx, length, modulus=None):
     """hash_rows' launch, on CPU tensors."""
     G, M = tables[0].shape
     B = W.shape[1]
     gadgets._launch(kind, (W, B * LIMBS, LIMBS), tables, M, (W, B * LIMBS, LIMBS, LIMBS), out_idx, G,
-                    B, length=length)
+                    B, length=length,
+                    subtrahends=None if modulus is None else gadgets.to_field_subtrahends(modulus))
     return W
 
 
-def _check_panel(kind, G, B, M, seed):
+def _check_panel(kind, G, B, M, seed, modulus=None):
     W, tables, out_idx, length = _panel_case(kind, G, B, M, seed)
-    want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length)
-    assert torch.equal(_panel_on_cpu(kind, W.clone(), tables, out_idx, length), want), (kind, G, B, M)
+    want = gadgets.hash_rows_plain(kind, W.clone(), *tables, out_idx, length, modulus)
+    got = _panel_on_cpu(kind, W.clone(), tables, out_idx, length, modulus)
+    assert torch.equal(got, want), (kind, G, B, M)
+    return got, want, out_idx
 
 
 @pytest.mark.parametrize("cap", CAPS, ids=("tables_whole", "tables_staged"))
@@ -182,6 +212,30 @@ def test_sha256_c_equals_plain_version_and_hashlib(on_cpu, cap, M):
             assert bytes(got[b].tolist()) == hashlib.sha256(bytes(msg[b].tolist())).digest()
     _check_panel("sha256", 3, 5, M, M)
     _check_panel("sha256", 1, 33, M, M + 1)
+
+
+@pytest.mark.parametrize("cap", CAPS, ids=("tables_whole", "tables_staged"))
+@pytest.mark.parametrize("M", BLAKE2S_LENGTHS)
+def test_blake2s_c_equals_plain_version_hashlib_and_to_field(on_cpu, cap, M):
+    """The matrix form (Schnorr's challenge), the panel form, and the
+    panel's hash-to-field mode in BN254 and BLS12-381 (the digest read
+    big-endian, less 4p / 2p / p where each fits)."""
+    on_cpu(cap)
+    for B in (1, 31, 33):
+        msg = _messages(B, M, M + B)
+        got = gadgets._digest_on_card("blake2s", msg)
+        assert torch.equal(got, gadgets.blake2s_digest_plain(msg)), B
+        for b in (0, B - 1):
+            assert bytes(got[b].tolist()) == hashlib.blake2s(bytes(msg[b].tolist())).digest()
+    _check_panel("blake2s", 3, 5, M, M)
+    _check_panel("blake2s", 1, 33, M, M + 1)
+    W, (rows, limbs, shifts), _, _ = _panel_case("hash_to_field", 2, 33, M, M + 2)
+    for modulus in (BN254_FR.modulus, BLS12_381_FR.modulus):
+        got, _, out_idx = _check_panel("hash_to_field", 2, 33, M, M + 2, modulus)
+        for g, b in ((0, 0), (1, 32)):  # hashlib's digest, big-endian, mod p
+            msg = bytes(int(W[rows[g, j], b, limbs[g, j]]) >> int(shifts[g, j]) & 0xFF for j in range(M))
+            want = int.from_bytes(hashlib.blake2s(msg).digest(), "big") % modulus
+            assert fk.limbs32_to_ints(got[int(out_idx[g, 0]), b].numpy()) == [want], (g, b)
 
 
 @pytest.mark.parametrize("cap", CAPS, ids=("tables_whole", "tables_staged"))
@@ -210,7 +264,7 @@ def test_stage_shared_bytes_stay_under_the_static_limit(cpu_builds):
     takes without an opt-in; one stage of the ring where the message fits
     one compression block, two past it; the tables whole up to 1,024 bytes
     and two compression blocks' entries past it."""
-    for name, block in (("sha256", 64), ("keccak", 136)):
+    for name, block in (("sha256", 64), ("blake2s", 64), ("keccak", 136)):
         shared_bytes = getattr(cpu_builds[1][name], f"acvm_{name}_shared_bytes")
         for M in (32, 64, 65, 136, 137, 232, 1024, 1025, 5000):
             stages = 1 if M <= block else 2
