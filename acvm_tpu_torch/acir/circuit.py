@@ -3,7 +3,7 @@
 Mirrors ``acir/src/circuit/mod.rs``: ``Circuit`` holds the opcode list, the
 highest witness index, public/private parameter index sets, and assert messages
 keyed by opcode location.  ``write``/``read`` use the reference wire format —
-bincode then gzip (the codec is not part of this package yet).
+bincode then gzip (see `acvm_tpu_torch.acir.serialization`).
 """
 
 from __future__ import annotations
@@ -93,14 +93,15 @@ class Circuit:
                 return message
         return None
 
-    # Wire format (bincode + gzip): the codec is not part of this package yet.
+    # Wire format (bincode + gzip) — implemented in serialization.py to keep the
+    # codec in one place; re-exported here for API parity with the reference.
     def write(self) -> bytes:
-        raise NotImplementedError(
-            "acir serialization is not ported: Circuit.write needs it"
-        )
+        from .serialization import serialize_circuit
+
+        return serialize_circuit(self)
 
     @classmethod
     def read(cls, data: bytes) -> "Circuit":
-        raise NotImplementedError(
-            "acir serialization is not ported: Circuit.read needs it"
-        )
+        from .serialization import deserialize_circuit
+
+        return deserialize_circuit(data)

@@ -49,8 +49,12 @@ together: the bytes read off the panel, the scalars and the key's checks in
 the wide field ops of :mod:`acvm_tpu_torch.gpu.ecdsa`, R = u1 G + u2 Q as one
 ``ecdsa_mul`` launch, the valid bit written back.
 
-Every scaling option not listed in :meth:`BatchSolver.solve` raises
-``NotImplementedError`` naming what is missing, at construction.
+A batch whose state does not fit one pass (``BatchSolver.max_batch_per_pass``)
+is streamed: passes of that many instances, one panel on the device at a
+time, the next pass's inputs packed on a host thread and uploaded on a
+second stream while the current pass solves (``BatchSolver.solve``,
+``BatchSolver.solve_chunks``).  Sharding the batch over a mesh raises
+``NotImplementedError``, at construction.
 """
 
 from __future__ import annotations
@@ -87,10 +91,11 @@ from ..pwg import blackbox as bb_dispatch
 from ..pwg.brillig_solver import BrilligSolver
 from ..pwg.directives import solve_directives
 from ..pwg.errors import OpcodeResolutionError
+from ..utils.logging import get_logger
 from ..utils.profiling import SolveStats, Timer
 from . import ec, ecdsa, gadgets, host_batch, intops
 from .brillig_trace import BrilligTraceError, resolve_brillig, trace_brillig
-from .brillig_vm_device import run_brillig_vm_batch
+from .brillig_vm_device import program_for, run_brillig_vm_batch
 from .fused_level import fused_level_call, pack_level_desc
 from .planner import ExprPlan, HostStage, Level, MemoryInitStage, Plan
 
@@ -111,6 +116,41 @@ FAIL_NONE = np.int32(2**31 - 1)
 # (`chip_smoke.py`, `ms_by_chunk`): g = 32 0.60 ms, 64 0.43, 128 0.45, 256
 # 0.60.  Any chunking gives the same bits.
 _DYN_INV_CHUNK = 64
+
+# What one step of a solve (the inputs' upload, a device level, or a
+# segment's host stages) allocates beside the state, in rows of one
+# instance's limbs (32 bytes an instance), for each unit of its work
+# (:meth:`BatchSolver.step_units`): an input witness (uploaded, then
+# transposed), a gate, a digit of a ToLeRadix, an input of a Pedersen hash, a
+# memory opcode, an entry of the largest memory block a level initializes,
+# a traced Brillig block and a binary op of its bytecode (the trace's int
+# ops over 16-bit halves in int64), a column a host stage reads or writes
+# or a row of a device VM block's registers and memory.  Each is the most a
+# unit took in any step of the paths of ``chip_smoke.py --step-peaks`` on
+# an H100 80GB HBM3 (700 W), rounded up: a static level 0 (the fused kernel
+# writes the panel in place), a dyn gate 6.08-6.11 (batch_inv's prefixes),
+# a Quotient 6.03, an AND/XOR 4.0, an ECDSA gadget 80-83, a fixed-base or
+# Schnorr gadget at 64-128 instances, where its tables' fixed bytes count
+# per instance.  STEP_BASE_ROWS covers a step's few flags and index
+# tensors.
+TEMP_ROWS_PER_UNIT = {
+    "inputs": 2.0, "arith_static": 0.0, "arith_dyn": 6.25, "arith_check": 4.0, "range": 2.25,
+    "logic": 4.0, "quotient": 6.25, "to_le_radix": 3.25, "hashes": 2.0,
+    "ec_fixed_base": 360.0, "ec_pedersen": 180.0, "schnorr": 1100.0, "ecdsa": 84.0,
+    "memory": 5.5, "memory_init": 1.0, "brillig": 1.0, "brillig_ops": 10.0, "host": 1.25,
+}
+STEP_BASE_ROWS = 16.0
+
+# One pass's peak device allocation over :meth:`BatchSolver.pass_bytes`:
+# the default pass is the largest batch whose ``pass_bytes`` times this fits
+# the memory free for the solve; ``chip_smoke.py`` fails if a path's first
+# solve peaks past this (``pass_peaks``; the readings are in PERF.md).
+PASS_PEAK_OVER_ESTIMATE = 1.1
+
+# The packed host arrays of a pass (:meth:`BatchSolver._pack_host`) that a
+# streamed solve copies to the card ahead of the pass: the values and the
+# indices they are scattered to.  Their size is the inputs', never a panel's.
+_UPLOADED = ("vals", "narrow", "cols", "at")
 
 
 def note_failures(fail: torch.Tensor, bad: torch.Tensor, op_idx: torch.Tensor) -> torch.Tensor:
@@ -549,6 +589,53 @@ def run_brillig(ctx, W, ok, buf, dot_kernel="v2"):
 class _Segment:
     levels: List[dict]  # packed device buffers per level
     host_stages: List[HostStage]  # run after the device levels
+    # Work of each device level, then of the host stages (step_units).
+    units: List[Counter]
+
+
+def level_units(level: Level) -> Counter:
+    """A device level's work by kind, in the units of :data:`TEMP_ROWS_PER_UNIT`."""
+    static = sum(g.neg_inv_den_r is not None for g in level.arith_solve)
+    return +Counter({
+        "arith_static": static,
+        "arith_dyn": len(level.arith_solve) - static,
+        "arith_check": len(level.arith_check),
+        "range": len(level.range_checks),
+        "logic": len(level.logic),
+        "quotient": len(level.quotient),
+        "to_le_radix": sum(len(g.outputs) for g in level.to_le_radix),
+        "hashes": len(level.hashes),
+        "ec_fixed_base": len(level.ec_fixed_base),
+        "ec_pedersen": sum(len(g.inputs) for g in level.ec_pedersen),
+        "schnorr": len(level.schnorr),
+        "ecdsa": len(level.ecdsa),
+        "memory": sum(not isinstance(m, MemoryInitStage) for m in level.memory),
+        "memory_init": max((len(m.init) for m in level.memory if isinstance(m, MemoryInitStage)),
+                           default=0),
+        "brillig": len(level.brillig),
+        "brillig_ops": sum(isinstance(op, (br.OpBinaryIntOp, br.OpBinaryFieldOp))
+                           for st in level.brillig for op in st.bytecode),
+    })
+
+
+def host_units(stages: List[HostStage], circuit, p: int) -> Counter:
+    """A segment's host stages' work: the columns they read and write (one
+    gather, one scatter) and the largest device VM block's registers and
+    memory, as :func:`.brillig_vm_device.initial_state` sizes them."""
+    reads, writes, vm_rows = set(), set(), 0
+    for stage in stages:
+        reads.update(stage.reads if stage.reads else stage.known_before)
+        writes.update(stage.writes)
+        for i in stage.opcode_indices:
+            opcode = circuit.opcodes[i]
+            if isinstance(opcode, ops.OpcodeBrillig) and host_batch.device_vm_eligible(opcode.brillig):
+                brillig = opcode.brillig
+                words = sum(len(x.exprs) for x in brillig.inputs
+                            if isinstance(x, ops.BrilligInputArray))
+                regs = max(program_for(brillig, p).max_reg + 1, len(brillig.inputs),
+                           len(brillig.outputs), 1)
+                vm_rows = max(vm_rows, regs + max(32, 2 * words + 32))
+    return Counter({"host": len(reads) + len(writes) + vm_rows})
 
 
 class BatchSolver:
@@ -574,7 +661,13 @@ class BatchSolver:
     PermutationSort in :mod:`.host_batch`; a branchy Brillig block on the
     device Brillig VM); ``False`` runs every host stage instance by instance
     through the sequential solvers: the same bits, slower (the JAX package's
-    ``ACVM_TPU_NO_HOST_BATCH``)."""
+    ``ACVM_TPU_NO_HOST_BATCH``).
+
+    ``max_batch_per_pass`` fixes the instances of one pass, and
+    ``pass_budget_bytes`` the device bytes a pass may take (the JAX package's
+    ``ACVM_TPU_MAX_BATCH_PER_PASS`` and ``ACVM_TPU_HBM_BUDGET_GB``); by
+    default a CUDA solver sizes a pass by the device memory free when it
+    solves, and a CPU solver runs every batch in one pass."""
 
     def __init__(
         self,
@@ -586,6 +679,8 @@ class BatchSolver:
         dot_kernel: str = "v2",
         group_stages: bool = True,
         host_batch: bool = True,
+        max_batch_per_pass: Optional[int] = None,
+        pass_budget_bytes: Optional[int] = None,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -605,6 +700,10 @@ class BatchSolver:
         self.dot_kernel = dot_kernel
         self.group_stages = group_stages
         self.host_batch = host_batch
+        if max_batch_per_pass is not None and max_batch_per_pass < 1:
+            raise ValueError("BatchSolver: max_batch_per_pass must be at least 1")
+        self._pass_limit = max_batch_per_pass
+        self.pass_budget_bytes = pass_budget_bytes
         self.ctx = LimbContext(plan.params, self.device)  # raises without a card
         # (domain, index) -> the Pedersen generator each device table was
         # built from, and whether a Schnorr gate was packed: solve() checks
@@ -619,6 +718,14 @@ class BatchSolver:
             self.memory_slots[block_id] = (size, self._memory_counts[size])
             self._memory_counts[size] += 1
         self.segments = self._build_segments()
+        self._log = get_logger("batch_solver")
+        self._log.info(
+            "plan: %d opcodes, %d witnesses, %d levels in %d segments "
+            "(%d host stages), device %s",
+            len(plan.circuit.opcodes), plan.num_witnesses, len(plan.levels),
+            len(self.segments), sum(len(s.host_stages) for s in self.segments),
+            self.device,
+        )
 
     # -- packing ------------------------------------------------------------
     def _pack_level(self, level: Level) -> dict:
@@ -975,16 +1082,38 @@ class BatchSolver:
         program; eager PyTorch compiles nothing, so there is no such bound
         here.)"""
         segments: List[_Segment] = []
-        current = _Segment(levels=[], host_stages=[])
+        current = _Segment(levels=[], host_stages=[], units=[])
         for level in self.plan.levels:
             current.levels.append(self._pack_level(level))
+            current.units.append(level_units(level))
             if level.host:
                 current.host_stages = list(level.host)
+                current.units.append(host_units(current.host_stages, self.plan.circuit,
+                                                self.plan.params.modulus))
                 segments.append(current)
-                current = _Segment(levels=[], host_stages=[])
+                current = _Segment(levels=[], host_stages=[], units=[])
         if current.levels:
             segments.append(current)
         return segments
+
+    def step_units(self) -> List[Counter]:
+        """The work of each step of a solve, in the order it runs them: the
+        inputs' upload (:meth:`initial_state`), then each segment's device
+        levels and its host stages (:meth:`run_segments`)."""
+        return [Counter({"inputs": len(self.plan.input_witnesses)})] + [
+            u for segment in self.segments for u in segment.units]
+
+    def temp_rows(self) -> float:
+        """Rows of one instance's limbs (32 bytes an instance) that the
+        largest step of a solve allocates beside the state
+        (:data:`TEMP_ROWS_PER_UNIT`, :data:`STEP_BASE_ROWS`)."""
+        return STEP_BASE_ROWS + max(sum(TEMP_ROWS_PER_UNIT[k] * n for k, n in u.items())
+                                    for u in self.step_units())
+
+    def pass_bytes(self, B: int) -> int:
+        """Device bytes of a pass of B instances at its peak: the state
+        (:meth:`panel_bytes`) and the largest step's temporaries."""
+        return self.panel_bytes(B) + int(self.temp_rows() * B * LIMBS * 4)
 
     # -- device execution ---------------------------------------------------
     def _run_level(self, W, ok, fail, mem, packed):
@@ -1306,12 +1435,17 @@ class BatchSolver:
                 int(d[k]) % p for d in input_values for k in keys0
             ).view(np.uint32).reshape(B, len(keys0), LIMBS)
             return B, dict(cols=cols, vals=vals)
-        # Non-uniform fallback: dense host panel.
-        W = np.zeros((self.plan.num_witnesses, B, LIMBS), dtype=np.uint32)
-        for b, assignment in enumerate(input_values):
-            for w, v in assignment.items():
-                W[int(w), b] = ints_to_limbs32([int(v) % p])[0].view(np.uint32)
-        return B, dict(W=W)
+        # Non-uniform dicts: each (witness, instance) pair given and its
+        # value, scattered into a zero panel on the device, so the upload is
+        # the inputs' size, not the panel's.
+        pairs = [(int(w), b, v) for b, d in enumerate(input_values) for w, v in d.items()]
+        at = np.asarray([(w, b) for w, b, _ in pairs], np.int64).reshape(len(pairs), 2)
+        if len(at) and not 0 <= at[:, 0].min() <= at[:, 0].max() < self.plan.num_witnesses:
+            raise IndexError(
+                f"input witness out of range: the circuit has {self.plan.num_witnesses} witnesses")
+        vals = ints_to_limbs32(int(v) % p for _, _, v in pairs).view(np.uint32).reshape(
+            len(pairs), LIMBS)
+        return B, dict(at=at, vals=vals)
 
     def panel_bytes(self, B: int) -> int:
         """Device bytes of a batch's state: the witness panel and the memory
@@ -1329,45 +1463,108 @@ class BatchSolver:
                 f"({self.device}), not {t.device}"
             )
 
-    def _finish_initial_state(self, B: int, W=None, cols=None, vals=None, narrow=None):
-        """Assemble the device state.  Sparse (cols, vals) input columns are
-        uploaded as they are and scattered into a zero panel ON DEVICE, so the
-        upload is the inputs' size, not the panel's; a narrow (B, K) matrix
+    def _finish_initial_state(self, B: int, cols=None, vals=None, narrow=None, at=None):
+        """Assemble the device state.  Input columns (cols, vals) and
+        per-pair values (at, vals: (witness, instance) rows) are uploaded as
+        they are and scattered into a zero panel ON DEVICE, so the upload is
+        the inputs' size, not the panel's; a narrow (B, K) matrix
         (uint8/uint16 values, numpy or on the device) is uploaded in its own
-        dtype and scattered into limb 0."""
+        dtype and scattered into limb 0.  Each array may already lie on the
+        device (:meth:`_upload`)."""
         dev = self.device
         nw = self.plan.num_witnesses
-        if dev.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(dev)
-            if self.panel_bytes(B) > free:
-                raise NotImplementedError(
-                    f"BatchSolver: a batch of {B} needs {self.panel_bytes(B)} bytes "
-                    f"of witness panel and memory blocks and {free} bytes of device "
-                    "memory are free; streaming a batch through several passes is "
-                    "not ported"
-                )
-        if W is not None:
-            Wd = torch.from_numpy(W.view(np.int32)).to(dev)
+        Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
+        if at is not None:
+            if len(at):
+                idx = self._to_device(at)
+                Wd[idx[:, 0], idx[:, 1]] = self._to_device(vals)
         elif narrow is not None:
-            Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
-            if cols.size:
-                if isinstance(narrow, np.ndarray):  # uploaded in its own dtype
-                    narrow = _widen_narrow(torch.from_numpy(np.ascontiguousarray(narrow)).to(dev))
-                v = narrow  # (B, K) int32
-                Wd[:, :, 0].index_copy_(0, torch.from_numpy(cols).to(dev), v.t())
-        else:
-            Wd = torch.zeros((nw, B, LIMBS), dtype=torch.int32, device=dev)
-            if cols is not None and cols.size:
-                v = torch.from_numpy(np.ascontiguousarray(vals).view(np.int32)).to(dev)
-                Wd.index_copy_(
-                    0, torch.from_numpy(cols).to(dev), v.permute(1, 0, 2).contiguous()
-                )
+            if len(cols):
+                v = _widen_narrow(self._to_device(narrow))  # (B, K) int32
+                Wd[:, :, 0].index_copy_(0, self._to_device(cols), v.t())
+        elif cols is not None and len(cols):
+            v = self._to_device(vals)
+            Wd.index_copy_(0, self._to_device(cols), v.permute(1, 0, 2).contiguous())
         ok = torch.ones((B,), dtype=torch.bool, device=dev)
         fail = torch.full((B,), int(FAIL_NONE), dtype=torch.int32, device=dev)
         # A block of size 0 keeps one row, so that its gathers have a target.
         mem = {size: torch.zeros((k, max(size, 1), B, LIMBS), dtype=torch.int32, device=dev)
                for size, k in self._memory_counts.items()}
         return Wd, ok, fail, mem
+
+    def _to_device(self, a) -> torch.Tensor:
+        """A packed host array (uint32 limbs are read as int32; uint8 and
+        uint16 keep their dtype) or a tensor, on the solver's device."""
+        if isinstance(a, np.ndarray):
+            a = np.ascontiguousarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            a = torch.from_numpy(a)
+        return a.to(self.device)
+
+    def _pack_pinned(self, input_values):
+        """:meth:`_pack_host`, its packed host arrays (values and the indices
+        they are scattered to) then copied into pinned host memory (on the prefetch thread, beside the pass being solved),
+        ready for :meth:`_upload`."""
+        B, kwargs = self._pack_host(input_values)
+        for key in _UPLOADED:
+            a = kwargs.get(key)
+            if isinstance(a, np.ndarray):
+                a = np.ascontiguousarray(a)
+                kwargs[key] = torch.from_numpy(
+                    a.view(np.int32) if a.dtype == np.uint32 else a).pin_memory()
+        return B, kwargs
+
+    def _upload(self, kwargs: dict, stream) -> dict:
+        """Start the upload of a pass's pinned host tensors
+        (:meth:`_pack_pinned`) on ``stream`` with ``non_blocking`` copies,
+        so that they ride beside the pass the default stream is solving.  The
+        caller makes its stream wait for ``stream`` before they are read."""
+        out = dict(kwargs)
+        for key in _UPLOADED:
+            host = out.get(key)
+            if not (isinstance(host, torch.Tensor) and host.is_pinned()):
+                continue
+            with torch.cuda.stream(stream):
+                d = host.to(self.device, non_blocking=True)
+            # Read on the default stream: the allocator must not hand its
+            # block to the copy stream again before those reads are done.
+            d.record_stream(torch.cuda.current_stream(self.device))
+            out[key] = d
+        return out
+
+    def _free_device_bytes(self) -> int:
+        """Device bytes a new allocation can take: the memory CUDA reports free
+        and what the caching allocator holds unused."""
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+
+    def max_batch_per_pass(self) -> Optional[int]:
+        """The most instances one pass solves (None: no limit).  The
+        constructor's ``max_batch_per_pass`` when given; else the largest
+        batch whose ``pass_bytes`` times :data:`PASS_PEAK_OVER_ESTIMATE` fits
+        ``pass_budget_bytes``, or on a CUDA device the memory free for the
+        solve, rounded down to a multiple of 1,024 from 2,048 on.  A larger
+        batch is streamed through passes of this size (:meth:`solve`)."""
+        if self._pass_limit is not None:
+            return self._pass_limit
+        budget = self.pass_budget_bytes
+        if budget is None:
+            if self.device.type != "cuda":
+                return None
+            budget = self._free_device_bytes()
+        limit = int(budget / (PASS_PEAK_OVER_ESTIMATE * max(1, self.pass_bytes(1))))
+        if limit >= 2048:
+            limit -= limit % 1024
+        return max(1, limit)
+
+    @staticmethod
+    def _slice_inputs(input_values, lo: int, hi: int):
+        if isinstance(input_values, tuple) and len(input_values) == 2:
+            return (input_values[0], input_values[1][lo:hi])
+        if isinstance(input_values, dict):
+            return {w: a[lo:hi] for w, a in input_values.items()}
+        return input_values[lo:hi]
 
     @staticmethod
     def _batch_len(input_values) -> int:
@@ -1379,6 +1576,19 @@ class BatchSolver:
             return len(next(iter(input_values.values())))
         return len(input_values)
 
+    def solve_chunks(self, input_values, chunk: Optional[int] = None,
+                     stats: Optional[SolveStats] = None):
+        """Solve a batch pass by pass, yielding one :class:`BatchResult` a
+        pass of ``chunk`` instances (default :meth:`max_batch_per_pass`),
+        each with its panel.  A caller that reads each result's panel before
+        taking the next keeps one pass's panel on the device; instances are
+        independent, so the passes give the bits of one pass."""
+        B = self._batch_len(input_values)
+        chunk = chunk or self.max_batch_per_pass() or max(B, 1)
+        for lo in range(0, B, chunk):
+            yield self.solve(self._slice_inputs(input_values, lo, min(lo + chunk, B)),
+                             stats=stats)
+
     def solve(self, input_values, stats: Optional[SolveStats] = None):
         """Solve a batch.  ``input_values`` is one of:
 
@@ -1389,15 +1599,23 @@ class BatchSolver:
         * the packed-matrix form ``(witness_indices, (B, K) uint8/uint16
           matrix)``, a numpy array or a tensor on the solver's device.
 
-        The whole batch is one pass: its witness panel must fit device
-        memory.  With ``stats`` (a :class:`SolveStats`) the solve records its
-        packing, each segment's device time and each segment's host stages.
-        Raises ``RuntimeError`` if the Pedersen generators or the Schnorr hook
-        changed since construction."""
+        A batch larger than :meth:`max_batch_per_pass` is streamed through
+        passes of that size; the result then carries every instance's ok /
+        fail and no panel (:meth:`solve_chunks` yields each pass's panel).
+        With ``stats`` (a :class:`SolveStats`) the solve records its passes,
+        their packing, each segment's device time and each segment's host
+        stages.  Raises ``RuntimeError`` if the Pedersen generators or the
+        Schnorr hook changed since construction."""
         self._check_generators()
+        B = self._batch_len(input_values)
         if stats is not None:
-            stats.batch = self._batch_len(input_values)
+            stats.batch = B
             stats.total_ops = self.plan.total_ops()
+        limit = self.max_batch_per_pass()
+        if limit is not None and B > limit:
+            return self._solve_streamed(input_values, B, limit, stats)
+        if stats is not None:
+            stats.passes += 1
         with Timer() as t_pack:
             state = self.initial_state(input_values)
             if stats is not None:
@@ -1409,6 +1627,73 @@ class BatchSolver:
         # synced (and errors surface here); the big W panel stays on device
         # until a caller actually reads witnesses (lazy BatchResult.W).
         return BatchResult(self, W, ok.cpu().numpy(), fail.cpu().numpy(), mem)
+
+    def _solve_streamed(self, input_values, B: int, limit: int,
+                        stats: Optional[SolveStats]):
+        """A batch of more than one pass, as the JAX package streams it:
+        pass k + 1's host packing (into pinned memory on a card) runs on a
+        prefetch thread while pass k solves, its upload of the packed inputs
+        on a second stream once pass k's levels are queued, and pass k's ok /
+        fail are read only after pass k + 1's device work is queued behind
+        it, so the device does not wait for the host between passes.  One
+        panel is live at a time: a pass's state is dropped before the next
+        pass allocates its own, which the allocator then builds in the same
+        memory, in stream order; the uploads are the inputs' size, whatever
+        their form."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        bounds = [(lo, min(lo + limit, B)) for lo in range(0, B, limit)]
+        n = len(bounds)
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        oks, fails = [], []
+        inflight = None  # (ok, fail) of the pass on the device
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            packs = {}
+
+            def prefetch(k: int) -> None:
+                if k < n and k not in packs:
+                    packs[k] = pool.submit(
+                        self._pack_pinned if cuda else self._pack_host,
+                        self._slice_inputs(input_values, *bounds[k]))
+
+            def stage(k: int):
+                """Wait for pass k's packing, start pass k + 1's, and start
+                pass k's upload."""
+                Bk, kwargs = packs.pop(k).result()
+                prefetch(k + 1)
+                if cuda:
+                    kwargs = self._upload(kwargs, copy_stream)
+                return Bk, kwargs
+
+            prefetch(0)
+            with Timer() as t_pack:
+                staged = stage(0)
+            if stats is not None:
+                stats.pack_seconds += t_pack.elapsed
+            for k in range(n):
+                Bk, kwargs = staged
+                if cuda:
+                    torch.cuda.current_stream(self.device).wait_stream(copy_stream)
+                state = self._finish_initial_state(Bk, **kwargs)
+                del staged, kwargs
+                W, ok, fail, mem = self.run_segments(state, stats)
+                del state, W, mem  # this pass's panel goes back to the allocator
+                if stats is not None:
+                    stats.passes += 1
+                if k + 1 < n:
+                    with Timer() as t_pack:
+                        staged = stage(k + 1)
+                    if stats is not None:
+                        stats.pack_seconds += t_pack.elapsed
+                if inflight is not None:
+                    oks.append(inflight[0].cpu().numpy())
+                    fails.append(inflight[1].cpu().numpy())
+                inflight = (ok, fail)
+                self._log.debug("pass %d of %d: instances %d-%d queued", k + 1, n, *bounds[k])
+            oks.append(inflight[0].cpu().numpy())
+            fails.append(inflight[1].cpu().numpy())
+        return BatchResult(self, None, np.concatenate(oks), np.concatenate(fails))
 
 
 class BatchResult:
@@ -1442,7 +1727,10 @@ class BatchResult:
     def panel(self) -> torch.Tensor:
         """The (num_witnesses, B, 8) int32 panel on the solver's device."""
         if self._W is None:
-            raise RuntimeError("witness panel released")
+            raise RuntimeError(
+                "witness panel not retained: released, or a streamed solve, which "
+                "keeps only ok / fail (solve_chunks yields each pass's panel)"
+            )
         return self._W
 
     @property
@@ -1450,9 +1738,7 @@ class BatchResult:
         """Host copy in the batch-major (B, num_witnesses, 16) uint32 layout
         of 16-bit limbs — the layout the JAX package's result exposes."""
         if self._W_host is None:
-            if self._W is None:
-                raise RuntimeError("witness panel released")
-            rows = limbs32_to_limbs16(self._W.cpu().numpy())  # (NW, B, 16)
+            rows = limbs32_to_limbs16(self.panel.cpu().numpy())  # (NW, B, 16)
             self._W_host = np.ascontiguousarray(rows.transpose(1, 0, 2))
         return self._W_host
 
@@ -1486,22 +1772,16 @@ class BatchResult:
 
     def witness_ints(self, witness_index: int) -> List[int]:
         # Read ONE witness row off the device instead of the whole panel.
-        if self._W is None:
-            raise RuntimeError("witness panel released")
-        return limbs32_to_ints(self._W[witness_index].cpu().numpy())  # (B, 8) row
+        return limbs32_to_ints(self.panel[witness_index].cpu().numpy())  # (B, 8) row
 
     def instance_ints(self, instance: int) -> List[int]:
         """Every witness of ONE instance as Python ints (one strided column
         read off the device, not the whole panel)."""
-        if self._W is None:
-            raise RuntimeError("witness panel released")
-        return limbs32_to_ints(self._W[:, instance].cpu().numpy())  # (NW, 8) column
+        return limbs32_to_ints(self.panel[:, instance].cpu().numpy())  # (NW, 8) column
 
     def witness_maps(self) -> List[WitnessMap]:
         """Full per-instance witness maps (for conformance checks)."""
-        if self._W is None:
-            raise RuntimeError("witness panel released")
-        NW, B, _ = self._W.shape
+        NW, B, _ = self.panel.shape
         ints = limbs32_to_ints(self._W.cpu().numpy())  # flat, witness-major
         out = []
         for b in range(B):

@@ -131,19 +131,56 @@ def shr_dynamic(a: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 PLAIN_ON_CARD = {"long_divmod": 0}
 
 
+# Divisors below 2^SHORT_DIVISOR_BITS divide by short division over 16-bit
+# half-limbs in int64: the running remainder r < b, so (r << 16) | half
+# stays below 2^63.
+SHORT_DIVISOR_BITS = 47
+
+
+def _short_divmod_plain(ha: torch.Tensor, hb: torch.Tensor, b_zero: torch.Tensor):
+    """(q, r) of half-limb integers whose divisors lie below
+    2^SHORT_DIVISOR_BITS, one int64 division a half-limb from the top."""
+    d = hb[..., 0] | (hb[..., 1] << BITS) | (hb[..., 2] << (2 * BITS))
+    d = torch.where(b_zero, torch.ones_like(d), d)
+    q = torch.zeros_like(ha)
+    r = torch.zeros_like(d)
+    for j in range(HALF - 1, -1, -1):
+        cur = (r << BITS) | ha[..., j]
+        q[..., j] = cur // d
+        r = cur - q[..., j] * d
+    hr = torch.zeros_like(ha)
+    for j in range(3):
+        hr[..., j] = (r >> (BITS * j)) & M16
+    return join_half(q), join_half(hr)
+
+
 def long_divmod_plain(a: torch.Tensor, b: torch.Tensor, num_bits: int = 256):
-    """Plain version of :func:`long_divmod`: bit-serial restoring division,
-    one step of tensor ops for each of the ``num_bits`` bits of a, from the
-    top.  Doubling the remainder never leaves 256 bits: before the last step
-    it is at most a >> 1."""
+    """Plain version of :func:`long_divmod`.  Where every divisor lies below
+    2^SHORT_DIVISOR_BITS (a Quotient by 2^32, say), short division: 16 steps
+    of int64 tensor ops.  Else bit-serial restoring division, one step of
+    tensor ops for each of the ``num_bits`` bits of a, from the top.
+    Doubling the remainder never leaves 256 bits: before the last step it is
+    at most a >> 1.  The steps above the highest bit set in any element of a
+    are skipped: there the remainder stays 0 and no quotient bit is set."""
     a, b = torch.broadcast_tensors(a, b)
     if a.is_cuda:
         PLAIN_ON_CARD["long_divmod"] += 1
+    if num_bits < 256:
+        a = mask_to_bits(a, num_bits)
     ha = split_half(a)
     b_zero = is_zero(b)
+    hb = split_half(b)
+    if (hb[..., 3:] == 0).all() and (hb[..., 2] >> (SHORT_DIVISOR_BITS - 2 * BITS) == 0).all():
+        q, r = _short_divmod_plain(ha, hb, b_zero)
+        zero = torch.zeros_like(r)
+        return torch.where(b_zero[..., None], zero, q), torch.where(b_zero[..., None], zero, r)
     q = torch.zeros_like(ha)
     r = torch.zeros_like(a)
-    for k in range(num_bits - 1, -1, -1):
+    # Each half-limb's largest value over the elements has the bit length of
+    # their OR.
+    tops = ha.reshape(-1, HALF).amax(0).tolist() if ha.numel() else [0]
+    high = max((BITS * j + int(v).bit_length() for j, v in enumerate(tops) if v), default=0)
+    for k in range(high - 1, -1, -1):
         limb, bit_off = divmod(k, BITS)
         a_bit = (ha[..., limb] >> bit_off) & 1
         hr = _shl_half(split_half(r), 1)

@@ -19,6 +19,12 @@
                                      # FOLD_LANES, and inv_wide beside
                                      # batch_inv_wide folded at 2^13-2^20
                                      # (FOLD_FROM_WIDE)
+    python3 chip_smoke.py --step-peaks[=FILE]  # also each path's first
+                                     # solve step by step: each step's peak
+                                     # allocation against its work
+                                     # (BatchSolver.step_units), the
+                                     # measurement behind TEMP_ROWS_PER_UNIT
+                                     # (every step to FILE as JSON)
     python3 chip_smoke.py --vm-variants [--parent=DIR]  # also brillig_vm
                                      # built with and without regrouping
                                      # (VM_REGROUP), its state on chip as
@@ -182,6 +188,29 @@ build, a failed launch or a failed comparison raises and the exit code is not
                runs), the longest warp's chain of products and its floor,
                shared memory and blocks an SM, and its time and bound at
                32,768 lanes;
+16b. ``path_api``  the product surface: (a) the JAX package's north-star
+               shape (``bench.py:326-354``: the 2^16-gate circuit x 10,240
+               instances) serialized, written, read back with
+               ``Circuit.read`` and solved by ``api.execute_circuit_batched``
+               under ``EngineConfig()`` in five passes of 2,048 and in one
+               pass: the same flags, ``solve_chunks``' chunks 0 and 4 equal
+               to the one-pass panel's columns, ``b10k_solves_per_sec``
+               (gates x instances / wall of one ``solve()``, packing
+               included) with the ``SolveStats`` split over the passes and
+               the device's busy share; (b) the same circuit compiled to
+               width 3 (``EngineConfig().compile``), serialized, read and
+               solved at 10,240 in one pass: three instances' original
+               witnesses against the evaluator and (a), the level kernel's
+               instantiation on each compiled level and its time on the
+               widest; (c) the CLI's ``solve`` (4,096 instances, all
+               satisfied), ``execute``, ``info`` and ``compile`` on the
+               acvm_js addition fixture; (d) the compiled BLAKE2s and
+               Keccak-256 fallbacks (the hash black boxes refused) over
+               4,096 random 32-byte messages: every digest against hashlib /
+               the host Keccak; each drive's launches; and every path's
+               first solve's peak device allocation over its state and over
+               the solver's estimate of a pass (``pass_peaks``: it fails if
+               a peak passes ``PASS_PEAK_OVER_ESTIMATE`` x ``pass_bytes``);
 17. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
@@ -233,6 +262,95 @@ MADDS_PER_MONT_MUL = 136  # 8x8 a*b + 8x8 m*p + 8 m = t0*n0
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# Each path's first solve: its peak device allocation over one pass's state
+# and over the solver's estimate of a pass (``BatchSolver.pass_bytes``); with
+# --step-peaks, each step of that solve alone (``STEP_PEAKS``).
+PASS_PEAKS: dict = {}
+STEP_PEAKS: dict = {}
+
+
+def peak_of(fn):
+    """(fn(), the device's peak allocation during it over the bytes it
+    started with)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def pass_peak(label, fn, instances, solver=None, inputs=None):
+    """fn() with its peak allocation over the state of one pass of
+    ``instances`` (``panel_bytes``) and over the solver's estimate of the
+    pass (``pass_bytes``) of ``solver`` (default the solver of fn's
+    result), kept in :data:`PASS_PEAKS`; with --step-peaks and ``inputs``,
+    the solve of ``inputs`` step by step (:func:`step_peaks`)."""
+    out, peak = peak_of(fn)
+    solver = solver or out.solver
+    panel, estimate = solver.panel_bytes(instances), solver.pass_bytes(instances)
+    PASS_PEAKS[label] = {"pass_instances": instances, "panel_bytes": panel, "peak_bytes": peak,
+                         "estimate_bytes": estimate, "peak_over_panel": peak / panel,
+                         "peak_over_estimate": peak / estimate,
+                         "panel_rows": panel // (32 * instances),
+                         "temp_rows_estimate": solver.temp_rows(),
+                         "peak_rows": peak / (32 * instances)}
+    if inputs is not None and any(a.startswith("--step-peaks") for a in sys.argv):
+        from acvm_tpu_torch import build
+
+        counts = dict(build.LAUNCHES)  # the path's own launches, not these
+        STEP_PEAKS[label] = step_peaks(solver, inputs)
+        build.LAUNCHES.update(counts)
+    return out
+
+
+def step_peaks(solver, inputs):
+    """One solve of ``inputs`` run step by step, as ``solve`` runs it (the
+    inputs' upload, then each segment's device levels and its host stages):
+    each step's work (``BatchSolver.step_units``) and its peak allocation
+    beyond the bytes it started with and the state it made, in rows of 32
+    bytes an instance."""
+    B = solver._batch_len(inputs)
+    units = iter(solver.step_units())
+    (W, ok, fail, mem), peak = peak_of(lambda: solver.initial_state(inputs))
+    state = solver.panel_bytes(B) + ok.numel() * ok.element_size() + fail.numel() * fail.element_size()
+    steps = [{"units": dict(next(units)), "rows": (peak - state) / (32 * B)}]
+    for segment in solver.segments:
+        for packed in segment.levels:
+            (W, ok, fail), peak = peak_of(lambda: solver._run_level(W, ok, fail, mem, packed))
+            steps.append({"units": dict(next(units)), "rows": peak / (32 * B)})
+        if segment.host_stages:
+            (W, ok, fail), peak = peak_of(
+                lambda: solver._run_host_stages(W, ok, fail, segment.host_stages))
+            steps.append({"units": dict(next(units)), "rows": peak / (32 * B)})
+    return steps
+
+
+def step_peak_summary(steps_by_label):
+    """Over every path's steps: for each kind, the most rows a unit took in
+    a step of that kind alone; and the steps whose rows pass the solver's
+    estimate (``TEMP_ROWS_PER_UNIT``)."""
+    from acvm_tpu_torch.gpu.batch_solver import STEP_BASE_ROWS, TEMP_ROWS_PER_UNIT
+
+    per_unit, over = {}, []
+    for label, steps in steps_by_label.items():
+        for i, step in enumerate(steps):
+            units = step["units"]
+            if len(units) == 1:
+                (kind, n), = units.items()
+                best = per_unit.get(kind, {"rows_per_unit": -1.0})
+                if step["rows"] / n > best["rows_per_unit"]:
+                    per_unit[kind] = {"rows_per_unit": step["rows"] / n, "path": label,
+                                      "step": i, "units": n}
+            model = STEP_BASE_ROWS + sum(TEMP_ROWS_PER_UNIT[k] * n for k, n in units.items())
+            if step["rows"] > model:
+                over.append({"path": label, "step": i, "units": units, "rows": step["rows"],
+                             "estimate": model})
+    return {"rows_per_unit_alone": per_unit, "steps_over_estimate": over}
 
 
 def brillig_int_op(op, a, b, bits, p):
@@ -1224,7 +1342,7 @@ def main() -> int:
     plan_seconds = time.perf_counter() - t0
     inputs = random_inputs(circuit, batch)
     build.reset_launches()
-    res = solver.solve(inputs)
+    res = pass_peak("static", lambda: solver.solve(inputs), batch, inputs=inputs)
     torch.cuda.synchronize()
     static_launches = dict(build.LAUNCHES)
     assert res.ok.all() and (res.fail == FAIL_NONE).all()
@@ -1324,7 +1442,7 @@ def main() -> int:
     solver = BatchSolver(plan_circuit(circuit))
     inputs = random_inputs(circuit, batch)
     build.reset_launches()
-    res = solver.solve(inputs)
+    res = pass_peak("dyn", lambda: solver.solve(inputs), batch, inputs=inputs)
     torch.cuda.synchronize()
     dyn_launches = dict(build.LAUNCHES)
     assert res.ok.all() and (res.fail == FAIL_NONE).all()
@@ -1423,7 +1541,7 @@ def main() -> int:
         solver = BatchSolver(plan_circuit(circuit))
         plan_seconds = time.perf_counter() - t0
         build.reset_launches()
-        res = solver.solve(cols)
+        res = pass_peak(f"ec_{kind}", lambda: solver.solve(cols), B, inputs=cols)
         torch.cuda.synchronize()
         return circuit, cols, solver, res, dict(build.LAUNCHES), plan_seconds
 
@@ -1540,7 +1658,7 @@ def main() -> int:
     inputs[bad_b][bad_w] = (1 << 32) + 5
     build.reset_launches()
     intops.PLAIN_ON_CARD["long_divmod"] = 0
-    res = solver.solve(inputs)
+    res = pass_peak("int", lambda: solver.solve(inputs), int_B, inputs=inputs)
     torch.cuda.synchronize()
     int_launches = dict(build.LAUNCHES)
     plain_on_card = intops.PLAIN_ON_CARD["long_divmod"]
@@ -1676,7 +1794,7 @@ def main() -> int:
     cols = sha256_inputs(sha_B)
     build.reset_launches()
     intops.PLAIN_ON_CARD["long_divmod"] = 0
-    res = solver.solve(cols)
+    res = pass_peak("sha", lambda: solver.solve(cols), sha_B, inputs=cols)
     torch.cuda.synchronize()
     sha_launches = dict(build.LAUNCHES)
     plain_on_card = intops.PLAIN_ON_CARD["long_divmod"]
@@ -1803,7 +1921,7 @@ def main() -> int:
     plan_seconds = time.perf_counter() - t0
     cols, fail_op = array_inputs(circuit, mem_B, fail_instance=mem_bad)
     build.reset_launches()
-    res = solver.solve(cols)
+    res = pass_peak("mem", lambda: solver.solve(cols), mem_B, inputs=cols)
     torch.cuda.synchronize()
     mem_launches = dict(build.LAUNCHES)
     want_fail = [int(FAIL_NONE)] * mem_B
@@ -1878,7 +1996,7 @@ def main() -> int:
     build.reset_launches()
     stats = SolveStats()
     t0 = time.perf_counter()
-    res = solver.solve(cols, stats=stats)
+    res = pass_peak("host", lambda: solver.solve(cols, stats=stats), host_B, inputs=cols)
     first_solve_seconds = time.perf_counter() - t0
     host_launches = dict(build.LAUNCHES)
     for name in ("level", "dot"):
@@ -1978,7 +2096,7 @@ def main() -> int:
     build.reset_launches()
     stats = SolveStats()
     t0 = time.perf_counter()
-    res = solver.solve(cols, stats=stats)
+    res = pass_peak("vm", lambda: solver.solve(cols, stats=stats), vm_B, inputs=cols)
     first_solve_seconds = time.perf_counter() - t0
     vm_launches = dict(build.LAUNCHES)
     assert vm_launches["brillig_vm"] == 3 and stats.host_per_instance_stages == 0, (
@@ -2404,7 +2522,8 @@ def main() -> int:
         plan_seconds = time.perf_counter() - t0
         build.reset_launches()
         reset_plain_digests()
-        res = solver.solve((witnesses, matrix))
+        res = pass_peak(f"hash_{kind}", lambda: solver.solve((witnesses, matrix)), hash_B,
+                        inputs=(witnesses, matrix))
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
         assert res.ok.all() and (res.fail == FAIL_NONE).all(), kind
@@ -2459,7 +2578,7 @@ def main() -> int:
     plan_seconds = time.perf_counter() - t0
     build.reset_launches()
     reset_plain_digests()
-    res = solver.solve(cols)
+    res = pass_peak("membership", lambda: solver.solve(cols), memb_B, inputs=cols)
     torch.cuda.synchronize()
     memb_launches = dict(build.LAUNCHES)
     for name, n in memb_launches.items():
@@ -2806,7 +2925,7 @@ def main() -> int:
         gpu_ecdsa.ecdsa_mul = recording_ecdsa_mul
         build.reset_launches()
         try:
-            res = solver.solve(cols)
+            res = pass_peak(label, lambda: solver.solve(cols), B_run, inputs=cols)
             torch.cuda.synchronize()
         finally:
             gpu_ecdsa.ecdsa_mul = real_ecdsa_mul
@@ -3278,11 +3397,252 @@ def main() -> int:
         del a, b, inv_in, ex, P_pts, Q_pts, k_lad, cases, wa, wb, wide_inv_in, sch_panel, sch_k
         torch.cuda.empty_cache()
 
+    # -- 16b. path_api: the product surface -------------------------------------------
+    # The JAX package's north-star shape (bench.py:326-354, 10,240 instances of
+    # the 2^16-gate circuit) through the serialized circuit, EngineConfig and
+    # api.execute_circuit_batched: streamed in passes of 2,048 and in one pass;
+    # the same circuit compiled to width 3 (what nargo hands a PLONK backend);
+    # the CLI on the acvm_js addition fixture; the compiled BLAKE2s and
+    # Keccak-256 fallbacks.  Each drive's launches are counted from 0.
+    import contextlib
+    import io
+    import tempfile
+    from collections import Counter
+
+    from acvm_tpu_torch import api, cli
+    from acvm_tpu_torch.blackbox import hashes as host_hashes
+    from acvm_tpu_torch.acir import Circuit as AcirCircuit
+    from acvm_tpu_torch.acir.serialization import serialize_circuit
+    from acvm_tpu_torch.config import EngineConfig
+    from acvm_tpu_torch.gpu.batch_solver import PASS_PEAK_OVER_ESTIMATE
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from golden_vectors import ADDITION_CIRCUIT
+
+    torch.cuda.empty_cache()
+    api_launches, api_report = {}, {"card": smi}
+    api_t0 = time.perf_counter()
+
+    def counted(label, fn):
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        api_launches[label] = dict(build.LAUNCHES)
+        return out
+
+    def stdout_of(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="acvm_path_api_") as tmp:
+        tmp = Path(tmp)
+        # (a) b10k: serialize, write, read back; five passes of 2,048, then one.
+        b10k, b10k_pass = 10240, 2048
+        circuit = build_wide_arith_circuit()
+        gates = len(circuit.opcodes)
+        t0 = time.perf_counter()
+        data = serialize_circuit(circuit)
+        serialize_seconds = time.perf_counter() - t0
+        (tmp / "wide.acir.gz").write_bytes(data)
+        t0 = time.perf_counter()
+        circuit_read = AcirCircuit.read((tmp / "wide.acir.gz").read_bytes())
+        read_seconds = time.perf_counter() - t0
+        assert len(circuit_read.opcodes) == gates
+        assert circuit_read.current_witness_index == circuit.current_witness_index
+        inputs = random_inputs(circuit_read, b10k)
+        config = EngineConfig()
+        t0 = time.perf_counter()
+        streamed = counted("api_b10k", lambda: pass_peak("b10k_streamed_2048", lambda: api.execute_circuit_batched(
+            data, inputs, config, max_batch_per_pass=b10k_pass), b10k_pass))
+        api_streamed_seconds = time.perf_counter() - t0
+        assert streamed.ok.shape == (b10k,) and streamed.ok.all() and (streamed.fail == FAIL_NONE).all()
+        assert api_launches["api_b10k"]["level"] == 8 * b10k // b10k_pass, api_launches["api_b10k"]
+        one = pass_peak("b10k_one_pass", lambda: api.execute_circuit_batched(data, inputs, config), b10k)
+        assert one.solver.max_batch_per_pass() >= b10k and one.panel.shape[1] == b10k
+        assert np.array_equal(one.ok, streamed.ok) and np.array_equal(one.fail, streamed.fail)
+        # solve_chunks: chunks 0 and 4 equal the one-pass panel's columns.
+        plan = config.plan(circuit_read)
+        stream_solver = config.solver(plan, max_batch_per_pass=b10k_pass)
+        one_solver = config.solver(plan)
+        chunks_checked = []
+        for k, chunk in enumerate(stream_solver.solve_chunks(inputs)):
+            if k in (0, 4):
+                lo = k * b10k_pass
+                assert torch.equal(chunk.panel, one.panel[:, lo : lo + b10k_pass]), k
+                chunks_checked.append(k)
+            chunk.release()
+        assert chunks_checked == [0, 4]
+        keep = (0, 5000, b10k - 1)
+        b10k_values = {b: one.instance_ints(b) for b in keep}  # held to the evaluator in (b)
+        del one, chunk
+        torch.cuda.empty_cache()
+        # The rate as bench.py:326-354 defines it: gates x instances / wall of
+        # one solve() of the whole batch, packing included, planning not.
+        stream_solver.solve(inputs[:b10k_pass])  # warm-up
+        rate_streamed, secs_streamed = timed_rate(lambda: stream_solver.solve(inputs), gates * b10k, reps=2)
+        rate_one, secs_one = timed_rate(lambda: one_solver.solve(inputs).ok, gates * b10k, reps=2)
+        stats = SolveStats()
+        stream_solver.solve(inputs, stats=stats)
+        busy = profile(lambda: stream_solver.solve(inputs), secs_streamed)
+        api_report["b10k"] = {
+            "gates": gates, "instances": b10k, "serialized_bytes": len(data),
+            "serialize_seconds": serialize_seconds, "read_seconds": read_seconds,
+            "pass_instances": b10k_pass, "passes": stats.passes,
+            "default_pass_instances": one_solver.max_batch_per_pass(),
+            "flags_streamed_equal_one_pass": True, "chunk_panels_equal": chunks_checked,
+            "checked_instances": list(keep), "api_call_seconds_streamed": api_streamed_seconds,
+            "b10k_solves_per_sec": rate_streamed, "solve_seconds": secs_streamed,
+            "b10k_solves_per_sec_one_pass": rate_one, "solve_seconds_one_pass": secs_one,
+            "solve_stats_streamed": stats.summary(), "segment_seconds": stats.segment_seconds,
+            "device_busy_share_streamed": busy["device_busy_share"],
+            "device_busy_ms_streamed": busy["device_busy_ms"], "profile_streamed_top": busy["top"][:4],
+            "upload": "pinned host buffer, non_blocking copy on a second stream",
+            "panel_bytes_one_pass": one_solver.panel_bytes(b10k)}
+        del stream_solver, one_solver, plan, streamed
+        torch.cuda.empty_cache()
+
+        # (b) the nargo path: compiled to width 3, serialized, read, solved
+        # in one pass at the default pass size.
+        t0 = time.perf_counter()
+        compiled, _ = config.compile(circuit_read)
+        compile_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled_data = compiled.write()
+        compiled_serialize_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = AcirCircuit.read(compiled_data)
+        compiled_read_seconds = time.perf_counter() - t0
+        cres = counted("api_compiled", lambda: pass_peak(
+            "compiled_one_pass", lambda: api.execute_circuit_batched(compiled_data, inputs, config), b10k))
+        csolver = cres.solver
+        assert cres.ok.all() and (cres.fail == FAIL_NONE).all() and cres.panel.shape[1] == b10k
+        n_orig = circuit.current_witness_index + 1
+        for b in keep:
+            assert cres.instance_ints(b)[:n_orig] == b10k_values[b][:n_orig], b
+        check_instances(circuit, inputs, cres, keep)  # the original witnesses
+        # The level kernel's instantiation on each compiled level: <2, 1> for
+        # a level of (t1, t2) = (2, 1), else the runtime-count <-1, -1>.
+        clevels = [lv["arith_static"] for seg in cres.solver.segments for lv in seg.levels
+                   if lv.get("arith_static")]
+        inst = Counter("<2, 1>" if (lv["t1"], lv["t2"]) == (2, 1) else "<-1, -1>" for lv in clevels)
+        widest = max(clevels, key=lambda lv: lv["desc"].shape[0])
+        cW = cres.panel  # re-solving a level writes the values it holds
+        wdesc, wt1, wt2 = widest["desc"], widest["t1"], widest["t2"]
+        widest_ms = time_ms(lambda: fused_level_call(cW, wdesc, BN254_FR, wt1, wt2), reps=3)
+        # Its bound as path_static's: live terms' distinct operand rows read
+        # and the outputs written once, the live terms' products.
+        wE, wo = wdesc.shape[0], wt1 + 2 * wt2 + 1
+        w_lin = (wdesc[:, wo : wo + 8 * wt1].reshape(wE, wt1, 8) != 0).any(-1)
+        w_mul = (wdesc[:, wo + 8 * wt1 : wo + 8 * (wt1 + wt2)].reshape(wE, wt2, 8) != 0).any(-1)
+        w_rows = torch.unique(torch.cat([
+            wdesc[:, :wt1][w_lin], wdesc[:, wt1 : wt1 + 2 * wt2].reshape(wE, wt2, 2)[w_mul].reshape(-1)])).numel()
+        widest_bound, widest_by = bound(32 * b10k * (w_rows + wE) + wdesc.numel() * 4,
+                                        int(w_lin.sum() + 2 * w_mul.sum()) * MADDS_PER_MONT_MUL * b10k)
+        del cW
+        rate_c, secs_c = timed_rate(lambda: csolver.solve(inputs).ok, len(compiled.opcodes) * b10k, reps=2)
+        api_report["compiled"] = {
+            "opcodes_in": gates, "opcodes": len(compiled.opcodes),
+            "current_witness_index": compiled.current_witness_index, "instances": b10k,
+            "compile_seconds": compile_seconds, "serialize_seconds": compiled_serialize_seconds,
+            "read_seconds": compiled_read_seconds, "serialized_bytes": len(compiled_data),
+            "passes": 1, "panel_bytes": csolver.panel_bytes(b10k), "levels": len(clevels),
+            "level_instantiations": dict(inst),
+            "widest_level": {"E": wE, "t1": wt1, "t2": wt2,
+                             "instantiation": "<2, 1>" if (wt1, wt2) == (2, 1) else "<-1, -1>",
+                             "ms": widest_ms, "bound_ms": widest_bound, "bound_by": widest_by},
+            "original_witnesses_equal_b10k_and_evaluator": list(keep),
+            "compiled_solves_per_sec": rate_c, "solve_seconds": secs_c,
+            "compiled_gate_solves_per_sec_original_gates": gates * b10k / secs_c}
+        del cres, csolver, compiled, circuit_read, inputs
+        torch.cuda.empty_cache()
+
+        # (c) the CLI on the acvm_js addition fixture.
+        add = tmp / "addition.acir.gz"
+        add.write_bytes(ADDITION_CIRCUIT)
+        out = counted("api_cli", lambda: json.loads(stdout_of(
+            ["solve", "--circuit", str(add), "--witness-json", '{"1": 1, "2": 2}', "--batch", "4096"])))
+        assert out["satisfied"] == 4096 and out["device"].startswith("cuda"), out
+        executed = json.loads(stdout_of(["execute", "--circuit", str(add), "--witness-json",
+                                         '{"1": 1, "2": "0x02"}']))
+        assert int(executed["3"], 16) == 3
+        info = json.loads(stdout_of(["info", "--circuit", str(add)]))
+        assert info["opcodes"] == 1 and info["return_values"] == [3]
+        comp = json.loads(stdout_of(["compile", "--circuit", str(add), "--output", str(tmp / "c.gz")]))
+        assert comp["opcodes_out"] >= 1 and (tmp / "c.gz").stat().st_size > 0
+        api_report["cli"] = {"solve": out, "execute_w3": executed["3"], "info": info, "compile": comp}
+
+    # (d) the compiled hash fallbacks: the hash black boxes refused, solved at
+    # path_sha's 4,096 random messages as a uint8 matrix on the card.
+    fallback_B = 4096
+    hash_calls = (ops.BBSha256, ops.BBBlake2s, ops.BBKeccak256, ops.BBKeccak256VariableLength,
+                  ops.BBHashToField128Security)
+
+    def refuse_hashes(op):
+        return not (isinstance(op, ops.OpcodeBlackBoxFuncCall) and isinstance(op.call, hash_calls))
+
+    for kind, host in (("blake2s", hashlib.blake2s), ("keccak256", None)):
+        gadget = build_gadget_circuit(kind, 1, 32)
+        t0 = time.perf_counter()
+        fallback, _ = config.compile(gadget, refuse_hashes)
+        compile_seconds = time.perf_counter() - t0
+        assert not any(isinstance(op, ops.OpcodeBlackBoxFuncCall) and isinstance(op.call, hash_calls)
+                       for op in fallback.opcodes)
+        call = gadget.opcodes[0].call
+        ins = [int(fi.witness) for fi in call.inputs]
+        matrix = torch.from_numpy(np.random.default_rng(23).integers(
+            0, 256, size=(fallback_B, len(ins)), dtype=np.uint8)).to(dev)
+        fsolver = config.solver(config.plan(fallback))
+        t0 = time.perf_counter()
+        fstats = SolveStats()
+        fres = counted(f"api_{kind}_fallback", lambda: pass_peak(
+            f"{kind}_fallback", lambda: fsolver.solve((ins, matrix), stats=fstats), fallback_B,
+            inputs=(ins, matrix)))
+        wall = time.perf_counter() - t0
+        assert fres.ok.all() and (fres.fail == FAIL_NONE).all(), kind
+        out_rows = torch.tensor([int(w) for w in call.outputs], device=dev)
+        digests = fres.panel.index_select(0, out_rows)[..., 0].cpu().numpy().astype(np.uint8)
+        messages = matrix.cpu().numpy()
+        for b in range(fallback_B):
+            want = (host(messages[b].tobytes()).digest() if host else
+                    host_hashes.keccak256(messages[b].tobytes()))
+            assert digests[:, b].tobytes() == want, (kind, b)
+        api_report[f"{kind}_fallback"] = {
+            "message_bytes": 32, "instances": fallback_B, "opcodes": len(fallback.opcodes),
+            "compile_seconds": compile_seconds, "levels": len(fsolver.plan.levels),
+            "solve_seconds": wall, "digests_checked": fallback_B,
+            "launches": {k: v for k, v in api_launches[f"api_{kind}_fallback"].items() if v},
+            "host_stages": sum(len(seg.host_stages) for seg in fsolver.segments),
+            "host_per_instance_stages": fstats.host_per_instance_stages}
+        del fres, fsolver, matrix
+        torch.cuda.empty_cache()
+    kernels["level"]["compiled_levels"] = {
+        "instantiations": api_report["compiled"]["level_instantiations"],
+        "widest": api_report["compiled"]["widest_level"]}
+    # Every path's first solve against the solver's estimate of a pass: the
+    # default pass size holds only if no peak passes it.
+    api_report["pass_peaks"] = PASS_PEAKS
+    api_report["pass_peak_over_estimate_limit"] = PASS_PEAK_OVER_ESTIMATE
+    worst = max(PASS_PEAKS, key=lambda k: PASS_PEAKS[k]["peak_over_estimate"])
+    api_report["worst_peak_over_estimate"] = {"path": worst, **PASS_PEAKS[worst]}
+    if STEP_PEAKS:
+        api_report["step_peaks"] = step_peak_summary(STEP_PEAKS)
+        out_file = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--step-peaks=")), None)
+        if out_file:
+            Path(out_file).write_text(json.dumps(STEP_PEAKS))
+    emit({"path_api": {"ok": True, "passed": ["a", "b", "c", "d"],
+                       "phase_seconds": time.perf_counter() - api_t0, **api_report,
+                       "launches": {label: {k: v for k, v in c.items() if v}
+                                    for label, c in api_launches.items()}}})
+    assert PASS_PEAKS[worst]["peak_over_estimate"] <= PASS_PEAK_OVER_ESTIMATE, (
+        worst, PASS_PEAKS[worst])
+
     # -- 17. kernels, 18. card, 19. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
              "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches,
-             "hash": hash_launches, **ecdsa_launches}
+             "hash": hash_launches, **ecdsa_launches, **api_launches}
     # Kernels that no path launches since another took their place: inv_wide
     # runs path_ecdsa's inversions where pow_wide did (pow_wide stays
     # mont_pow's wide route and inv_wide's yardstick above), and

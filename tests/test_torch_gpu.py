@@ -893,3 +893,118 @@ def test_ecdsa_solver_on_card_equals_solver_on_cpu(card, kind):
     assert np.array_equal(gpu.ok, cpu.ok) and np.array_equal(gpu.fail, cpu.fail)
     outs = np.array([gpu.witness_ints(int(op.call.output)) for op in circuit.opcodes], dtype=bool)
     assert np.array_equal(outs, valid & ~err) and np.array_equal(gpu.ok, ~err.any(0))
+
+
+# -- the product surface: streaming, api, config, cli ----------------------------
+
+
+def _memory_radix_circuit():
+    """w3 = w1 * w1; block 0 = [w1, w3, w1]; w4 = block[w2]; ToLeRadix(w1, 10)
+    into three digits (a host stage); w8 = w4 + w5."""
+    from acvm_tpu_torch.acir import Circuit, Expression, Witness
+    from acvm_tpu_torch.acir import opcodes as ops
+    from acvm_tpu_torch.fields import FieldElement
+
+    x = lambda i: Expression.from_witness(Witness(i))  # noqa: E731
+    return Circuit(current_witness_index=8, private_parameters={Witness(1), Witness(2)}, opcodes=[
+        ops.OpcodeArithmetic(Expression(mul_terms=[(FieldElement(1), Witness(1), Witness(1))]) - x(3)),
+        ops.OpcodeMemoryInit(ops.BlockId(0), [Witness(1), Witness(3), Witness(1)]),
+        ops.OpcodeMemoryOp(ops.BlockId(0), ops.MemOp.read_at_mem_index(x(2), Witness(4)), None),
+        ops.OpcodeDirective(ops.DirToLeRadix(x(1), [Witness(5), Witness(6), Witness(7)], 10)),
+        ops.OpcodeArithmetic(x(4) + x(5) - x(8)),
+    ])
+
+
+def test_streamed_solve_on_card_equals_one_pass(card):
+    """Passes of 3 over 10 instances with a memory block, a host stage and two
+    failing instances: the flags of one pass, on the card and on the CPU, and
+    solve_chunks' panels and memory its columns."""
+    plan = plan_circuit(_memory_radix_circuit())
+    rng = np.random.default_rng(11)
+    inputs = [{1: int(rng.integers(0, 1000)), 2: int(rng.integers(0, 3))} for _ in range(10)]
+    inputs[4][2], inputs[7][1] = 3, 5000
+    one = BatchSolver(plan).solve(inputs)
+    cpu = BatchSolver(plan, device="cpu").solve(inputs)
+    assert torch.equal(one.panel.cpu(), cpu.panel) and np.array_equal(one.fail, cpu.fail)
+    solver = BatchSolver(plan, max_batch_per_pass=3)
+    streamed = solver.solve(inputs)
+    assert np.array_equal(streamed.ok, one.ok) and np.array_equal(streamed.fail, one.fail)
+    for k, chunk in enumerate(solver.solve_chunks(inputs)):
+        assert torch.equal(chunk.panel, one.panel[:, 3 * k : 3 * k + 3])
+        assert torch.equal(chunk.memory_blocks()[0], one.memory_blocks()[0][:, 3 * k : 3 * k + 3])
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "non_uniform"])
+def test_budgeted_passes_on_card_equal_one_pass(card, uniform):
+    """A pass budget of a quarter of the batch's state streams the wide
+    circuit through four passes (pinned uploads on a second stream): the
+    flags of one pass, each chunk's panel its columns, every pass's panel
+    freed before the next: the peak stays below two passes' state.  The
+    non-uniform dicts (every third instance lacks an input) upload as
+    scattered pairs, not a panel."""
+    circuit = build_wide_arith_circuit(num_inputs=16, num_levels=3, gates_per_level=256, seed=9)
+    plan = plan_circuit(circuit)
+    inputs = random_inputs(circuit, 4096)
+    if not uniform:
+        for b in range(0, len(inputs), 3):
+            del inputs[b][min(inputs[b])]
+    one = BatchSolver(plan).solve(inputs)
+    from acvm_tpu_torch.gpu.batch_solver import PASS_PEAK_OVER_ESTIMATE
+
+    solver = BatchSolver(plan, pass_budget_bytes=int(one.solver.pass_bytes(1100) * PASS_PEAK_OVER_ESTIMATE))
+    limit = solver.max_batch_per_pass()
+    assert 4096 / 4 <= limit < 4096 / 3, limit
+    pass_bytes = solver.panel_bytes(limit)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    streamed = solver.solve(inputs)
+    assert torch.cuda.max_memory_allocated() - base < 2 * pass_bytes
+    assert np.array_equal(streamed.ok, one.ok) and np.array_equal(streamed.fail, one.fail)
+    for k, chunk in enumerate(solver.solve_chunks(inputs)):
+        assert torch.equal(chunk.panel, one.panel[:, limit * k : limit * (k + 1)])
+
+
+def test_api_and_cli_on_card(card, tmp_path, capsys):
+    """execute_circuit_batched under the default EngineConfig (the card) and
+    the CLI's solve (default --device cuda) on the addition fixture."""
+    import json
+
+    from acvm_tpu_torch import api, cli
+    from acvm_tpu_torch.acir import Witness, WitnessMap
+    from acvm_tpu_torch.config import EngineConfig
+    from acvm_tpu_torch.fields import FieldElement
+
+    from golden_vectors import ADDITION_CIRCUIT
+
+    inputs = [{1: b, 2: 3 * b + 1} for b in range(300)]
+    res = api.execute_circuit_batched(ADDITION_CIRCUIT, inputs, EngineConfig())
+    assert res.panel.is_cuda and res.ok.all()
+    assert res.witness_ints(3) == [4 * b + 1 for b in range(300)]
+    want = api.execute_circuit(ADDITION_CIRCUIT, WitnessMap({Witness(1): FieldElement(7),
+                                                           Witness(2): FieldElement(22)}))
+    assert res.instance_ints(7)[3] == int(want.get(Witness(3)))
+    path = tmp_path / "addition.acir.gz"
+    path.write_bytes(ADDITION_CIRCUIT)
+    cli.main(["solve", "--circuit", str(path), "--witness-json", '{"1": 1, "2": 2}', "--batch", "4096"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["satisfied"] == 4096 and out["device"].startswith("cuda")
+
+
+def test_compiled_circuit_on_card_equals_cpu(card):
+    """The wide circuit compiled to width 3 (CSat): the same panel on the card
+    and on the CPU, and the original witnesses those of the uncompiled one."""
+    from acvm_tpu_torch.config import EngineConfig
+
+    circuit = build_wide_arith_circuit(num_inputs=8, num_levels=3, gates_per_level=128, seed=4)
+    compiled, _ = EngineConfig().compile(circuit)
+    inputs = random_inputs(circuit, 300)
+    plan = plan_circuit(compiled)
+    build.reset_launches()
+    gpu = BatchSolver(plan).solve(inputs)
+    assert build.LAUNCHES["level"] > 0, build.LAUNCHES
+    cpu = BatchSolver(plan, device="cpu").solve(inputs)
+    assert torch.equal(gpu.panel.cpu(), cpu.panel) and gpu.ok.all()
+    n = circuit.current_witness_index + 1
+    plain = BatchSolver(plan_circuit(circuit)).solve(inputs)
+    assert torch.equal(gpu.panel[:n], plain.panel[:n])

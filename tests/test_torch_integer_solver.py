@@ -365,6 +365,32 @@ def test_long_divmod_plain_on_the_kernel_edge_set():
         intops.long_divmod(ta.to(torch.int64), tb)
 
 
+@pytest.mark.parametrize("bits", [256, 64, 8])
+def test_long_divmod_plain_short_division(bits, monkeypatch):
+    """Divisors all below 2^47 (a zero among them) take the int64 short
+    division; one divisor of 2^47 sends the whole tensor bit-serial.  Both
+    against Python ints, dividends up to 2^256 - 1."""
+    rng = random.Random(bits)
+    short_b = [0, 1, 2, 3, 7, (1 << 16) - 1, 1 << 16, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
+               (1 << 47) - 1] + [rng.randrange(1, 1 << 47) for _ in range(5)]
+    dividends = [0, 1, (1 << 256) - 1, P - 1, (1 << 64) - 1, 1 << 63, (1 << 47) - 1, 1 << 47,
+                 (1 << 48) + 5] + [rng.getrandbits(256) for _ in range(5)]
+    taken = []
+    short = intops._short_divmod_plain
+    monkeypatch.setattr(intops, "_short_divmod_plain",
+                        lambda *args: taken.append(1) or short(*args))
+    m = (1 << bits) - 1
+    for divisors, want_short in ((short_b, True), (short_b + [1 << 47], False)):
+        a = [x for x in dividends for _ in divisors]
+        b = divisors * len(dividends)
+        taken.clear()
+        q, r = intops.long_divmod_plain(torch.from_numpy(fk.ints_to_limbs32(a).copy()),
+                                        torch.from_numpy(fk.ints_to_limbs32(b).copy()), bits)
+        assert bool(taken) == want_short
+        want = [divmod(x & m, y) if y else (0, 0) for x, y in zip(a, b)]
+        assert list(zip(fk.limbs32_to_ints(q.numpy()), fk.limbs32_to_ints(r.numpy()))) == want
+
+
 M32 = (1 << 32) - 1
 
 

@@ -355,8 +355,10 @@ def test_unported_options_raise(case):
         case["solver"].solve(([1, 2], np.zeros((4, 2), np.uint32)))
     with pytest.raises(ValueError, match="solver's device"):
         case["solver"].solve({1: torch.zeros(4, device="meta")})
-    with pytest.raises(NotImplementedError, match="serialization"):
-        case["circuit"].write()
+    # The wire format is ported (acir/serialization.py): write and read
+    # round-trip.
+    data = case["circuit"].write()
+    assert Circuit.read(data).write() == data
 
 
 def test_default_device_needs_a_card(case):
