@@ -72,10 +72,12 @@ def init_log_level(level: str) -> None:
 
 def build_info() -> dict:
     """Version / environment report (acvm_js/src/build_info.rs analogue): the
-    package, the PyTorch build and the CUDA devices it sees."""
+    package, the PyTorch build, the CUDA devices it sees and the host Grumpkin
+    library (``native_kernels``: its file, built here if need be; a failed
+    build raises)."""
     import torch
 
-    from . import __version__
+    from . import __version__, native
 
     cuda = torch.cuda.is_available()
     return {
@@ -85,6 +87,7 @@ def build_info() -> dict:
         "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
         "devices": torch.cuda.device_count() if cuda else 0,
+        "native_kernels": native.load()._name,
     }
 
 
@@ -202,7 +205,7 @@ def execute_circuit_batched(
     :meth:`acvm_tpu_torch.gpu.BatchSolver.solve` takes (one
     ``{witness_index: int}`` dict per instance, columns, or a packed matrix);
     ``config`` (an :class:`acvm_tpu_torch.config.EngineConfig`) selects the
-    field, the device and the kernel policy; ``solver_options`` go to the
+    field, the device, the mesh (``mesh_shape``) and the kernel policy; ``solver_options`` go to the
     solver (``max_batch_per_pass``, ``pass_budget_bytes``, ...).  A batch
     larger than one pass is streamed, and its result then carries every
     instance's flags and no panel.  Returns the

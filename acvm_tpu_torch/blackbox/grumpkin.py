@@ -6,6 +6,10 @@ This module reimplements them from scratch over the Grumpkin curve, in pure
 Python ints (the bit-exactness oracle of the batched device gadgets in
 ``acvm_tpu_torch.gpu.ec``):
 
+The three run their curve arithmetic in the host Grumpkin library
+(:mod:`acvm_tpu_torch.native`, C++), as the JAX package's do;
+``native=False`` runs it in the pure-Python curve code, the plain version.
+
 * ``fixed_base_scalar_mul`` — bit-exact with the reference golden vectors
   (scalar_mul.rs:76-98): scalar = low + high * 2^128 against generator
   (1, sqrt(-16)), with the u128-limb and grumpkin-modulus validation errors.
@@ -76,7 +80,7 @@ def _sqrt_mod_p(a: int) -> Optional[int]:
 
 
 def fixed_base_scalar_mul(
-    low: FieldElement, high: FieldElement
+    low: FieldElement, high: FieldElement, *, native: bool = True
 ) -> Tuple[FieldElement, FieldElement]:
     low_u128 = low.try_into_u128()
     if low_u128 is None:
@@ -91,7 +95,12 @@ def fixed_base_scalar_mul(
             f"invalid grumpkin scalar: {scalar.to_bytes(32, 'big').hex()}"
         )
 
-    point = grumpkin.mul_g(scalar)
+    if native:
+        from .. import native as lib
+
+        point = lib.grumpkin_mul(grumpkin.generator(), scalar)
+    else:
+        point = grumpkin.mul_g(scalar)
     if point is None:
         return FieldElement.zero(), FieldElement.zero()
     return FieldElement(point[0]), FieldElement(point[1])
@@ -197,19 +206,26 @@ def derive_generator(domain_separator: int, index: int) -> Tuple[int, int]:
 
 
 def pedersen_commit(
-    inputs: List[FieldElement], domain_separator: int
+    inputs: List[FieldElement], domain_separator: int, *, native: bool = True
 ) -> Tuple[FieldElement, FieldElement]:
     generators = [derive_generator(domain_separator, i) for i in range(len(inputs))]
-    acc: Point = None
-    for scalar, gen in zip(inputs, generators):
-        acc = grumpkin.add(acc, grumpkin.mul(scalar.value, gen))
+    if native:
+        from .. import native as lib
+
+        acc = lib.grumpkin_msm(generators, [s.value for s in inputs])
+    else:
+        acc: Point = None
+        for scalar, gen in zip(inputs, generators):
+            acc = grumpkin.add(acc, grumpkin.mul(scalar.value, gen))
     if acc is None:
         return FieldElement.zero(), FieldElement.zero()
     return FieldElement(acc[0]), FieldElement(acc[1])
 
 
-def pedersen_compress(inputs: List[FieldElement], domain_separator: int = 0) -> FieldElement:
-    x, _ = pedersen_commit(inputs, domain_separator)
+def pedersen_compress(
+    inputs: List[FieldElement], domain_separator: int = 0, *, native: bool = True
+) -> FieldElement:
+    x, _ = pedersen_commit(inputs, domain_separator, native=native)
     return x
 
 
@@ -235,11 +251,12 @@ def schnorr_challenge_hook():
     return _SCHNORR_CHALLENGE_HOOK
 
 
-def _schnorr_challenge(r_x: int, pub: Tuple[int, int], message: bytes) -> int:
+def _schnorr_challenge(r_x: int, pub: Tuple[int, int], message: bytes,
+                       native: bool = True) -> int:
     if _SCHNORR_CHALLENGE_HOOK is not None:
         return int(_SCHNORR_CHALLENGE_HOOK(r_x, pub, message)) % N
     compressed = pedersen_compress(
-        [FieldElement(r_x), FieldElement(pub[0]), FieldElement(pub[1])]
+        [FieldElement(r_x), FieldElement(pub[0]), FieldElement(pub[1])], native=native
     )
     digest = blake2s(compressed.to_be_bytes() + message)
     return int.from_bytes(digest, "big") % N
@@ -250,6 +267,8 @@ def schnorr_verify(
     public_key_y: FieldElement,
     signature: bytes,
     message: bytes,
+    *,
+    native: bool = True,
 ) -> bool:
     if len(signature) != 64:
         raise GrumpkinError("schnorr signature must be 64 bytes (s || e)")
@@ -260,10 +279,15 @@ def schnorr_verify(
     e = int.from_bytes(signature[32:], "big") % N
     if s == 0:
         return False
-    R = grumpkin.lincomb(s, grumpkin.generator(), e, pub)
+    if native:
+        from .. import native as lib
+
+        R = lib.grumpkin_msm([grumpkin.generator(), pub], [s, e])
+    else:
+        R = grumpkin.lincomb(s, grumpkin.generator(), e, pub)
     if R is None:
         return False
-    return _schnorr_challenge(R[0], pub, message) == e
+    return _schnorr_challenge(R[0], pub, message, native) == e
 
 
 def schnorr_sign(private_key: int, message: bytes, nonce: Optional[int] = None) -> bytes:

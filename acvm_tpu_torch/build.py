@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("level", "mul", "pow", "dot", "pt_add", "dot_v1", "mul_v1", "pt_ladder", "batch_inv",
            "divmod", "brillig_vm", "sha256", "keccak", "blake2s", "mul_wide", "pow_wide",
-           "batch_inv_wide", "ecdsa_mul", "inv_wide")
+           "batch_inv_wide", "ecdsa_mul", "inv_wide", "dot_mxu")
 # Kernels built from a source other than csrc/<name>.cu, or with defines:
 # name -> (source, defines).
 VARIANTS = {
@@ -92,6 +92,8 @@ _SIGNATURES = {
     "ecdsa_mul": ("acvm_ecdsa_mul", [_P, _P, _P, _P, _P, _LL, _I, _P, _P]),
     # a, out, n, the field's divstep constants (fields/kernels.py::inv_constants), stream.
     "inv_wide": ("acvm_inv_wide", [_P, _P, _LL, _P, _P]),
+    # vals, coeffs, qc, out, gates, instances, terms, field, stream.
+    "dot_mxu": ("acvm_mont_dot_mxu", [_P, _P, _P, _P, _LL, _LL, _I, _P, _P]),
     # A probe of the card's multiply-add rate; no path of the solver runs it.
     "imad_rate": ("acvm_imad_rate", [_P, _I, _I, _I, _P]),
     # The candidate Montgomery products side by side: a, b, out, n, chain

@@ -4,13 +4,17 @@ Covers the reference's tooling surface (the acvm_js entry points, driven from a
 shell):
 
   acvm-tpu-torch execute   --circuit c.acir.gz --witness w.gz [--output out.gz]
-  acvm-tpu-torch solve     --circuit c.acir.gz --witness-json '{"1": "0x.."}' --batch N [--device cpu]
+  acvm-tpu-torch solve     --circuit c.acir.gz --witness-json '{"1": "0x.."}' --batch N [--device cpu] [--mesh | --distributed]
   acvm-tpu-torch compile   --circuit c.acir.gz --width 3 --output compiled.gz
   acvm-tpu-torch info      --circuit c.acir.gz
 
 (or ``python -m acvm_tpu_torch.cli ...``).  ``execute`` runs the sequential
 bit-exact engine; ``solve`` runs the batched engine over N copies of the
-provided inputs, on ``cuda`` unless ``--device cpu``.  ``bench`` is not part of
+provided inputs, on ``cuda`` unless ``--device cpu``; ``--mesh`` shards the
+batch over every visible card (the CPU with ``--device cpu``), and
+``--distributed`` over the ranks of a ``torch.distributed`` job, one rank a
+process (run it under ``python -m acvm_tpu_torch.parallel.launcher`` or
+torchrun; every rank prints the whole batch's count).  ``bench`` is not part of
 this package yet (ROADMAP.md, queue 1 item 1: the port's benchmark).
 """
 
@@ -68,11 +72,16 @@ def cmd_execute(args):
 def cmd_solve(args):
     from .config import EngineConfig
 
-    if args.mesh or args.distributed:
-        raise NotImplementedError(
-            "acvm-tpu-torch solve: --mesh / --distributed shard the batch over "
-            "several devices, which acvm_tpu_torch does not do"
-        )
+    mesh = None
+    if args.distributed:
+        from .parallel import distributed
+
+        distributed.initialize()
+        mesh = distributed.global_mesh()
+    elif args.mesh:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(["cpu"] if args.device == "cpu" else None)
     config = EngineConfig(
         field=args.field,
         device=args.device,
@@ -84,7 +93,7 @@ def cmd_solve(args):
     assignment = {int(w): int(v) for w, v in initial}
 
     plan = config.plan(circuit, input_witnesses=list(assignment))
-    solver = config.solver(plan)
+    solver = config.solver(plan, mesh=mesh)
     result = solver.solve([assignment] * args.batch)
     ok = result.ok
     print(
@@ -95,6 +104,7 @@ def cmd_solve(args):
                 "levels": len(plan.levels),
                 "ops": plan.total_ops(),
                 "device": str(solver.device),
+                "shards": mesh.size if mesh is not None else 1,
             }
         )
     )
@@ -172,11 +182,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(
         "--mesh", action="store_true",
-        help="shard the batch over all local devices (not supported: raises)",
+        help="shard the batch over all local devices",
     )
     p.add_argument(
         "--distributed", action="store_true",
-        help="multi-host launch (not supported: raises)",
+        help="shard the batch over the ranks of a torch.distributed job "
+             "(the launcher's or torchrun's environment)",
     )
     p.add_argument("--field", choices=["bn254", "bls12_381"], default="bn254")
     p.add_argument(

@@ -29,9 +29,10 @@ class EngineConfig:
     device: str = "cuda"
 
     # Mesh: axis sizes for (data,), instance data parallelism over several
-    # cards.  Sharding the batch is not part of this package: anything but
-    # None raises NotImplementedError when a solver is built.
+    # distinct devices of this process (``make_mesh``); None = one device.
+    # Multi-process jobs build their mesh with parallel.distributed.
     mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axis_names: Tuple[str, ...] = ("data",)
 
     # Kernel selection: allow disabling device gadget kernels (forcing the
     # host-stage path) for debugging/conformance bisection.
@@ -100,19 +101,39 @@ class EngineConfig:
         self._apply_generators()
         return plan_circuit(circuit, input_witnesses, config=self)
 
+    def make_mesh(self):
+        """The :class:`~acvm_tpu_torch.parallel.Mesh` that ``mesh_shape``
+        describes over this config's distinct visible devices (``cuda:0``,
+        ``cuda:1``, ...; the CPU is one device), or None.  Raises
+        ``ValueError`` where there are fewer devices than entries."""
+        if self.mesh_shape is None:
+            return None
+        import math
+
+        import torch
+
+        from .parallel import make_mesh
+
+        n = math.prod(self.mesh_shape)
+        have = 1 if self.device == "cpu" else (
+            torch.cuda.device_count() if torch.cuda.is_available() else 0)
+        if n < 1 or n > have:
+            raise ValueError(
+                f"EngineConfig: mesh_shape={self.mesh_shape} needs {n} distinct "
+                f"{self.device} devices, {have} visible")
+        devices = ["cpu"] if self.device == "cpu" else [f"cuda:{i}" for i in range(n)]
+        return make_mesh(devices, self.mesh_axis_names[0])
+
     def solver(self, plan, **kwargs):
         """A :class:`~acvm_tpu_torch.gpu.BatchSolver` for ``plan`` on this
-        config's device; ``kwargs`` go to the solver (``backend``,
-        ``foreign_call_handler``, ``max_batch_per_pass``, ...)."""
+        config's device and mesh; ``kwargs`` go to the solver (``backend``,
+        ``foreign_call_handler``, ``max_batch_per_pass``, ``mesh``, ...)."""
         from .gpu.batch_solver import BatchSolver
 
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                f"EngineConfig: mesh_shape={self.mesh_shape}: sharding the batch "
-                "over several devices is not part of acvm_tpu_torch"
-            )
         self._apply_generators()
-        kwargs.setdefault("device", self.device)
+        kwargs.setdefault("mesh", self.make_mesh())
+        if kwargs["mesh"] is None:
+            kwargs.setdefault("device", self.device)
         return BatchSolver(plan, **kwargs)
 
 

@@ -53,8 +53,15 @@ A batch whose state does not fit one pass (``BatchSolver.max_batch_per_pass``)
 is streamed: passes of that many instances, one panel on the device at a
 time, the next pass's inputs packed on a host thread and uploaded on a
 second stream while the current pass solves (``BatchSolver.solve``,
-``BatchSolver.solve_chunks``).  Sharding the batch over a mesh raises
-``NotImplementedError``, at construction.
+``BatchSolver.solve_chunks``).
+
+``BatchSolver(plan, mesh=...)`` shards the batch over a mesh
+(:mod:`acvm_tpu_torch.parallel`): contiguous slices of the instances, one an
+entry, each solved by a solver of its entry's device (entries may repeat a
+device), every shard's device levels queued before any shard's readback; the
+result (:class:`ShardedBatchResult`) reads in global instance order.  Under a
+mesh of ``torch.distributed`` ranks each process solves its own slice and the
+results are gathered.
 """
 
 from __future__ import annotations
@@ -85,8 +92,10 @@ from ..fields.kernels import (
     mont_mul_v1,
     wrap_i32,
 )
+from ..fields.mxu_ops import mont_dot_mxu, mxu_ok
 from ..fields.params import BN254_FR
 from ..fields.torch_ops import LimbContext, geq
+from ..parallel.mesh import on_device
 from ..pwg import blackbox as bb_dispatch
 from ..pwg.brillig_solver import BrilligSolver
 from ..pwg.directives import solve_directives
@@ -260,7 +269,7 @@ def _decode_foreign_call_result(outputs: Sequence[object]) -> br.ForeignCallResu
 # ---------------------------------------------------------------------------
 
 
-DOT_KERNELS = ("v2", "v1")
+DOT_KERNELS = ("v2", "v1", "mxu")
 
 
 def eval_exprs(
@@ -276,7 +285,14 @@ def eval_exprs(
     CUDA panel, the op-by-op plain version for a CPU panel).  Under ``"v1"``
     the quadratic operands are multiplied first (``mont_mul_v1``), the
     products join the linear operands as one panel, and the first-generation
-    dot (``mont_dot_v1``) folds it.  Both give the same bits.
+    dot (``mont_dot_v1``) folds it.  Under ``"mxu"`` a panel that
+    :func:`~acvm_tpu_torch.fields.mxu_ops.mxu_ok` takes (BN254, 1-8 terms, no
+    ``scale``) has its quadratic operands multiplied first (``mont_mul``) and
+    the whole linear combination folded by ONE tensor-core launch
+    (:func:`~acvm_tpu_torch.fields.mxu_ops.mont_dot_mxu`, ``qc`` in Montgomery
+    form), as the JAX package's MXU route does; any other panel takes the
+    ``"v2"`` dot, the JAX package's routing rule.  All three give the same
+    bits.
 
     ``scale`` (E, 8 limbs, Montgomery form) multiplies the accumulated value.
     """
@@ -296,6 +312,15 @@ def eval_exprs(
     if m:
         v1 = W.index_select(0, pack["mul_idx"][:, :, 0].reshape(-1)).reshape(E, m, B, LIMBS)
         v2 = W.index_select(0, pack["mul_idx"][:, :, 1].reshape(-1)).reshape(E, m, B, LIMBS)
+    if dot_kernel == "mxu" and scale is None and mxu_ok(ctx.params, n + m):
+        panels = [vals] if n else []
+        coeffs = [pack["lin_coeff"]] if n else []
+        if m:
+            panels.append(ctx.mont_mul(v1, v2))  # w1*w2*R^-1
+            coeffs.append(pack["mul_coeff"])
+        panel = panels[0] if len(panels) == 1 else torch.cat(panels, dim=1)
+        coeff = coeffs[0] if len(coeffs) == 1 else torch.cat(coeffs, dim=1)
+        return mont_dot_mxu(panel, coeff, ctx.to_mont(pack["qc"]), ctx.params)
     if dot_kernel == "v1":
         panels, coeffs = [], []
         if n:
@@ -648,8 +673,10 @@ class BatchSolver:
 
     ``dot_kernel`` picks the expression-evaluation route of the
     dynamic-denominator and assert-zero levels: ``"v2"`` (the fused dot, the
-    default) or ``"v1"`` (the first-generation multiply and dot, BN254 only).
-    Both give the same bits.
+    default), ``"v1"`` (the first-generation multiply and dot, BN254 only) or
+    ``"mxu"`` (the tensor-core dot where ``mxu_ok`` takes the panel, else
+    ``"v2"``; the JAX package's opt-in ``ACVM_TPU_MXU``).  All give the same
+    bits.
 
     ``group_stages`` (the default) runs a level's Brillig blocks of one
     bytecode as one trace and its memory opcodes on blocks of one size as one
@@ -663,6 +690,13 @@ class BatchSolver:
     through the sequential solvers: the same bits, slower (the JAX package's
     ``ACVM_TPU_NO_HOST_BATCH``).
 
+    ``mesh`` (:class:`~acvm_tpu_torch.parallel.Mesh`) shards each batch over
+    the mesh's entries (:meth:`_solve_mesh`); the solver's ``device`` is then
+    its first entry here (a ``device`` given beside a mesh must be that one),
+    and each other device of the mesh gets a solver of its own.  A mesh of
+    ``torch.distributed`` ranks (``parallel.distributed.global_mesh``) has
+    each process solve its own entry's slice.
+
     ``max_batch_per_pass`` fixes the instances of one pass, and
     ``pass_budget_bytes`` the device bytes a pass may take (the JAX package's
     ``ACVM_TPU_MAX_BATCH_PER_PASS`` and ``ACVM_TPU_HBM_BUDGET_GB``); by
@@ -675,17 +709,18 @@ class BatchSolver:
         backend: Optional[BlackBoxFunctionSolver] = None,
         foreign_call_handler: Optional[ForeignCallHandler] = None,
         mesh=None,
-        device="cuda",
+        device=None,
         dot_kernel: str = "v2",
         group_stages: bool = True,
         host_batch: bool = True,
         max_batch_per_pass: Optional[int] = None,
         pass_budget_bytes: Optional[int] = None,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "BatchSolver: sharding the batch over a mesh is not ported"
-            )
+            device = self._mesh_device(mesh, device)
+        elif device is None:
+            device = "cuda"
         if dot_kernel not in DOT_KERNELS:
             raise ValueError(f"BatchSolver: dot_kernel must be one of {DOT_KERNELS}")
         if dot_kernel == "v1" and plan.params != BN254_FR:
@@ -718,6 +753,20 @@ class BatchSolver:
             self.memory_slots[block_id] = (size, self._memory_counts[size])
             self._memory_counts[size] += 1
         self.segments = self._build_segments()
+        # The solver of each mesh entry this process solves: this one on its
+        # own device, one more for each other device (repeated entries share).
+        self._entry_solvers: Dict[int, "BatchSolver"] = {}
+        if mesh is not None:
+            by_device = {self.device: self}
+            for i in self._local_entries():
+                d = mesh.devices[i]
+                if d not in by_device:
+                    by_device[d] = BatchSolver(
+                        plan, backend, foreign_call_handler, device=d, dot_kernel=dot_kernel,
+                        group_stages=group_stages, host_batch=host_batch,
+                        max_batch_per_pass=max_batch_per_pass,
+                        pass_budget_bytes=pass_budget_bytes)
+                self._entry_solvers[i] = by_device[d]
         self._log = get_logger("batch_solver")
         self._log.info(
             "plan: %d opcodes, %d witnesses, %d levels in %d segments "
@@ -726,6 +775,36 @@ class BatchSolver:
             len(self.segments), sum(len(s.host_stages) for s in self.segments),
             self.device,
         )
+
+    # -- mesh ---------------------------------------------------------------
+    def _local_entries(self) -> List[int]:
+        if self.mesh.distributed:
+            import torch.distributed as dist
+
+            return self.mesh.local_entries(dist.get_rank())
+        return self.mesh.local_entries()
+
+    def _mesh_device(self, mesh, device) -> torch.device:
+        """The device of this process's first mesh entry: this solver's own.
+        A mesh of ranks needs its ``torch.distributed`` job, one entry a rank;
+        a ``device`` given beside a mesh must be that entry's."""
+        from ..parallel.mesh import as_device
+
+        if mesh.distributed:
+            import torch.distributed as dist
+
+            if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+                raise ValueError("BatchSolver: a mesh of ranks needs its torch.distributed "
+                                 "job, with one entry a rank (distributed.initialize)")
+        entries = self._local_entries()
+        if len(entries) != 1 and mesh.distributed or not entries:
+            raise ValueError("BatchSolver: this process owns no entry of the mesh, or "
+                             "more than one entry of a mesh of ranks")
+        own = mesh.devices[entries[0]]
+        if device is not None and as_device(device) != own:
+            raise ValueError(f"BatchSolver: device {device} beside a mesh whose entry here "
+                             f"is {own}")
+        return own
 
     # -- packing ------------------------------------------------------------
     def _pack_level(self, level: Level) -> dict:
@@ -1173,21 +1252,30 @@ class BatchSolver:
         are updated in place.  Only a host stage waits for the device (it
         reads witnesses); with ``stats`` each segment's device levels also end
         in a synchronize, so that their time is the device's."""
-        W, ok, fail, mem = state
         for segment in self.segments:
-            if segment.levels:
-                with Timer() as t_seg:
-                    for packed in segment.levels:
-                        W, ok, fail = self._run_level(W, ok, fail, mem, packed)
-                    if stats is not None:
-                        self._sync()
+            state = self._run_segment_levels(segment, state, stats)
+            state = self._run_segment_host(segment, state, stats)
+        return state
+
+    def _run_segment_levels(self, segment: _Segment, state, stats: Optional[SolveStats] = None):
+        W, ok, fail, mem = state
+        if segment.levels:
+            with Timer() as t_seg:
+                for packed in segment.levels:
+                    W, ok, fail = self._run_level(W, ok, fail, mem, packed)
                 if stats is not None:
-                    stats.segment_seconds.append(t_seg.elapsed)
-            if segment.host_stages:
-                with Timer() as t_host:
-                    W, ok, fail = self._run_host_stages(W, ok, fail, segment.host_stages, stats)
-                if stats is not None:
-                    stats.host_stage_seconds.append(t_host.elapsed)
+                    self._sync()
+            if stats is not None:
+                stats.segment_seconds.append(t_seg.elapsed)
+        return W, ok, fail, mem
+
+    def _run_segment_host(self, segment: _Segment, state, stats: Optional[SolveStats] = None):
+        W, ok, fail, mem = state
+        if segment.host_stages:
+            with Timer() as t_host:
+                W, ok, fail = self._run_host_stages(W, ok, fail, segment.host_stages, stats)
+            if stats is not None:
+                stats.host_stage_seconds.append(t_host.elapsed)
         return W, ok, fail, mem
 
     # -- host stages ---------------------------------------------------------
@@ -1604,9 +1692,12 @@ class BatchSolver:
         fail and no panel (:meth:`solve_chunks` yields each pass's panel).
         With ``stats`` (a :class:`SolveStats`) the solve records its passes,
         their packing, each segment's device time and each segment's host
-        stages.  Raises ``RuntimeError`` if the Pedersen generators or the
-        Schnorr hook changed since construction."""
+        stages.  Under a mesh the batch is sharded (:meth:`_solve_mesh`).
+        Raises ``RuntimeError`` if the Pedersen generators or the Schnorr
+        hook changed since construction."""
         self._check_generators()
+        if self.mesh is not None:
+            return self._solve_mesh(input_values, stats)
         B = self._batch_len(input_values)
         if stats is not None:
             stats.batch = B
@@ -1627,6 +1718,53 @@ class BatchSolver:
         # synced (and errors surface here); the big W panel stays on device
         # until a caller actually reads witnesses (lazy BatchResult.W).
         return BatchResult(self, W, ok.cpu().numpy(), fail.cpu().numpy(), mem)
+
+    def _solve_mesh(self, input_values, stats: Optional[SolveStats]):
+        """A batch sharded over the mesh: entry i takes the contiguous slice
+        ``shard_bounds(B, mesh.size)[i]``, packed and solved by the solver of
+        its device.  Every shard's inputs are uploaded and its segment's
+        device levels queued before any shard's host stages or flags are read
+        back, segment by segment; a shard past its solver's
+        ``max_batch_per_pass`` is streamed on its own.  A shard of no
+        instances solves nothing.  Under a mesh of ranks this process solves
+        its own entry's slice and the flags are gathered."""
+        from ..parallel.mesh import shard_bounds
+
+        B = self._batch_len(input_values)
+        bounds = shard_bounds(B, self.mesh.size)
+        if stats is not None:
+            stats.batch = B
+            stats.total_ops = self.plan.total_ops()
+        states, streamed = {}, []
+        for i, sub in self._entry_solvers.items():
+            lo, hi = bounds[i]
+            if hi == lo:
+                continue
+            part = self._slice_inputs(input_values, lo, hi)
+            limit = sub.max_batch_per_pass()
+            if limit is not None and hi - lo > limit:
+                streamed.append((i, part, hi - lo, limit))
+                continue
+            with on_device(sub.device), Timer() as t_pack:
+                states[i] = sub.initial_state(part)
+            if stats is not None:
+                stats.passes += 1
+                stats.pack_seconds += t_pack.elapsed
+        for s in range(len(self.segments)):
+            for step in ("_run_segment_levels", "_run_segment_host"):
+                for i, state in states.items():
+                    sub = self._entry_solvers[i]
+                    with on_device(sub.device):
+                        states[i] = getattr(sub, step)(sub.segments[s], state, stats)
+        results = {}
+        for i, part, n, limit in streamed:
+            sub = self._entry_solvers[i]
+            with on_device(sub.device):
+                results[i] = sub._solve_streamed(part, n, limit, stats)
+        for i, (W, ok, fail, mem) in states.items():
+            results[i] = BatchResult(self._entry_solvers[i], W, ok.cpu().numpy(),
+                                     fail.cpu().numpy(), mem)
+        return ShardedBatchResult(self, bounds, results)
 
     def _solve_streamed(self, input_values, B: int, limit: int,
                         stats: Optional[SolveStats]):
@@ -1790,3 +1928,105 @@ class BatchResult:
                 wm.insert(Witness(w), FieldElement(ints[w * B + b]))
             out.append(wm)
         return out
+
+
+class ShardedBatchResult(BatchResult):
+    """The result of a solve over a mesh, read in global instance order.
+
+    ``parts`` maps each mesh entry this process solved to its shard's
+    :class:`BatchResult` (entries of no instances have none); ``bounds`` are
+    the entries' instance slices.  ``ok`` / ``fail`` are the whole batch's.
+    A witness row or an instance column is read from the shards that hold
+    it; ``panel`` (and ``W``, ``witness_maps``) joins the shards' panels on
+    the solver's device.  Under a mesh of ranks each of these reads is a
+    collective over the job (the flags are gathered at construction): every
+    rank makes the same reads in the same order, and gets the whole batch's."""
+
+    def __init__(self, solver: BatchSolver, bounds, parts: Dict[int, BatchResult]):
+        self.bounds = list(bounds)
+        self.parts = parts
+        self._distributed = solver.mesh.distributed
+        if self._distributed:
+            from ..parallel.distributed import all_gather_batch
+
+            (self._entry,) = solver._entry_solvers
+            local = parts.get(self._entry)
+            ok = torch.from_numpy(local.ok) if local else torch.zeros(0, dtype=torch.bool)
+            fail = torch.from_numpy(local.fail) if local else torch.zeros(0, dtype=torch.int32)
+            ok = all_gather_batch(ok, self.bounds).cpu().numpy()
+            fail = all_gather_batch(fail, self.bounds).cpu().numpy()
+        else:
+            ordered = [parts[i] for i in sorted(parts)]
+            ok = np.concatenate([r.ok for r in ordered]) if ordered else np.zeros(0, bool)
+            fail = (np.concatenate([r.fail for r in ordered]) if ordered
+                    else np.zeros(0, np.int32))
+        super().__init__(solver, None, ok, fail)
+
+    def _local_rows(self, read, empty_shape) -> torch.Tensor:
+        """This rank's shard read by ``read`` (an empty tensor of
+        ``empty_shape`` where the shard has no instances)."""
+        local = self.parts.get(self._entry)
+        if local is None:
+            return torch.zeros(empty_shape, dtype=torch.int32)
+        return read(local)
+
+    def _owner(self, instance: int):
+        for i, (lo, hi) in enumerate(self.bounds):
+            if lo <= instance < hi:
+                return i, instance - lo
+        raise IndexError(f"instance {instance} outside the batch of {self.bounds[-1][1]}")
+
+    def release(self) -> None:
+        for part in self.parts.values():
+            part.release()
+        super().release()
+
+    @property
+    def panel(self) -> torch.Tensor:
+        """The (num_witnesses, B, 8) panel of the whole batch on the solver's
+        device: the shards' panels joined (a copy)."""
+        if self._W is None:
+            NW = self.solver.plan.num_witnesses
+            if self._distributed:
+                from ..parallel.distributed import all_gather_batch
+
+                local = self._local_rows(lambda r: r.panel, (NW, 0, LIMBS))
+                self._W = all_gather_batch(local, self.bounds, dim=1).to(self.solver.device)
+            elif self.parts:
+                self._W = torch.cat([self.parts[i].panel.to(self.solver.device)
+                                     for i in sorted(self.parts)], dim=1)
+            else:
+                self._W = torch.zeros((NW, 0, LIMBS), dtype=torch.int32, device=self.solver.device)
+        return self._W
+
+    def memory_blocks(self) -> Dict[int, torch.Tensor]:
+        if self._distributed:
+            from ..parallel.distributed import all_gather_batch
+
+            out = {}
+            for block_id, (size, _) in sorted(self.solver.memory_slots.items()):
+                local = self._local_rows(lambda r: r.memory_blocks()[block_id], (size, 0, LIMBS))
+                out[block_id] = all_gather_batch(local, self.bounds, dim=1).to(self.solver.device)
+            return out
+        blocks = [self.parts[i].memory_blocks() for i in sorted(self.parts)]
+        return {block_id: torch.cat([b[block_id].to(self.solver.device) for b in blocks], dim=1)
+                for block_id in self.solver.memory_slots} if blocks else {}
+
+    def witness_ints(self, witness_index: int) -> List[int]:
+        if self._distributed:
+            from ..parallel.distributed import all_gather_batch
+
+            local = self._local_rows(lambda r: r.panel[witness_index], (0, LIMBS))
+            return limbs32_to_ints(all_gather_batch(local, self.bounds).cpu().numpy())
+        return [v for i in sorted(self.parts) for v in self.parts[i].witness_ints(witness_index)]
+
+    def instance_ints(self, instance: int) -> List[int]:
+        entry, k = self._owner(instance)
+        if self._distributed:
+            from ..parallel.distributed import broadcast_from
+
+            mine = self.parts[entry].panel[:, k] if entry == self._entry else None
+            col = broadcast_from(mine, (self.solver.plan.num_witnesses, LIMBS), torch.int32,
+                                 self.solver.mesh.ranks[entry])
+            return limbs32_to_ints(col.cpu().numpy())
+        return self.parts[entry].instance_ints(k)

@@ -172,34 +172,44 @@ def point_of(panel: torch.Tensor):
 
 
 @lru_cache(maxsize=None)
-def _window_table_np(base_point: Tuple[int, int], windows: int = NUM_WINDOWS) -> np.ndarray:
+def _window_table_np(
+    base_point: Tuple[int, int], windows: int = NUM_WINDOWS, native: bool = True
+) -> np.ndarray:
     """(windows, 2^WINDOW_BITS, 3, 8) int32 Montgomery-form jacobian
     multiples: table[w][d] = d * 2^(4w) * base.  d = 0 is the infinity entry
     (all zeros).  A truncated table (windows < NUM_WINDOWS) supports scalars
     < 2^(4*windows) only — tests use short tables to keep the host precompute
-    down.  Built with the pure-Python curve code."""
+    down.  The additions run in the host Grumpkin library
+    (:mod:`acvm_tpu_torch.native`), as the JAX package's do; ``native=False``
+    runs them in the pure-Python curve code, the plain version."""
+    if native:
+        from .. import native as lib
+
+        add = lib.grumpkin_add
+    else:
+        add = grumpkin.add
     one = _mont(1)
     table = np.zeros((windows, 1 << WINDOW_BITS, 3, LIMBS), dtype=np.int32)
     window_base = base_point
     for w in range(windows):
         acc = None
         for d in range(1, 1 << WINDOW_BITS):
-            acc = grumpkin.add(acc, window_base)
+            acc = add(acc, window_base)
             if acc is not None:
                 table[w, d, 0] = _mont(acc[0])
                 table[w, d, 1] = _mont(acc[1])
                 table[w, d, 2] = one
         # next window base: 2^4 * current
         for _ in range(WINDOW_BITS):
-            window_base = grumpkin.add(window_base, window_base)
+            window_base = add(window_base, window_base)
     table.setflags(write=False)
     return table
 
 
 def window_table(
-    base_point: Tuple[int, int], windows: int = NUM_WINDOWS, device="cuda"
+    base_point: Tuple[int, int], windows: int = NUM_WINDOWS, device="cuda", native: bool = True
 ) -> torch.Tensor:
-    return torch.from_numpy(_window_table_np(tuple(base_point), windows).copy()).to(device)
+    return torch.from_numpy(_window_table_np(tuple(base_point), windows, native).copy()).to(device)
 
 
 def _window_digits(scalar_limbs: torch.Tensor) -> torch.Tensor:
@@ -287,6 +297,52 @@ def msm_fixed_tables(ctx: LimbContext, tables: torch.Tensor, scalars: torch.Tens
         flat, digits.permute(0, 2, 1).reshape(n_gen * num_windows, B)
     )
     return _tree_reduce_points(ctx, entries, a_mont)
+
+
+def pedersen_msm_sharded(ctx: LimbContext, tables: torch.Tensor, scalars: torch.Tensor, mesh,
+                         axis_name: str = "data"):
+    """:func:`msm_fixed_tables` with the generator axis split over a mesh's
+    entries (:mod:`acvm_tpu_torch.parallel`): entry i computes the windowed
+    partial sum of its contiguous slice of generators on its own device, the
+    partial points go to the first entry (or, under a mesh of ranks, are
+    all-gathered: every rank gets every partial), and are reduced there in
+    entry order with :func:`pt_add`, from infinity.  Point addition is not
+    componentwise, so the partials are gathered whole, as the JAX package's
+    ``tpu/ec.py::pedersen_msm_sharded`` all-gathers them.
+
+    tables: (n_gen, W, 16, 3, 8); scalars: (n_gen, B, 8) standard form, a row
+    a generator (the port's generator-major layout; the JAX function takes
+    (B, n_gen, L)).  Any n_gen: an entry may get no generator.  Returns the
+    affine (x, y) standard-form (B, 8) tensors on ``ctx``'s device."""
+    from ..parallel.mesh import on_device, shard_bounds
+
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"pedersen_msm_sharded: the mesh has no axis {axis_name!r}")
+    n_gen, B = tables.shape[0], scalars.shape[1]
+    bounds = shard_bounds(n_gen, mesh.size)
+
+    def partial(i):
+        lo, hi = bounds[i]
+        d = mesh.devices[i]
+        if hi == lo:
+            return torch.zeros((3, B, LIMBS), dtype=torch.int32, device=d)
+        with on_device(d):
+            ctx_d = ctx if d == ctx.device else LimbContext(ctx.params, d)
+            return panel_of(msm_fixed_tables(ctx_d, tables[lo:hi].to(d), scalars[lo:hi].to(d)))
+
+    if mesh.distributed:
+        import torch.distributed as dist
+        from ..parallel.distributed import all_gather_batch
+
+        (entry,) = mesh.local_entries(dist.get_rank())
+        local = partial(entry)[None]  # (1, 3, B, 8)
+        parts = all_gather_batch(local, [(i, i + 1) for i in range(mesh.size)]).to(ctx.device)
+    else:
+        parts = torch.stack([partial(i).to(ctx.device) for i in range(mesh.size)])
+    total = pt_infinity(ctx, (B,))
+    for part in parts:
+        total = pt_add(ctx, total, point_of(part))
+    return pt_to_affine(ctx, total)
 
 
 def scalar_bits(scalar_limbs: torch.Tensor) -> torch.Tensor:

@@ -211,6 +211,26 @@ build, a failed launch or a failed comparison raises and the exit code is not
                first solve's peak device allocation over its state and over
                the solver's estimate of a pass (``pass_peaks``: it fails if
                a peak passes ``PASS_PEAK_OVER_ESTIMATE`` x ``pass_bytes``);
+16c. ``native``  the host Grumpkin library: its g++ build timed, held against
+               the pure-Python curve (scalar multiples at the edges, additions
+               through infinity, an MSM, two window tables, the three host
+               black boxes), one 64-window table and each gadget solver's
+               plan and tables (fixed_base, pedersen, schnorr) native and
+               plain, in turns; ``dot_mxu`` against its plain version at
+               every term count 1-8 on edge values and against the v2 dot,
+               timed beside it at row 4's shape without scale (E = B = 2,048,
+               T = 3) and on the wide panels (T = 4 and 8, E = 8,192, B =
+               2,048); ``path_dyn_mxu``: path_dyn's circuit under
+               ``dot_kernel="mxu"``, flags and panel equal to the v2 solve's,
+               device solves v2, mxu, mxu, v2; ``path_mesh``: (a) the
+               2^16-gate circuit at B = 8,192 over four entries of the card
+               against one solve (flags, the last witness row, two witness
+               maps a shard; ``solve()`` seconds of each), (b)
+               ``pedersen_msm_sharded`` of 64 generators x 2,048 over four
+               entries against ``msm_fixed_tables`` and the host library,
+               (c) ``launch_local``: two ranks on the card over gloo and one
+               NCCL rank, each solving its slice of B = 4,096, every rank's
+               gathered result equal to the one solve's;
 17. ``kernels`` every kernel against its plain PyTorch version at the main
                path's shapes (tolerance 0: integers), its time, the plain
                version's time over the same whole shape, its bound and its
@@ -258,6 +278,7 @@ from pathlib import Path
 MEM_BYTES_PER_S = 3.35e12
 INT32_MADDS_PER_S = 132 * 64 * 1.98e9
 MADDS_PER_MONT_MUL = 136  # 8x8 a*b + 8x8 m*p + 8 m = t0*n0
+U8_OPS_PER_S = 1.979e15  # data sheet: dense int8 tensor-core operations
 
 
 def emit(obj) -> None:
@@ -3638,11 +3659,351 @@ def main() -> int:
     assert PASS_PEAKS[worst]["peak_over_estimate"] <= PASS_PEAK_OVER_ESTIMATE, (
         worst, PASS_PEAKS[worst])
 
+    # -- 16c. native, dot_mxu, path_dyn_mxu, path_mesh -------------------------------
+    # The last modules of the port: the host Grumpkin library, the tensor-core
+    # expression dot and the batch sharded over a mesh.  Each drive's launches
+    # are counted from 0.
+    import random
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from acvm_tpu_torch import native
+    from acvm_tpu_torch.fields import mxu_ops
+    from acvm_tpu_torch.parallel import launcher, make_mesh
+
+    last_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # native: g++ builds the library (timed into a scratch directory), then it
+    # is held against the pure-Python curve: scalar multiples at the edges,
+    # additions through infinity, an MSM, the window tables, the host black
+    # boxes; one 64-window table and each gadget solver's plan and tables,
+    # native and plain, in turns (plain, native, native, plain).
+    build_dir = native.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="acvm_native_") as tmp:
+        native.BUILD_DIR = Path(tmp)
+        t0 = time.perf_counter()
+        native.build()
+        native_build_seconds = time.perf_counter() - t0
+        native.BUILD_DIR = build_dir
+    curve = host_gk.grumpkin
+    G = curve.generator()
+    rng_n = random.Random(18)
+    scalars_n = [0, 1, 2, N_ORDER - 1, N_ORDER, (1 << 256) - 1] + [rng_n.randrange(N_ORDER)
+                                                                  for _ in range(10)]
+    for k in scalars_n:
+        assert native.grumpkin_mul(G, k) == curve.mul(k % N_ORDER, G), k
+    pts_n = [curve.mul(rng_n.randrange(N_ORDER), G) for _ in range(6)] + [None]
+    for a in pts_n:
+        for b in (pts_n[0], a, None if a is None else curve.neg(a), None):
+            assert native.grumpkin_add(a, b) == curve.add(a, b)
+    want = None
+    for p_i, k in zip(pts_n, scalars_n):
+        want = curve.add(want, curve.mul(k % N_ORDER, p_i))
+    assert native.grumpkin_msm(pts_n, scalars_n[:len(pts_n)]) == want
+    assert native.grumpkin_mul_batch(G, scalars_n) == [curve.mul(k % N_ORDER, G) for k in scalars_n]
+    for i in range(2):
+        gen = host_gk.derive_generator(0, i)
+        assert np.array_equal(ec._window_table_np(gen), ec._window_table_np(gen, native=False))
+    low, high = fe(rng_n.randrange(1 << 128)), fe(rng_n.randrange(1 << 120))
+    assert host_gk.fixed_base_scalar_mul(low, high) == host_gk.fixed_base_scalar_mul(
+        low, high, native=False)
+    ins = [fe(rng_n.randrange(P)) for _ in range(3)]
+    assert host_gk.pedersen_commit(ins, 0) == host_gk.pedersen_commit(ins, 0, native=False)
+    key = rng_n.randrange(1, N_ORDER)
+    pub = host_gk.schnorr_public_key(key)
+    sig = host_gk.schnorr_sign(key, b"native")
+    for use in (True, False):
+        assert host_gk.schnorr_verify(pub[0], pub[1], sig, b"native", native=use)
+        assert not host_gk.schnorr_verify(pub[0], pub[1], sig, b"nativf", native=use)
+
+    def table_ms(use_native, reps=5):
+        times = []
+        for _ in range(reps):
+            ec._window_table_np.cache_clear()
+            t0 = time.perf_counter()
+            ec._window_table_np(G, ec.NUM_WINDOWS, use_native)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    window_window = ec.window_table
+
+    def plan_and_tables(circuit, use_native):
+        """plan_circuit + BatchSolver (which builds the window tables), the
+        tables' cache emptied first; the plain tables by the solver's own
+        calls to ec.window_table with native=False."""
+        ec._window_table_np.cache_clear()
+        if not use_native:
+            ec.window_table = lambda p, windows=ec.NUM_WINDOWS, device="cuda", native=True: \
+                window_window(p, windows, device, False)
+        try:
+            t0 = time.perf_counter()
+            BatchSolver(plan_circuit(circuit))
+            return time.perf_counter() - t0
+        finally:
+            ec.window_table = window_window
+
+    tables_report = {"table_ms": {}, "plan_and_tables_seconds": {}}
+    for order in ("plain", "native", "native", "plain"):
+        tables_report["table_ms"].setdefault(order, []).append(table_ms(order == "native"))
+    for kind, n in (("fixed_base", 4), ("pedersen", 2), ("schnorr", 2)):
+        gadget_circuit = build_gadget_circuit(kind, n, msg_len=32)
+        secs = {}
+        for order in ("plain", "native", "native", "plain"):
+            secs.setdefault(order, []).append(plan_and_tables(gadget_circuit, order == "native"))
+        tables_report["plan_and_tables_seconds"][kind] = secs
+    ec._window_table_np.cache_clear()
+    emit({"native": {"card": smi, "ok": True, "library": native.library_path().name,
+                     "build_seconds": native_build_seconds,
+                     "checked": {"scalars": len(scalars_n), "points": len(pts_n),
+                                 "tables": 2, "black_boxes": 3},
+                     **tables_report}})
+
+    # dot_mxu against its plain version: every term count 1-8 at the edges
+    # (zeros, ones, p - 1, a zero coefficient: a padding term; 300 instances,
+    # a ragged last block; one instance), then the timed panels: row 4's shape
+    # without scale (E = B = 2,048, T = 3) and the wide panels the JAX gate's
+    # docstring names (T = 4 and 8 at E = 8,192, B = 2,048); each also
+    # against the v2 dot on the same panel, which is timed beside it.
+    top_limb = (P >> 224) - 1
+
+    def card_elements(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        raw = torch.randint(0, 1 << 32, (*shape, 8), dtype=torch.int64, device=dev, generator=g)
+        raw[..., 7] %= top_limb
+        return fk.wrap_i32(raw)
+
+    def limb_row(v):
+        return torch.from_numpy(fk.int_to_limbs32(v).copy()).to(dev)
+
+    ctx_mxu = LimbContext(BN254_FR, dev)
+    errs = []
+    for T in range(1, 9):
+        for E, B in ((16, 300), (3, 1)):
+            vals = card_elements((E, T, B), 100 + T)
+            coeffs = card_elements((E, T), 200 + T)
+            qc = card_elements((E,), 300 + T)
+            vals[0] = 0
+            vals[-1] = limb_row(P - 1)
+            vals[:, 0, :1] = limb_row(1)
+            coeffs[-1] = limb_row(P - 1)
+            qc[-1] = limb_row(P - 1)
+            if E > 3:
+                coeffs[1, T - 1] = 0
+                coeffs[2] = 0
+                qc[2] = 0
+            got = mxu_ops.mont_dot_mxu(vals, coeffs, qc)
+            errs.append(max_abs_err(got, mxu_ops.mont_dot_mxu_plain(vals, coeffs, qc)))
+            want_v2 = fk.mont_dot(vals, coeffs, None, None, None, ctx_mxu.from_mont(qc), None)
+            errs.append(max_abs_err(got, want_v2))
+    mxu_shapes = {}
+    for label, E, T, B in (("row4_t3", 2048, 3, 2048), ("wide_t4", 8192, 4, 2048),
+                           ("wide_t8", 8192, 8, 2048)):
+        vals = torch.cat([card_elements((E, 1, B), 400 + 10 * T + t) for t in range(T)], dim=1)
+        coeffs = card_elements((E, T), 500 + T)
+        qc = card_elements((E,), 600 + T)
+        qc_std = ctx_mxu.from_mont(qc)
+        got = mxu_ops.mont_dot_mxu(vals, coeffs, qc)
+        checked = E if label == "row4_t3" else 256
+        errs.append(max_abs_err(got[:checked], mxu_ops.mont_dot_mxu_plain(
+            vals[:checked], coeffs[:checked], qc[:checked])))
+        errs.append(max_abs_err(got, fk.mont_dot(vals, coeffs, None, None, None, qc_std, None)))
+        run_mxu = lambda: mxu_ops.mont_dot_mxu(vals, coeffs, qc)  # noqa: E731
+        run_dot = lambda: fk.mont_dot(vals, coeffs, None, None, None, qc_std, None)  # noqa: E731
+        need = mxu_ops.panel_ops(E, T, B)
+        t_bytes = need["bytes"] / MEM_BYTES_PER_S * 1e3
+        t_ops = (2 * need["u8_macs"] / U8_OPS_PER_S + need["madds"] / INT32_MADDS_PER_S) * 1e3
+        dot_b_ms, dot_b_by = bound(32 * E * B * (T + 1) + 32 * E * (T + 1),
+                                   T * MADDS_PER_MONT_MUL * E * B)
+        row = {"E": E, "T": T, "B": B, "checked_gates_against_plain": checked,
+               "ms": time_ms(run_mxu), "ms_queued": time_ms(run_mxu, calls=10),
+               "ms_graph": graph_ms(run_mxu),
+               "dot_ms": time_ms(run_dot), "dot_ms_queued": time_ms(run_dot, calls=10),
+               "dot_ms_graph": graph_ms(run_dot),
+               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_ops_ms": t_ops, "dot_bound_ms": dot_b_ms, "dot_bound_by": dot_b_by}
+        if label == "row4_t3":
+            row["plain_ms"] = time_ms(lambda: mxu_ops.mont_dot_mxu_plain(vals, coeffs, qc),
+                                      reps=3, warmup=1)
+        mxu_shapes[label] = row
+        del vals, coeffs, qc, qc_std, got
+        torch.cuda.empty_cache()
+    shared_fn = ctypes.CDLL(str(build.lib_path("dot_mxu"))).acvm_dot_mxu_shared_bytes
+    main_row = mxu_shapes["row4_t3"]
+    kernels["dot_mxu"] = dict(
+        name="dot_mxu", route="cuda", source="acvm_tpu_torch/csrc/dot_mxu.cu",
+        replaces="acvm_tpu/fields/mxu_ops.py:157",
+        shape="E=2048, T=3, B=2048 (row 4's shape, no scale)", max_abs_err=max(errs),
+        edge_cases=len(errs), ms=main_row["ms"], ms_queued=main_row["ms_queued"],
+        ms_graph=main_row["ms_graph"], plain_ms=main_row["plain_ms"],
+        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"], library_ms=None,
+        library_ms_reason="no PyTorch call computes a modular expression dot; the v2 dot "
+                          "(a hand-written kernel) is timed beside it as dot_ms",
+        shapes=mxu_shapes, shared_bytes_by_terms={T: shared_fn(T) for T in range(1, 9)})
+
+    # path_dyn_mxu: path_dyn's circuit under dot_kernel="mxu": the flags and
+    # the whole panel equal to the v2 solve's; device solves v2, mxu, mxu, v2.
+    circuit = build_wide_arith_circuit(num_inputs=128, num_levels=4, gates_per_level=4096,
+                                       dyn_fraction=0.5, seed=1234)
+    plan = plan_circuit(circuit)
+    inputs = random_inputs(circuit, batch)
+    v2_solver = BatchSolver(plan)
+    res_v2 = v2_solver.solve(inputs)
+    solver = BatchSolver(plan, dot_kernel="mxu")
+    build.reset_launches()
+    res = solver.solve(inputs)
+    torch.cuda.synchronize()
+    dyn_mxu_launches = dict(build.LAUNCHES)
+    assert res.ok.all() and np.array_equal(res.ok, res_v2.ok) and np.array_equal(res.fail, res_v2.fail)
+    assert torch.equal(res.panel, res_v2.panel)
+    assert dyn_mxu_launches["dot_mxu"] > 0 and dyn_mxu_launches["dot"] > 0, dyn_mxu_launches
+    check_instances(circuit, inputs, res, (0, batch - 1))
+    mxu_panels = [(tuple(packed["arith_dyn"]["den"]["lin_idx"].shape),
+                   tuple(packed["arith_dyn"]["den"]["mul_idx"].shape))
+                  for segment in solver.segments for packed in segment.levels
+                  if "arith_dyn" in packed["kinds"]]
+    gates = len(circuit.opcodes)
+    del res, res_v2
+    states = {"v2": v2_solver.initial_state(inputs), "mxu": solver.initial_state(inputs)}
+    solvers = {"v2": v2_solver, "mxu": solver}
+    dyn_secs = {"v2": [], "mxu": []}
+    for label in ("v2", "mxu", "mxu", "v2"):
+        dyn_secs[label].append(timed_rate(device_solve_of(solvers[label], states[label], torch),
+                                          batch * gates, reps=3)[1])
+    emit({"path_dyn_mxu": {
+        "card": smi, "gates": gates, "batch": batch, "dyn_fraction": 0.5, "dot_kernel": "mxu",
+        "ok": True, "equals_v2_panel": True, "checked_instances": [0, batch - 1],
+        "launches": dyn_mxu_launches, "den_panels_lin_and_mul_idx": mxu_panels,
+        "solve_seconds_by_route": dyn_secs, "order": "v2, mxu, mxu, v2",
+        "dyn_solves_per_sec": batch * gates / statistics.median(dyn_secs["mxu"]),
+        "dyn_solves_per_sec_v2": batch * gates / statistics.median(dyn_secs["v2"])}})
+    del states, solvers, solver, v2_solver
+    torch.cuda.empty_cache()
+
+    # path_mesh (a): the 2^16-gate circuit at B = 8,192 over four entries of
+    # this card (four 2,048-instance shards) against one solve of the batch:
+    # flags, the last witness row, two instances' witness maps a shard.
+    circuit = build_wide_arith_circuit(num_inputs=128, num_levels=8, gates_per_level=8192,
+                                       seed=1234)
+    plan = plan_circuit(circuit)
+    mesh_B, shards = 8192, 4
+    inputs = random_inputs(circuit, mesh_B)
+    last = plan.num_witnesses - 1
+    watch = sorted({b for s in range(shards) for b in (s * 2048, s * 2048 + 1)} | {2047, 4095})
+    one = BatchSolver(plan)
+    t0 = time.perf_counter()
+    res = one.solve(inputs)
+    one_secs = [time.perf_counter() - t0]
+    assert res.ok.all()
+    want_ok, want_fail = res.ok.copy(), res.fail.copy()
+    want_row = res.witness_ints(last)
+    want_cols = {b: res.instance_ints(b) for b in watch}
+    check_instances(circuit, inputs, res, (0, mesh_B - 1))
+    res.release()
+    del res
+    mesh = make_mesh([dev] * shards)
+    sharded = BatchSolver(plan, mesh=mesh)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = sharded.solve(inputs)
+    mesh_secs = [time.perf_counter() - t0]
+    torch.cuda.synchronize()
+    mesh_a_launches = dict(build.LAUNCHES)
+    assert len(res.parts) == shards and mesh_a_launches["level"] == 8 * shards, mesh_a_launches
+    assert np.array_equal(res.ok, want_ok) and np.array_equal(res.fail, want_fail)
+    assert res.witness_ints(last) == want_row
+    assert all(res.instance_ints(b) == want_cols[b] for b in watch)
+    res.release()
+    del res
+    for label in ("mesh", "one", "one", "mesh"):
+        s = sharded if label == "mesh" else one
+        t0 = time.perf_counter()
+        r = s.solve(inputs)
+        (mesh_secs if label == "mesh" else one_secs).append(time.perf_counter() - t0)
+        assert np.array_equal(r.ok, want_ok)
+        r.release()
+        del r
+    torch.cuda.empty_cache()
+
+    # (b) pedersen_msm_sharded: 64 generators x B = 2,048 over four entries,
+    # against msm_fixed_tables and, on two instances, the host library's MSM.
+    ctx_ec = LimbContext(BN254_FR, dev)
+    gens = [host_gk.derive_generator(0, i) for i in range(64)]
+    ec._window_table_np.cache_clear()
+    t0 = time.perf_counter()
+    msm_tables = torch.stack([ec.window_table(g, device=dev) for g in gens])
+    tables_seconds = time.perf_counter() - t0
+    msm_scalars = card_elements((64, 2048), 700)
+    want_xy = ec.pt_to_affine(ctx_ec, ec.msm_fixed_tables(ctx_ec, msm_tables, msm_scalars))
+    build.reset_launches()
+    got_xy = ec.pedersen_msm_sharded(ctx_ec, msm_tables, msm_scalars, mesh)
+    torch.cuda.synchronize()
+    mesh_b_launches = dict(build.LAUNCHES)
+    assert all(torch.equal(a, b) for a, b in zip(got_xy, want_xy))
+    host_scalars = msm_scalars[:, :2].cpu().numpy()
+    for b in range(2):
+        want_pt = native.grumpkin_msm(gens, fk.limbs32_to_ints(host_scalars[:, b]))
+        assert (fk.limbs32_to_ints(got_xy[0][b].cpu().numpy())[0],
+                fk.limbs32_to_ints(got_xy[1][b].cpu().numpy())[0]) == want_pt
+    msm_ms = {"sharded": time_ms(lambda: ec.pedersen_msm_sharded(ctx_ec, msm_tables, msm_scalars, mesh), reps=3),
+              "msm_fixed_tables": time_ms(lambda: ec.pt_to_affine(
+                  ctx_ec, ec.msm_fixed_tables(ctx_ec, msm_tables, msm_scalars)), reps=3)}
+    del msm_tables, msm_scalars, want_xy, got_xy
+    torch.cuda.empty_cache()
+
+    # (c) launch_local: two ranks on this card over gloo, each solving half of
+    # B = 4,096 of the same circuit, and a one-rank NCCL group solving all of
+    # it, side by side; each rank reads the gathered flags, the last witness
+    # row and four instances' witness maps, equal to the one solve's.
+    c_B = 4096
+    c_watch = [0, 2047, 2048, 4095]
+
+    def digest(obj):
+        return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+    want_c = {"ok": int(want_ok[:c_B].sum()), "fail": digest(want_fail[:c_B].tolist()),
+              "row": digest(want_row[:c_B]), "cols": {str(b): digest(want_cols[b]) for b in c_watch}}
+    worker = MESH_WORKER.format(repo=str(Path(__file__).resolve().parent), batch=c_B,
+                                watch=c_watch, last=last)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        jobs = {"gloo_2_ranks": pool.submit(launcher.launch_local, 2, ["-c", worker],
+                                            platform="cuda", timeout=400),
+                "nccl_1_rank": pool.submit(launcher.launch_local, 1, ["-c", worker],
+                                           platform="cuda", timeout=400)}
+        ranks = {label: [json.loads(r.stdout.strip().splitlines()[-1]) for r in job.result()]
+                 for label, job in jobs.items()}
+    mesh_c_launches = {}
+    for label, lines in ranks.items():
+        backend = "gloo" if label.startswith("gloo") else "nccl"
+        assert [line["rank"] for line in lines] == list(range(len(lines))), lines
+        counts = Counter()
+        for line in lines:
+            assert line["backend"] == backend and line["world"] == len(lines), line
+            assert {k: line[k] for k in want_c} == want_c, (label, line["rank"])
+            counts.update(line["launches"])
+        assert counts["level"] == 8 * len(lines), (label, counts)
+        mesh_c_launches[label] = {name: counts[name] for name in build.KERNELS}
+    emit({"path_mesh": {
+        "card": smi, "ok": True,
+        "a": {"gates": len(circuit.opcodes), "batch": mesh_B, "shards": shards,
+              "mesh": [str(d) for d in mesh.devices], "shard_panel_bytes": sharded.panel_bytes(2048),
+              "checked_instances": watch, "launches": mesh_a_launches,
+              "solve_seconds_sharded": mesh_secs, "solve_seconds_one": one_secs,
+              "order": "one, mesh, then mesh, one, one, mesh"},
+        "b": {"generators": 64, "batch": 2048, "entries": shards, "launches": mesh_b_launches,
+              "tables_seconds": tables_seconds, "ms": msm_ms},
+        "c": {"batch": c_B, "ranks": ranks},
+        "phase_seconds": time.perf_counter() - last_t0}})
+    del one, sharded, inputs, want_cols
+    torch.cuda.empty_cache()
+
     # -- 17. kernels, 18. card, 19. verdict -------------------------------------------
     paths = {"static": static_launches, "dyn": dyn_launches, "dyn_v1": v1_launches,
              **{f"ec_{kind}": counts for kind, counts in ec_launches.items()}, "int": int_launches,
              "sha": sha_launches, "mem": mem_launches, "host": host_launches, "vm": vm_launches,
-             "hash": hash_launches, **ecdsa_launches, **api_launches}
+             "hash": hash_launches, **ecdsa_launches, **api_launches, "dyn_mxu": dyn_mxu_launches,
+             "mesh_a": mesh_a_launches, "mesh_b": mesh_b_launches,
+             **{f"mesh_c_{label}": counts for label, counts in mesh_c_launches.items()}}
     # Kernels that no path launches since another took their place: inv_wide
     # runs path_ecdsa's inversions where pow_wide did (pow_wide stays
     # mont_pow's wide route and inv_wide's yardstick above), and
@@ -3778,6 +4139,43 @@ def device_solve_of(solver, state, torch):
         solver.run_segments(state)
         torch.cuda.synchronize()
     return run
+
+
+# One rank of path_mesh (c), run by ``launcher.launch_local`` as ``python -c``:
+# the whole batch on every rank, its own slice solved, the gathered result
+# read back (each read a collective, the same on every rank) and printed.
+MESH_WORKER = """
+import hashlib, json, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+from acvm_tpu_torch.parallel import distributed
+distributed.initialize_from_env()
+import torch.distributed as dist
+from acvm_tpu_torch import build
+from acvm_tpu_torch.gpu import BatchSolver, plan_circuit
+from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+
+def digest(obj):
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+circuit = build_wide_arith_circuit(num_inputs=128, num_levels=8, gates_per_level=8192, seed=1234)
+solver = BatchSolver(plan_circuit(circuit), mesh=distributed.global_mesh())
+inputs = random_inputs(circuit, {batch})
+mine = distributed.process_batch_slice({batch})
+dist.barrier()
+build.reset_launches()
+t0 = time.perf_counter()
+res = solver.solve(inputs)
+seconds = time.perf_counter() - t0
+launches = {{k: v for k, v in build.LAUNCHES.items() if v}}
+line = {{"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(),
+        "device": str(solver.device), "slice": [mine.start, mine.stop], "solve_seconds": seconds,
+        "ok": int(res.ok.sum()), "fail": digest(res.fail.tolist()),
+        "row": digest(res.witness_ints({last})),
+        "cols": {{str(b): digest(res.instance_ints(b)) for b in {watch}}}, "launches": launches}}
+print(json.dumps(line), flush=True)
+dist.destroy_process_group()
+"""
 
 
 if __name__ == "__main__":

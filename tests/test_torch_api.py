@@ -201,8 +201,12 @@ def test_config_solver_device_and_mesh():
     solver = config.solver(config.plan(_arith_circuit()), max_batch_per_pass=1)
     assert str(solver.device) == "cpu" and solver.max_batch_per_pass() == 1
     assert solver.solve([{1: 41}, {1: 1}]).ok.all()
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        EngineConfig(device="cpu", mesh_shape=(1,)).solver(config.plan(_arith_circuit()))
+    # A mesh of the config's distinct devices: the CPU is one.
+    sharded = EngineConfig(device="cpu", mesh_shape=(1,)).solver(config.plan(_arith_circuit()))
+    assert sharded.mesh.size == 1 and str(sharded.device) == "cpu"
+    assert sharded.solve([{1: 41}, {1: 1}]).ok.all()
+    with pytest.raises(ValueError, match="mesh_shape"):
+        EngineConfig(device="cpu", mesh_shape=(2,)).solver(config.plan(_arith_circuit()))
 
 
 def test_config_generator_table_does_not_leak_across_configs():

@@ -1008,3 +1008,115 @@ def test_compiled_circuit_on_card_equals_cpu(card):
     n = circuit.current_witness_index + 1
     plain = BatchSolver(plan_circuit(circuit)).solve(inputs)
     assert torch.equal(gpu.panel[:n], plain.panel[:n])
+
+
+# -- the last modules: the tensor-core dot, the mesh, the host library --------
+
+
+@pytest.mark.parametrize("T", range(1, 9))
+def test_dot_mxu_kernel_equals_plain_version_and_v2(card, T):
+    from acvm_tpu_torch.fields import mxu_ops
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+
+    P = BN254_FR.modulus
+    for E, B in ((9, 300), (3, 1), (3, 520)):
+        vals = elements(E * T * B, BN254_FR, 10 + T).reshape(E, T, B, 8).to(card)
+        coeffs = elements(E * T, BN254_FR, 20 + T).reshape(E, T, 8).to(card)
+        qc = elements(E, BN254_FR, 30 + T).to(card)
+        vals[-1] = torch.from_numpy(fk.int_to_limbs32(P - 1).copy()).to(card)
+        coeffs[0, -1] = 0  # a padding term
+        before = build.LAUNCHES["dot_mxu"]
+        got = mxu_ops.mont_dot_mxu(vals, coeffs, qc)
+        assert build.LAUNCHES["dot_mxu"] == before + 1
+        assert torch.equal(got, mxu_ops.mont_dot_mxu_plain(vals, coeffs, qc))
+        ctx = LimbContext(BN254_FR, card)
+        assert torch.equal(got, fk.mont_dot(vals, coeffs, None, None, None, ctx.from_mont(qc), None))
+
+
+def test_mxu_solver_on_card_equals_v2(card):
+    circuit = with_repeated_constraints(build_wide_arith_circuit(
+        num_inputs=16, num_levels=2, gates_per_level=256, dyn_fraction=0.5, seed=5), 32)
+    plan = plan_circuit(circuit)
+    inputs = random_inputs(circuit, 1000)
+    ref = BatchSolver(plan).solve(inputs)
+    build.reset_launches()
+    res = BatchSolver(plan, dot_kernel="mxu").solve(inputs)
+    assert build.LAUNCHES["dot_mxu"] > 0
+    assert res.ok.all() and torch.equal(res.panel, ref.panel)
+
+
+def test_mesh_solve_on_card_equals_unsharded(card):
+    from acvm_tpu_torch.parallel import make_mesh
+
+    circuit = build_wide_arith_circuit(num_inputs=16, num_levels=3, gates_per_level=512,
+                                       dyn_fraction=0.5, seed=6)
+    plan = plan_circuit(circuit)
+    for B in (1, 2, 1001):
+        inputs = random_inputs(circuit, B)
+        ref = BatchSolver(plan).solve(inputs)
+        res = BatchSolver(plan, mesh=make_mesh([card] * 3)).solve(inputs)
+        assert np.array_equal(res.ok, ref.ok) and np.array_equal(res.fail, ref.fail)
+        assert torch.equal(res.panel, ref.panel)
+        assert res.instance_ints(B - 1) == ref.instance_ints(B - 1)
+
+
+def test_pedersen_msm_sharded_on_card(card):
+    from acvm_tpu_torch.blackbox.grumpkin import derive_generator
+    from acvm_tpu_torch.fields.torch_ops import LimbContext
+    from acvm_tpu_torch.gpu import ec
+    from acvm_tpu_torch.parallel import make_mesh
+
+    ctx = LimbContext(BN254_FR, card)
+    tables = torch.stack([ec.window_table(derive_generator(0, i), device=card) for i in range(5)])
+    scalars = elements(5 * 64, BN254_FR, 40).reshape(5, 64, 8).to(card)
+    want = ec.pt_to_affine(ctx, ec.msm_fixed_tables(ctx, tables, scalars))
+    for k in (1, 2, 4):
+        got = ec.pedersen_msm_sharded(ctx, tables, scalars, make_mesh([card] * k))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+MESH_JOB = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np, torch
+from acvm_tpu_torch.parallel import distributed
+distributed.initialize_from_env()
+import torch.distributed as dist
+from acvm_tpu_torch.gpu import BatchSolver, plan_circuit
+from acvm_tpu_torch.utils import build_wide_arith_circuit, random_inputs
+circuit = build_wide_arith_circuit(num_inputs=16, num_levels=3, gates_per_level=512,
+                                   dyn_fraction=0.5, seed=6)
+plan = plan_circuit(circuit)
+inputs = random_inputs(circuit, 777)
+res = BatchSolver(plan, mesh=distributed.global_mesh()).solve(inputs)
+ref = BatchSolver(plan, device=distributed.local_device()).solve(inputs)
+assert np.array_equal(res.ok, ref.ok) and np.array_equal(res.fail, ref.fail)
+assert res.witness_ints(plan.num_witnesses - 1) == ref.witness_ints(plan.num_witnesses - 1)
+assert res.instance_ints(776) == ref.instance_ints(776)
+print(json.dumps({{"rank": dist.get_rank(), "backend": dist.get_backend()}}))
+dist.destroy_process_group()
+"""
+
+
+def test_launch_local_on_card_over_gloo_and_nccl(card):
+    import json
+    from pathlib import Path
+
+    from acvm_tpu_torch.parallel import launcher
+
+    job = MESH_JOB.format(repo=str(Path(__file__).resolve().parents[1]))
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        if n > 1 and torch.cuda.device_count() >= n:
+            backend = "nccl"
+        results = launcher.launch_local(n, ["-c", job], platform="cuda", timeout=600)
+        lines = [json.loads(r.stdout.strip().splitlines()[-1]) for r in results]
+        assert [(line["rank"], line["backend"]) for line in lines] == \
+            [(r, backend) for r in range(n)]
+
+
+def test_native_library_builds_on_the_card_s_machine(card):
+    from acvm_tpu_torch import native
+    from acvm_tpu_torch.blackbox.ec import grumpkin
+
+    G = grumpkin.generator()
+    assert native.grumpkin_mul(G, 12345) == grumpkin.mul(12345, G)

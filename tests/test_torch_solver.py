@@ -35,6 +35,7 @@ from acvm_tpu_torch.acir import opcodes as ops
 from acvm_tpu_torch.fields.field import FieldElement
 from acvm_tpu_torch.fields.params import BN254_FR
 from acvm_tpu_torch.gpu import FAIL_NONE, BatchSolver, plan_circuit
+from acvm_tpu_torch.parallel import make_mesh
 from acvm_tpu_torch.utils import (
     PORT_CLASSES, build_wide_arith_circuit, random_inputs, with_repeated_constraints,
 )
@@ -347,8 +348,12 @@ def test_memory_circuit_solves_as_sequential_engine():
 
 
 def test_unported_options_raise(case):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BatchSolver(case["plan"], mesh=object(), device="cpu")
+    # Sharding over a mesh is ported (acvm_tpu_torch/parallel): three
+    # instances over two CPU entries give the unsharded solve's bits.
+    res = BatchSolver(case["plan"], mesh=make_mesh(["cpu"] * 2)).solve(case["inputs"][:3])
+    assert np.array_equal(res.ok, case["res"].ok[:3])
+    assert np.array_equal(res.fail, case["res"].fail[:3])
+    assert torch.equal(res.panel, case["res"].panel[:, :3])
     # The two ingest forms are ported: what they refuse is their input
     # (tests/test_torch_host_stages.py holds them to the dict forms).
     with pytest.raises(ValueError, match="uint8/uint16"):

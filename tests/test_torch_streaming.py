@@ -249,9 +249,15 @@ def test_cli_solve_on_the_cpu_and_what_raises(circuit_file, capsys):
     with pytest.raises(SystemExit):
         cli.main(["solve", "--circuit", circuit_file, "--witness-json", '{"1": 1, "2": 2, "3": 4}',
                   "--batch", "2", "--device", "cpu"])
-    for flag in ("--mesh", "--distributed"):
-        with pytest.raises(NotImplementedError, match="several devices"):
-            cli.main(["solve", "--circuit", circuit_file, flag, "--device", "cpu"])
+    # --mesh shards over the CPU, one entry; --distributed without a job's
+    # environment has no coordinator to join.
+    capsys.readouterr()
+    cli.main(["solve", "--circuit", circuit_file, "--witness-json", '{"1": 1, "2": 2}',
+              "--batch", "3", "--device", "cpu", "--mesh"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["satisfied"] == 3 and out["shards"] == 1
+    with pytest.raises(ValueError, match="coordinator"):
+        cli.main(["solve", "--circuit", circuit_file, "--device", "cpu", "--distributed"])
     with pytest.raises(NotImplementedError, match="queue 1 item 1"):
         cli.main(["bench"])
     cli.main(["--log-level", "INFO", "info", "--circuit", circuit_file])
@@ -284,6 +290,8 @@ print(len(names), loaded)
     for name in ("acir.serialization", "compiler", "compiler.csat", "compiler.fallback",
                  "compiler.general_opt", "compiler.range_opt", "config", "api", "cli",
                  "stdlib.blake2s", "stdlib.hash_to_field", "stdlib.keccak256",
-                 "stdlib.logic_fallbacks", "utils.benchtime", "utils.logging"):
+                 "stdlib.logic_fallbacks", "utils.benchtime", "utils.logging", "native",
+                 "parallel", "parallel.mesh", "parallel.distributed", "parallel.launcher",
+                 "fields.mxu_ops"):
         assert (REPO / "acvm_tpu_torch" / (name.replace(".", "/") + ".py")).exists() or \
             (REPO / "acvm_tpu_torch" / name.replace(".", "/") / "__init__.py").exists(), name
